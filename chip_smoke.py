@@ -10,18 +10,21 @@ Phases, in order; any failure raises and exits non-zero:
   2. the build of every CUDA kernel from src/repro_torch/kernels/csrc
      (one nvcc per source, all started together);
   3. every kernel against its plain PyTorch version on the card at the
-     main path's shapes, with the stated tolerances, and the Lloyd
-     kernel's bitwise determinism across two runs;
+     main path's shapes and at ragged ones, with the stated tolerances,
+     and the bitwise determinism of the Lloyd, min-distance and RBF
+     kernels across two runs;
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
      weak runs): n_iter, assignments, centroids, DRE thresholds, reported;
-  5. a small fed_train on the card against the same run on the CPU (which
-     takes the plain versions);
-  6. the main path: fed_train edgefd, strong and weak, 10 clients with
-     MNIST's split sizes (n_train 60000, n_test 10000), 3 rounds, proxy
-     batch 512, with each kernel's launch count (counts set to 0 just
-     before and read just after);
+  5. small fed_train runs (edgefd and selective-fd) on the card against
+     the same runs on the CPU (which takes the plain versions);
+  6. the main path: fed_train, 10 clients with MNIST's split sizes
+     (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
+     selective-fd, strong and weak, and the seven methods without a kernel
+     of their own (fedmd, feded, dsfl, fkd, pls, indlearn, server_distill),
+     strong — with each kernel's launch count (counts set to 0 just before
+     and read just after);
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -50,8 +53,17 @@ TEMPERATURE = 3.0
 # tolerances, as in tests/test_torch_kernels_ref.py
 LLOYD_RTOL = LLOYD_ATOL = 1e-5
 KL_RTOL, KL_ATOL = 1e-5, 1e-6
+# min distance: |Δd²| ≤ rtol·(x² + c²) + atol; RBF: |ΔK| ≤ K·rtol·(a² +
+# b²)/(2σ²) + atol — each relative to the terms the matmul form cancels
+DIST_RTOL = DIST_ATOL = 1e-5
+RBF_RTOL, RBF_ATOL = 1e-5, 1e-6
+SIGMA = 4.0                          # Selective-FD's KuLSIF bandwidth
 MAIN_LLOYD = dict(n=6000, d=50)      # one strong client's private set
 MAIN_KL = (64, 10)                   # one distill step: batch x classes
+MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
+MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
+METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
+                           "indlearn", "server_distill")
 
 
 def log(msg: str) -> None:
@@ -202,6 +214,83 @@ def check_kl(n, k, seed=0):
     return errs
 
 
+def check_min_dist(t, d, k, seed=0):
+    """Min-distance kernel vs plain version, at a device threshold that
+    splits the rows in half and at an infinite one (the calibration's);
+    returns the max abs error of the distances."""
+    import torch
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    x, cents = (v[0] for v in lloyd_inputs(t, d, k, seed))
+    want_d, _ = ref.min_dist_and_mask(x, cents, float("inf"))
+    thr = torch.quantile(want_d, 0.5).reshape(1)
+    want_m = want_d <= thr
+    got_d, got_m = ops.min_dist_and_mask_cuda(x, cents, thr)
+    again = ops.min_dist_and_mask_cuda(x, cents, thr)
+    inf_m = ops.min_dist_and_mask_cuda(
+        x, cents, torch.full((1,), float("inf"), device="cuda"))[1]
+    torch.cuda.synchronize()
+    if not (torch.equal(got_d, again[0]) and torch.equal(got_m, again[1])):
+        raise AssertionError(f"min_dist_and_mask t={t} k={k}: two runs "
+                             "differ")
+    if not bool(inf_m.all()):
+        raise AssertionError(f"min_dist_and_mask t={t} k={k}: an infinite "
+                             "threshold left rows out")
+    scale = torch.sum(x * x, -1) + torch.amax(torch.sum(cents * cents, -1))
+    tol2 = DIST_ATOL + DIST_RTOL * scale
+    err2 = (got_d * got_d - want_d * want_d).abs()
+    if bool((err2 > tol2).any()):
+        raise AssertionError(f"min_dist_and_mask t={t} k={k}: d² off by "
+                             f"{float(err2.max())}")
+    clear = (want_d * want_d - thr * thr).abs() > tol2
+    if not torch.equal(got_m[clear], want_m[clear]):
+        raise AssertionError(f"min_dist_and_mask t={t} k={k}: masks differ "
+                             "away from the threshold")
+    err = float((got_d - want_d).abs().max())
+    log(f"  min_dist_and_mask t={t} d={d} k={k}: max|dist err|={err:.3e} "
+        f"(tol on d²: {DIST_ATOL:g} + {DIST_RTOL:g}*scale), mask flips "
+        f"{int((got_m != want_m).sum())} (all within tolerance of the "
+        "threshold) deterministic=yes")
+    return err
+
+
+def rbf_inputs(n, m, d, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    # feature-like rows (the main path's features have std ~2): proxy rows
+    # a, private rows b, half of a near rows of b
+    b = torch.randn((m, d), generator=g) * 2.0 + 0.5
+    a = torch.randn((n, d), generator=g) * 2.0 + 0.5
+    near = torch.randint(m, (n // 2,), generator=g)
+    a[: n // 2] = b[near] + 0.3 * torch.randn((n // 2, d), generator=g)
+    return a.cuda(), b.cuda()
+
+
+def check_rbf(n, m, d, seed=0):
+    """RBF Gram kernel vs plain version; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.kulsif_rbf import ops, ref
+    a, b = rbf_inputs(n, m, d, seed)
+    got = ops.rbf_matrix_cuda(a, b, SIGMA)
+    again = ops.rbf_matrix_cuda(a, b, SIGMA)
+    want = ref.rbf_matrix(a, b, SIGMA)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"rbf_matrix ({n}, {m}, {d}): two runs differ")
+    scale = torch.sum(a * a, -1)[:, None] + torch.sum(b * b, -1)[None, :]
+    tol = want * RBF_RTOL * scale / (2 * SIGMA * SIGMA) + RBF_ATOL
+    err = (got - want).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"rbf_matrix ({n}, {m}, {d}): off by "
+                             f"{float(err.max())}")
+    rel = float((err / tol).max())
+    log(f"  rbf_matrix n={n} m={m} d={d} sigma={SIGMA:g}: max|err|="
+        f"{float(err.max()):.3e} (tol K*{RBF_RTOL:g}*scale/(2σ²) + "
+        f"{RBF_ATOL:g}; worst err/tol {rel:.3f}), K in "
+        f"[{float(want.min()):.2e}, {float(want.max()):.2e}] "
+        "deterministic=yes")
+    return float(err.max())
+
+
 def check_kernels():
     log("[3] kernels vs plain versions on the card")
     lloyd_err = {}
@@ -211,7 +300,17 @@ def check_kernels():
     kl_err = {}
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         kl_err[(n, k)] = check_kl(n, k)
-    return lloyd_err, kl_err
+    dist_err = {}
+    # reports (strong k=1, weak k=3, iid k=10), a calibration, ragged t
+    for t, d, k in (MAIN_DIST, (512, 50, 3), (512, 50, 10), (6000, 50, 1),
+                    (5999, 50, 3)):
+        dist_err[(t, d, k)] = check_min_dist(t, d, k)
+    rbf_err = {}
+    # learn K11, K12; report k_ta, k_tp; ragged both ways
+    for n, m, d in ((256, 256, 50), (256, 6000, 50), (512, 256, 50),
+                    MAIN_RBF, (511, 5999, 50)):
+        rbf_err[(n, m, d)] = check_rbf(n, m, d)
+    return lloyd_err, kl_err, dist_err, rbf_err
 
 
 # ----------------------------------------------------------------- phase 4
@@ -343,45 +442,54 @@ def check_small_run():
     versions), same seed, small size: float32 matmuls differ between the
     two devices, so losses hold to rtol 1e-3 and accuracies to a sample."""
     log("[5] small fed_train: card vs CPU")
-    base = ["--method", "edgefd", "--scenario", "weak", "--clients", "4",
-            "--rounds", "2", "--n-train", "800", "--n-test", "200"]
-    gpu = fed_train(base + ["--device", "cuda"])
-    cpu = fed_train(base + ["--device", "cpu"])
-    for p, q in zip(gpu.rounds, cpu.rounds):
-        for f in ("local_loss", "distill_loss"):
-            a, b = getattr(p, f), getattr(q, f)
-            if not abs(a - b) <= 1e-3 * abs(b):
-                raise AssertionError(f"round {p.round} {f}: card {a} vs "
-                                     f"CPU {b}")
-        for a, b in zip(p.accs, q.accs):
-            if abs(a - b) > 1.5 / 200:
-                raise AssertionError(f"round {p.round} accs: card {p.accs}"
-                                     f" vs CPU {q.accs}")
-    log("  card and CPU agree")
+    for method in ("edgefd", "selective-fd"):
+        base = ["--method", method, "--scenario", "weak", "--clients", "4",
+                "--rounds", "2", "--n-train", "800", "--n-test", "200"]
+        gpu = fed_train(base + ["--device", "cuda"])
+        cpu = fed_train(base + ["--device", "cpu"])
+        for p, q in zip(gpu.rounds, cpu.rounds):
+            for f in ("local_loss", "distill_loss"):
+                a, b = getattr(p, f), getattr(q, f)
+                if not abs(a - b) <= 1e-3 * abs(b):
+                    raise AssertionError(f"{method} round {p.round} {f}: "
+                                         f"card {a} vs CPU {b}")
+            for a, b in zip(p.accs, q.accs):
+                if abs(a - b) > 1.5 / 200:
+                    raise AssertionError(f"{method} round {p.round} accs: "
+                                         f"card {p.accs} vs CPU {q.accs}")
+        log(f"  {method}: card and CPU agree")
 
 
 def launch_counts():
     from repro_torch.kernels.distill_kl import ops as kl
     from repro_torch.kernels.kmeans_dist import ops as kd
+    from repro_torch.kernels.kulsif_rbf import ops as rbf
     return {"lloyd_step": kd.lloyd_step_cuda,
+            "min_dist_and_mask": kd.min_dist_and_mask_cuda,
             "kd_kl_fwd": kl.kd_kl_fwd_cuda,
             "kd_kl_bwd_ds": kl.kd_kl_bwd_ds_cuda,
-            "kd_kl_bwd_dt": kl.kd_kl_bwd_dt_cuda}
+            "kd_kl_bwd_dt": kl.kd_kl_bwd_dt_cuda,
+            "rbf_matrix": rbf.rbf_matrix_cuda}
 
 
 def run_main_path():
+    """Phase 6. Returns the launch counts of the whole phase."""
     import torch
-    log("[6] main path: fed_train edgefd, 10 clients, n_train 60000, "
-        "n_test 10000, 3 rounds, proxy batch 512")
+    runs = ([("edgefd", sc) for sc in ("strong", "weak")]
+            + [("selective-fd", sc) for sc in ("strong", "weak")]
+            + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
+    log("[6] main path: fed_train, 10 clients, n_train 60000, n_test 10000, "
+        "3 rounds, proxy batch 512: "
+        + ", ".join(f"{m} {sc}" for m, sc in runs))
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
-    results = {}
-    for scenario in ("strong", "weak"):
+    results, per_run = {}, {}
+    for method, scenario in runs:
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fed_train(["--method", "edgefd", "--scenario", scenario,
+        res = fed_train(["--method", method, "--scenario", scenario,
                          "--clients", "10", "--rounds", "3",
                          "--n-train", "60000", "--n-test", "10000",
                          "--proxy-batch", "512", "--device", "cuda"])
@@ -390,31 +498,122 @@ def run_main_path():
         launches = {n: w.launches - before[n] for n, w in wrappers.items()}
         phases = {}
         for r in res.rounds:
-            for ph, s in r.phase_s.items():
-                phases[ph] = phases.get(ph, 0.0) + s
-            vals = (r.mean_acc, r.local_loss, r.distill_loss)
+            for ph, sec in r.phase_s.items():
+                phases[ph] = phases.get(ph, 0.0) + sec
+            vals = (r.mean_acc, r.local_loss, r.distill_loss,
+                    r.server_distill_loss, r.id_fraction)
+            if r.server_student_acc is not None:
+                vals += (r.server_student_acc,)
             if not all(v == v and abs(v) < float("inf") for v in vals):
-                raise AssertionError(f"{scenario} round {r.round}: "
+                raise AssertionError(f"{method} {scenario} round {r.round}: "
                                      f"non-finite metrics {vals}")
-        log(f"  {scenario}: final acc {res.final_acc:.4f}, wall "
-            f"{wall:.3f} s (DRE fit + 3 rounds), phase seconds over 3 "
-            "rounds " + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
-        log(f"  {scenario}: launches {launches}")
-        results[scenario] = res
+        last = res.rounds[-1]
+        student = ("" if last.server_student_acc is None
+                   else f", student acc {last.server_student_acc:.4f}")
+        log(f"  {method} {scenario}: final acc {res.final_acc:.4f}{student}, "
+            f"id fraction {last.id_fraction:.4f}, MB up "
+            f"{last.bytes_up / 1e6:.3f}, wall {wall:.3f} s (set-up + 3 "
+            "rounds), phase seconds over 3 rounds "
+            + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+        log(f"  {method} {scenario}: launches "
+            + str({n: v for n, v in launches.items() if v}))
+        results[(method, scenario)] = res
+        per_run[(method, scenario)] = launches
     counts = {n: w.launches for n, w in wrappers.items()}
-    for name in ("lloyd_step", "kd_kl_fwd", "kd_kl_bwd_ds"):
+    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_fwd",
+                 "kd_kl_bwd_ds", "rbf_matrix"):
         if counts[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
-    log(f"  launches on the main path (strong + weak): {counts}; "
+    for scenario in ("strong", "weak"):
+        if per_run[("edgefd", scenario)]["min_dist_and_mask"] == 0:
+            raise AssertionError(f"edgefd {scenario} never launched "
+                                 "min_dist_and_mask")
+        if per_run[("selective-fd", scenario)]["rbf_matrix"] == 0:
+            raise AssertionError(f"selective-fd {scenario} never launched "
+                                 "rbf_matrix")
+    # server_distill's clients distill exactly as fedmd's do; the rest of
+    # its KL launches are the server student's
+    student_kl = (per_run[("server_distill", "strong")]["kd_kl_fwd"]
+                  - per_run[("fedmd", "strong")]["kd_kl_fwd"])
+    if student_kl <= 0:
+        raise AssertionError("the server_distill student never launched "
+                             "kd_kl_fwd")
+    log(f"  launches on the main path (all {len(runs)} runs): {counts}; "
+        f"the server_distill student's kd_kl_fwd: {student_kl}; "
         "kd_kl_bwd_dt is dead there (the teacher is a constant)")
-    final = results["strong"].final_acc
+    final = results[("edgefd", "strong")].final_acc
     if not final > 0.7:
-        raise AssertionError(f"strong final mean accuracy {final} <= 0.7")
+        raise AssertionError(f"edgefd strong final mean accuracy {final} "
+                             "<= 0.7")
     return counts
 
 
 # ----------------------------------------------------------------- phase 7
-def measure(counts, lloyd_err, kl_err):
+def time_row(label, kern, plain, moved, ops):
+    """Time a kernel and its plain version (per call, and device only) and
+    log them beside the bound; returns (ms, plain ms, bound ms, bound_by)."""
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    b_ms, b_by = bound(moved, ops)
+    log(f"  {label}: kernel {ms:.5f} plain {plain_ms:.5f} bound {b_ms:.6f} "
+        f"({b_by}); device only: kernel {fmt(device_ms(kern))} plain "
+        f"{fmt(device_ms(plain))}")
+    return ms, plain_ms, b_ms, b_by
+
+
+def measure_min_dist(counts, dist_err):
+    import torch
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    row = None
+    for t, d, k in (MAIN_DIST, (512, 50, 3), (512, 50, 10), (6000, 50, 1)):
+        x, cents = (v[0] for v in lloyd_inputs(t, d, k, seed=1))
+        thr = torch.full((1,), 3.0, device="cuda")
+        # read x, centroids and the threshold once, write f32 distances
+        # and a one-byte mask; the matmul form, the min, sqrt and compare
+        moved = 4 * (t * d + k * d + 1) + 5 * t
+        flops = 2 * t * k * d + 2 * t * d + 2 * k * d + 4 * t * k + 2 * t
+        ms, plain_ms, b_ms, b_by = time_row(
+            f"min_dist_and_mask t={t} d={d} k={k}",
+            lambda: ops.min_dist_and_mask_cuda(x, cents, thr),
+            lambda: ref.min_dist_and_mask(x, cents, thr), moved, flops)
+        if (t, d, k) == MAIN_DIST:
+            row = {"name": "min_dist_and_mask", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/kmeans_dist.cu",
+                   "replaces": "src/repro/kernels/kmeans_dist/kernel.py:48",
+                   "launches": counts["min_dist_and_mask"],
+                   "max_abs_err": dist_err[MAIN_DIST], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    return row
+
+
+def measure_rbf(counts, rbf_err):
+    from repro_torch.kernels.kulsif_rbf import ops, ref
+    row = None
+    for n, m, d in ((256, 256, 50), (256, 6000, 50), (512, 256, 50),
+                    MAIN_RBF):
+        a, b = rbf_inputs(n, m, d, seed=1)
+        # read a and b once, write the Gram matrix; the cross term's
+        # multiply-adds, both squared norms, and 5 ops per output (combine,
+        # clamp, scale, exp)
+        moved = 4 * (n * d + m * d + n * m)
+        flops = 2 * n * m * d + 2 * (n + m) * d + 5 * n * m
+        ms, plain_ms, b_ms, b_by = time_row(
+            f"rbf_matrix n={n} m={m} d={d}",
+            lambda: ops.rbf_matrix_cuda(a, b, SIGMA),
+            lambda: ref.rbf_matrix(a, b, SIGMA), moved, flops)
+        if (n, m, d) == MAIN_RBF:
+            row = {"name": "rbf_matrix", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/rbf_matrix.cu",
+                   "replaces": "src/repro/kernels/kulsif_rbf/kernel.py:32",
+                   "launches": counts["rbf_matrix"],
+                   "max_abs_err": rbf_err[MAIN_RBF], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    return row
+
+
+def measure(counts, lloyd_err, kl_err, dist_err, rbf_err):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.distill_kl import ops as kl_ops
@@ -426,16 +625,12 @@ def measure(counts, lloyd_err, kl_err):
     n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
     for k in (1, 3, 10, 64):
         x, cents = lloyd_inputs(n, d, k, seed=1)
-        kern = lambda: kd_ops.lloyd_step_cuda(x, cents)  # noqa: E731
-        ms = time_ms(kern)
-        plain = time_ms(lambda: kd_ref.lloyd_step(x, cents))
         moved = 4 * (n * d + k * d) + 4 * (2 * n + k * d + k)
         ops = 2 * n * k * d + 3 * n * d + 2 * k * d + 3 * n * k
-        b_ms, b_by = bound(moved, ops)
-        log(f"  lloyd_step C=1 n={n} d={d} k={k}: kernel {ms:.5f} plain "
-            f"{plain:.5f} bound {b_ms:.6f} ({b_by}); device only: kernel "
-            f"{fmt(device_ms(kern))} plain "
-            f"{fmt(device_ms(lambda: kd_ref.lloyd_step(x, cents)))}")
+        ms, plain, b_ms, b_by = time_row(
+            f"lloyd_step C=1 n={n} d={d} k={k}",
+            lambda: kd_ops.lloyd_step_cuda(x, cents),
+            lambda: kd_ref.lloyd_step(x, cents), moved, ops)
         if k == 1:   # the strong scenario's shape heads the JSON line
             rows.append({"name": "lloyd_step", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/"
@@ -446,6 +641,7 @@ def measure(counts, lloyd_err, kl_err):
                          "max_abs_err": lloyd_err[1], "ms": ms,
                          "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": None})
+    rows.append(measure_min_dist(counts, dist_err))
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         s, t, g = kl_inputs(n, k, seed=1)
         T = TEMPERATURE
@@ -496,6 +692,7 @@ def measure(counts, lloyd_err, kl_err):
                              "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": lib_ms})
+    rows.append(measure_rbf(counts, rbf_err))
     return rows
 
 
@@ -534,11 +731,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
-    lloyd_err, kl_err = check_kernels()
+    lloyd_err, kl_err, dist_err, rbf_err = check_kernels()
     check_kmeans_agreement()
     check_small_run()
     counts = run_main_path()
-    rows = measure(counts, lloyd_err, kl_err)
+    rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err)
 
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -8,7 +8,8 @@ the ported path is a hand-written CUDA kernel for Hopper (``sm_90a``) under
 function; a wrapper launches the kernel for a CUDA tensor and takes the
 plain version only for a tensor on the CPU.
 
-Ported so far: the paper's main experiment, ``launch.fed_train --method
-edgefd`` on the loop engine with sync rounds, a feature-mode dataset and the
-shared MLP (see ``ROADMAP.md`` for what is still to come).
+Ported so far: the paper's experiment and its Table III baselines,
+``launch.fed_train --method <any of core.methods.METHODS>`` on the loop
+engine with sync rounds, a feature-mode dataset and the shared MLP (see
+``ROADMAP.md`` for what is still to come).
 """

@@ -2,15 +2,18 @@
 
 EdgeFD's server averages the ID predictions each client uploaded: no
 filtering, no teacher model. The plain mean guards against non-finite
-client rows (an exact no-op on finite inputs). The robust reducers and
-the two-tier partial sums of ``repro.core.aggregation`` are not ported
-yet (ROADMAP queue A item 7).
+client rows (an exact no-op on finite inputs). DS-FL sharpens the mean
+(``temperature_sharpen``); FKD and PLS exchange class-wise mean logits
+(``classwise_mean_logits``). The robust reducers and the two-tier partial
+sums of ``repro.core.aggregation`` are not ported yet (ROADMAP queue A
+item 7).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _finite_rows(logits: torch.Tensor, mask: torch.Tensor):
@@ -22,16 +25,26 @@ def _finite_rows(logits: torch.Tensor, mask: torch.Tensor):
     return torch.where(fin[..., None], lo, 0.0), fin
 
 
+def _sharpen(teacher: torch.Tensor,
+             temperature_sharpen: Optional[float]) -> torch.Tensor:
+    """DS-FL's entropy reduction: log of the softmax at a low temperature
+    (a no-op for None or 0)."""
+    if temperature_sharpen:
+        probs = torch.softmax(teacher / temperature_sharpen, dim=-1)
+        teacher = torch.log(torch.clamp_min(probs, 1e-12))
+    return teacher
+
 
 def masked_mean_logits(logits: torch.Tensor, mask: torch.Tensor, *,
+                       temperature_sharpen: Optional[float] = None,
                        guard_finite: bool = True):
     """logits: (C, t, K) per-client proxy logits; mask: (C, t) ID decisions.
 
     Returns (teacher (t, K), valid (t,) bool). Samples where no client is
     ID get a zero teacher and valid=False — the distillation loss masks
-    them. ``guard_finite=False`` re-exposes the poison-the-teacher
-    behavior of an unsanitized server. (The reference's DS-FL
-    ``temperature_sharpen`` comes with ROADMAP queue A item 4.)"""
+    them. DS-FL-style temperature sharpening is optional.
+    ``guard_finite=False`` re-exposes the poison-the-teacher behavior of an
+    unsanitized server."""
     if guard_finite:
         lo, fin = _finite_rows(logits, mask)
         mb = torch.logical_and(mask, fin)
@@ -42,7 +55,21 @@ def masked_mean_logits(logits: torch.Tensor, mask: torch.Tensor, *,
     cnt = torch.sum(m, dim=0)                                 # (t, 1)
     teacher = s / torch.clamp_min(cnt, 1.0)
     valid = cnt[..., 0] > 0.0
-    return teacher, valid
+    return _sharpen(teacher, temperature_sharpen), valid
+
+
+def classwise_mean_logits(logits: torch.Tensor, labels: torch.Tensor,
+                          num_classes: int):
+    """FKD/PLS-style data-free aggregation: per-label mean logits.
+
+    logits: (n, K) local logits on private data; labels: (n,). Returns the
+    (num_classes, K) mean logits per class (zero rows for absent classes)
+    and the per-class counts (num_classes,) f32."""
+    one_hot = F.one_hot(labels.to(torch.int64), num_classes).to(
+        torch.float32)                                        # (n, C)
+    sums = one_hot.T @ logits.to(torch.float32)               # (C, K)
+    cnt = torch.sum(one_hot, dim=0)[:, None]
+    return sums / torch.clamp_min(cnt, 1.0), cnt[:, 0]
 
 
 def scrub_nonfinite(logits: torch.Tensor, masks: torch.Tensor

@@ -1,12 +1,14 @@
-"""Algorithm 1 — the EdgeFD round protocol over a client engine.
+"""Algorithm 1 — the federated-distillation round protocol over a client
+engine, for every method of Table III.
 
-``run_experiment`` fits every client's DRE once, then drives the rounds
-through the sync phase scheduler (``repro_torch.fed.scheduler``:
-``local_train → report → aggregate → distill → eval``) and returns the
-per-round logs. ``LoopEngine`` drives clients one at a time through the
-scheduler's per-phase entry points, as the reference's loop engine does.
-The cohort engine (``repro.fed.cohort``) is not ported yet (ROADMAP queue
-A item 5).
+``run_experiment`` fits every client's DRE once (methods with a client
+filter only), then drives the rounds through the sync phase scheduler
+(``repro_torch.fed.scheduler``: ``local_train → report → aggregate →
+[server_distill →] distill → eval``, or ``local_train → eval`` for
+independent learning) and returns the per-round logs. ``LoopEngine``
+drives clients one at a time through the scheduler's per-phase entry
+points, as the reference's loop engine does. The cohort engine
+(``repro.fed.cohort``) is not ported yet (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ class RoundLog:
     # yet: these stay 0.0
     sim_finish_s: float = 0.0
     served_model_age_s: float = 0.0
-    # FedDF ensemble server (not ported yet)
+    # FedDF ensemble server (method="server_distill")
     server_distill_loss: float = 0.0
     server_student_acc: Optional[float] = None
     # defense stack: report rows the sanitize pass scrubbed this round;
@@ -107,6 +109,11 @@ class LoopEngine:
     def phase_local_train(self, epochs: int, batch_size: int) -> List[float]:
         return [c.local_train(epochs, batch_size) for c in self.clients]
 
+    def phase_classwise_report(self):
+        """FKD/PLS: every client's (per-class mean logits (K_cls, K),
+        per-class counts (K_cls,)) over its private data, on its device."""
+        return [c.classwise_means() for c in self.clients]
+
     def phase_report(self, px, powner):
         """Returns (logits (C, t, K), masks (C, t) bool) as tensors on the
         clients' device; nothing is read back to the host."""
@@ -124,6 +131,17 @@ class LoopEngine:
         teacher_d = self._dev(teacher, torch.float32)
         weight_d = self._dev(weight, torch.float32)
         return [c.distill(px_d, teacher_d, weight_d, epochs, batch_size)
+                for c in self.clients]
+
+    def phase_distill_private(self, teacher_by_class, valid_by_class,
+                              epochs: int, batch_size: int) -> List[float]:
+        """FKD/PLS: each client distills on its own private data, against
+        the fused class-wise teacher looked up by its labels."""
+        teacher_d = self._dev(teacher_by_class, torch.float32)
+        valid_d = self._dev(valid_by_class)
+        return [c.distill(c._x, teacher_d[c._y],
+                          valid_d[c._y].to(torch.float32), epochs,
+                          batch_size)
                 for c in self.clients]
 
     def phase_eval(self, x_test, y_test) -> List[float]:
@@ -147,13 +165,14 @@ def run_experiment(clients, server: "Server", method_name: str,
                    ) -> ExperimentResult:
     # lazy import, as in the reference: core must not import fed at load
     from repro_torch.fed.scheduler import RoundScheduler
-    get_method(method_name)          # refuses methods outside the slice
+    method = get_method(method_name)
     engine = engine_from_config(clients, cfg)
-    engine.learn_dres(cfg.seed)                            # Initialization
+    if method.client_filter != "none":                     # Initialization
+        engine.learn_dres(cfg.seed)
     # the test set is copied to the device once, not every round
     x_test = torch.tensor(x_test, dtype=torch.float32, device=engine.device)
     y_test = torch.tensor(y_test, dtype=torch.int64, device=engine.device)
-    logs = RoundScheduler(engine, server, cfg, x_test, y_test
+    logs = RoundScheduler(engine, server, method, cfg, x_test, y_test
                           ).run_rounds(0, cfg.rounds, progress=progress)
     return ExperimentResult(method=method_name, scenario=cfg.scenario,
                             rounds=logs)

@@ -1,25 +1,28 @@
 """Round scheduler, sync mode: the lockstep Algorithm-1 phase order.
 
-Each round runs five phases in order,
+Each round runs the phases of its method (``round_phases``) in order,
 
     local_train ──▶ report ──▶ aggregate ──▶ distill ──▶ eval
 
-each timed on the host clock into ``RoundLog.phase_s`` (every phase ends
-in a host read of its results, so the time covers the device work). The
-report phase draws the round's proxy batch from the server's rng, collects
-every client's logits and ID mask, and ingests them into the server. The
-proxy batch, the reports and the teacher stay on the clients' device from
-report to distill; only the ID count and the byte ledger are read back.
-This is ``repro.fed.scheduler.RoundScheduler`` under ``round_mode="sync"``;
-overlap mode, per-cohort nodes, the simulated straggler clock, faults and
-the watchdog are not ported yet (ROADMAP queue A item 6), so
-``sim_finish_s``/``served_model_age_s`` stay 0.0.
+with a ``server_distill`` phase before distill for FedDF and only
+``local_train ──▶ eval`` for independent learning, each timed on the host
+clock into ``RoundLog.phase_s`` (every phase ends in a host read of its
+results, so the time covers the device work). The report phase draws the
+round's proxy batch from the server's rng, collects every client's logits
+and ID mask, and ingests them into the server; the data-free methods
+(FKD, PLS) report class-wise mean logits instead and distill on their
+private data. The proxy batch, the reports and the teacher stay on the
+clients' device from report to distill; only the ID count and the byte
+ledger are read back. This is ``repro.fed.scheduler.RoundScheduler`` under
+``round_mode="sync"``; overlap mode, per-cohort nodes, the simulated
+straggler clock, faults and the watchdog are not ported yet (ROADMAP queue
+A item 6), so ``sim_finish_s``/``served_model_age_s`` stay 0.0.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +32,18 @@ from repro_torch.core.protocol import RoundLog
 ROUND_MODES = ("sync", "overlap")
 # the five phase names, in intra-round dependency order
 PHASE_ORDER = ("local_train", "report", "aggregate", "distill", "eval")
+
+
+def round_phases(method) -> Tuple[str, ...]:
+    """The phases one round of ``method`` runs, in order."""
+    if method.name == "indlearn":  # no collaboration: train, then measure
+        return ("local_train", "eval")
+    if method.server_distill:
+        # FedDF: the server student trains on the fused teacher before the
+        # clients distill from it
+        return ("local_train", "report", "aggregate", "server_distill",
+                "distill", "eval")
+    return PHASE_ORDER
 
 
 def resolve_round_mode(mode: Optional[str]) -> str:
@@ -51,18 +66,23 @@ class _RoundState:
         self.px = None
         self.teacher = None         # aggregation outputs
         self.valid = None
+        self.means_counts = None    # data-free reports and their fusion
+        self.teacher_by_class = None
+        self.valid_by_class = None
         self.local_losses: List[float] = []
         self.distill_losses: List[float] = []
         self.id_frac = 1.0
         self.mean_staleness = 0.0
         self.accs: List[float] = []
         self.phase_s = {}
+        self.server_distill_loss = 0.0   # FedDF ensemble server
+        self.server_student_acc = None
 
 
 class RoundScheduler:
     """Executes rounds phase by phase over an engine/server pair."""
 
-    def __init__(self, engine, server, cfg, x_test, y_test):
+    def __init__(self, engine, server, method, cfg, x_test, y_test):
         self.mode = resolve_round_mode(cfg.round_mode)
         if self.mode != "sync":
             raise NotImplementedError(
@@ -70,10 +90,11 @@ class RoundScheduler:
                 "item 6 (the full scheduler)")
         self.engine = engine
         self.server = server
+        self.method = method
         self.cfg = cfg
         self.x_test = x_test
         self.y_test = y_test
-        self.phases = PHASE_ORDER
+        self.phases = round_phases(method)
 
     def run_rounds(self, start: int, count: int,
                    progress: Optional[Callable[[RoundLog], None]] = None
@@ -100,6 +121,9 @@ class RoundScheduler:
 
     def _phase_report(self, st: _RoundState) -> None:
         cfg = self.cfg
+        if self.method.data_free:  # FKD/PLS upload class-wise means
+            st.means_counts = self.engine.phase_classwise_report()
+            return
         st.idx = self.server.select_indices(cfg.proxy_batch)
         # the round's proxy batch goes to the device once, for report and
         # distill alike
@@ -113,17 +137,42 @@ class RoundScheduler:
         self.server.ingest_reports(st.r, logits, masks)
 
     def _phase_aggregate(self, st: _RoundState) -> None:
+        if self.method.data_free:
+            st.teacher_by_class, st.valid_by_class = \
+                self.server.aggregate_classwise(
+                    st.means_counts, count_weighted=self.method.count_weighted,
+                    round_idx=st.r)
+            st.means_counts = None
+            return
         st.teacher, st.valid, st.mean_staleness = self.server.aggregate_round(
-            st.r)
+            st.r, sharpen=self.method.sharpen,
+            entropy_filter=self.method.server_filter)
+
+    def _phase_server_distill(self, st: _RoundState) -> None:
+        """FedDF: train the server's student on the round's proxy batch
+        against the fused teacher the clients are about to distill from."""
+        cfg = self.cfg
+        epochs = cfg.server_distill_epochs or cfg.distill_epochs
+        st.server_distill_loss = self.server.ensemble_distill(
+            st.px, st.teacher, st.valid, epochs=epochs,
+            batch_size=cfg.batch_size)
 
     def _phase_distill(self, st: _RoundState) -> None:
         cfg = self.cfg
+        if self.method.data_free:
+            st.distill_losses = self.engine.phase_distill_private(
+                st.teacher_by_class, st.valid_by_class, cfg.distill_epochs,
+                cfg.batch_size)
+            return
         w = st.valid.to(torch.float32)
         st.distill_losses = self.engine.phase_distill(
             st.px, st.teacher, w, cfg.distill_epochs, cfg.batch_size)
 
     def _phase_eval(self, st: _RoundState) -> None:
         st.accs = self.engine.phase_eval(self.x_test, self.y_test)
+        if self.server.student is not None:
+            st.server_student_acc = self.server.evaluate_student(
+                self.x_test, self.y_test)
 
     def _finish_round(self, st: _RoundState) -> RoundLog:
         return RoundLog(
@@ -139,5 +188,7 @@ class RoundScheduler:
             wall_s=sum(st.phase_s.values()),
             mean_staleness=st.mean_staleness,
             phase_s=dict(st.phase_s),
+            server_distill_loss=st.server_distill_loss,
+            server_student_acc=st.server_student_acc,
             scrubbed_rows=self.server.pop_scrubbed(st.r),
         )

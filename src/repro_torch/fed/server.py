@@ -1,23 +1,30 @@
 """Federated server: proxy bookkeeping + aggregation. A trusted entity that
-never trains a model (EdgeFD needs no pre-trained teacher).
+never trains a model (EdgeFD needs no pre-trained teacher) — except for
+the FedDF baseline (``method="server_distill"``), whose server distills a
+student of its own on the fused teacher.
 
 Ported so far: the flat single-tier server with full participation —
 ``select_indices``, ``ingest_reports`` with the sanitize pass,
-``aggregate_round``/``aggregate`` and the byte ledger of
-``repro.fed.server``. Report ingest and aggregation stay separate steps,
-as in the reference. Edge aggregators, staleness buffers, admission
-control, robust reducers, trust/quarantine and the FedDF server student
-are not ported yet (ROADMAP queue A items 6–8, 4).
+``aggregate_round``/``aggregate`` (with DS-FL sharpening and Selective-FD's
+entropy filter), ``aggregate_classwise`` (FKD/PLS), the FedDF student and
+the byte ledger of ``repro.fed.server``. Report ingest and aggregation
+stay separate steps, as in the reference. Edge aggregators, staleness
+buffers, admission control, robust reducers and trust/quarantine are not
+ported yet (ROADMAP queue A items 6–7).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core import aggregation
+from repro_torch.core.filtering import server_entropy_filter
 from repro_torch.data.proxy import ProxyData, select_round_indices
+from repro_torch.fed.client import Learner
+from repro_torch.optim.optimizers import Optimizer
 
 
 class _PendingReports(NamedTuple):
@@ -31,6 +38,7 @@ class Server:
     def __init__(self, proxy: ProxyData, *, seed: int = 0,
                  sanitize: bool = True, device="cpu"):
         self.proxy = proxy
+        self.seed = seed
         self.rng = np.random.default_rng(seed + 7)
         self.sanitize = bool(sanitize)
         self.device = torch.device(device)
@@ -42,6 +50,9 @@ class Server:
         self.bytes_received = 0
         self.bytes_broadcast = 0
         self._pending: Dict[int, _PendingReports] = {}
+        # FedDF central student (method="server_distill" only), attached by
+        # the simulator after the clients are built
+        self.student: Optional[Learner] = None
 
     def select_indices(self, batch: int) -> np.ndarray:
         return select_round_indices(self.rng, self.proxy, batch)
@@ -50,12 +61,57 @@ class Server:
         """Rows the sanitize pass scrubbed from this round's reports."""
         return int(self._scrubbed_rounds.pop(round_idx, 0))
 
+    def _count_scrubbed(self, round_idx: Optional[int],
+                        per_client: torch.Tensor) -> None:
+        n_bad = int(per_client.sum())
+        if not n_bad:
+            return
+        if round_idx is not None:
+            self._scrubbed_rounds[round_idx] = (
+                self._scrubbed_rounds.get(round_idx, 0) + n_bad)
+        self.scrub_total += n_bad
+        if self.scrub_clients is None:
+            self.scrub_clients = np.zeros((len(per_client),), np.int64)
+        self.scrub_clients += per_client.cpu().numpy()
+
+    # ------------------------------------------------- FedDF student
+    def attach_student(self, model: nn.Module, opt: Optimizer, *,
+                       temperature: float = 3.0,
+                       kernel_backend: Optional[str] = None) -> None:
+        """Give the server a trainable student for ensemble distillation.
+        Its shuffling stream, ``default_rng(seed + 31)``, is disjoint from
+        the server's own (seed + 7) and every client's (seed + 1000·cid);
+        its KD step is the clients' temperature-KL step."""
+        self.student = Learner(model, opt,
+                               np.random.default_rng(self.seed + 31),
+                               temperature=temperature,
+                               kernel_backend=kernel_backend)
+
+    def ensemble_distill(self, px: torch.Tensor, teacher: torch.Tensor,
+                         valid: torch.Tensor, *, epochs: int,
+                         batch_size: int) -> float:
+        """One FedDF server round: fit the student on the proxy batch
+        against the fused teacher; rows no client predicted (``valid``
+        False) carry zero weight, as in client-side distillation."""
+        if self.student is None:
+            raise RuntimeError("ensemble_distill requires attach_student()")
+        return self.student.distill(px, teacher, valid.to(torch.float32),
+                                    epochs, batch_size)
+
+    def evaluate_student(self, x_test: torch.Tensor,
+                         y_test: torch.Tensor) -> float:
+        if self.student is None:
+            raise RuntimeError("evaluate_student requires attach_student()")
+        return self.student.evaluate(x_test, y_test)
+
+    # ------------------------------------------------- proxy-logit reports
     def ingest_reports(self, round_idx: int, logits, masks) -> None:
         """Record one round's reports from every client, (C, t, K) /
         (C, t), for a later ``aggregate_round``, after the sanitize pass.
         Tensors already on the server's device are not copied. (The
-        reference's participant, staleness and entropy-filter arguments
-        come with ROADMAP queue A items 6 and 4.)"""
+        reference's participant and staleness arguments come with ROADMAP
+        queue A item 6; on the flat server its entropy filter runs in
+        ``aggregate``, as here.)"""
         if round_idx in self._pending:
             raise ValueError(f"round {round_idx} reports already ingested "
                              "and not yet aggregated")
@@ -67,18 +123,12 @@ class Server:
             # the same objects
             logits, masks, per_client = aggregation.scrub_nonfinite(logits,
                                                                     masks)
-            n_bad = int(per_client.sum())
-            if n_bad:
-                self._scrubbed_rounds[round_idx] = (
-                    self._scrubbed_rounds.get(round_idx, 0) + n_bad)
-                self.scrub_total += n_bad
-                if self.scrub_clients is None:
-                    self.scrub_clients = np.zeros((len(per_client),),
-                                                  np.int64)
-                self.scrub_clients += per_client.cpu().numpy()
+            self._count_scrubbed(round_idx, per_client)
         self._pending[round_idx] = _PendingReports(logits, masks)
 
-    def aggregate_round(self, round_idx: int):
+    def aggregate_round(self, round_idx: int, *,
+                        sharpen: Optional[float] = None,
+                        entropy_filter: bool = False):
         """Fuse a previously ingested round into (teacher, valid,
         mean_staleness); every report is fresh, so the staleness is 0."""
         try:
@@ -87,20 +137,69 @@ class Server:
             raise ValueError(
                 f"no ingested reports for round {round_idx}; call "
                 "ingest_reports first") from None
-        teacher, valid = self.aggregate(p.logits, p.masks)
+        teacher, valid = self.aggregate(p.logits, p.masks, sharpen=sharpen,
+                                        entropy_filter=entropy_filter)
         return teacher, valid, 0.0
 
-    def aggregate(self, logits, masks):
+    def aggregate(self, logits, masks, *, sharpen: Optional[float] = None,
+                  entropy_filter: bool = False):
         """logits: (C, t, K); masks: (C, t). Returns device tensors
         (teacher (t, K), valid (t,) bool); the masked mean runs on the
-        server's device and only the ledger's ID count is read back."""
+        server's device and only the ledger's ID count is read back.
+
+        The ledger prices the pre-filter masks: clients uploaded every row
+        their own filter kept, before Selective-FD's server-side entropy
+        filter tightens the masks."""
         logits = torch.as_tensor(logits, dtype=torch.float32,
                                  device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
+        uploaded_masks = masks
+        if entropy_filter:  # Selective-FD baseline's extra server stage
+            masks = server_entropy_filter(logits, masks)
         teacher, valid = aggregation.masked_mean_logits(
-            logits, masks, guard_finite=self.sanitize)
+            logits, masks, temperature_sharpen=sharpen,
+            guard_finite=self.sanitize)
         # accounting: clients upload only ID logits (mask-compressed)
         k = logits.shape[-1]
-        self.bytes_received += int(masks.sum()) * k * 4
+        self.bytes_received += int(uploaded_masks.sum()) * k * 4
         self.bytes_broadcast += int(teacher.shape[0]) * k * 4
+        return teacher, valid
+
+    # ------------------------------------------------- class-wise reports
+    def aggregate_classwise(self, means_counts: Sequence[Tuple[torch.Tensor,
+                                                               torch.Tensor]],
+                            *, count_weighted: bool,
+                            round_idx: Optional[int] = None):
+        """FKD/PLS: fuse every client's per-class mean logits (K_cls, K)
+        and counts (K_cls,) into (teacher (K_cls, K), valid (K_cls,) bool).
+
+        PLS (``count_weighted``) weights each client's class mean by its
+        sample count, FKD by 1 per client holding the class. The sanitize
+        pass zeroes non-finite class rows and drops their counts. Every
+        client uploads its whole table and the fused table is broadcast
+        back; both go into the byte ledger."""
+        means = torch.stack([torch.as_tensor(m, dtype=torch.float32,
+                                             device=self.device)
+                             for m, _ in means_counts])      # (C, K_cls, K)
+        counts = torch.stack([torch.as_tensor(c, dtype=torch.float32,
+                                              device=self.device)
+                              for _, c in means_counts])     # (C, K_cls)
+        if self.sanitize:
+            fin = torch.isfinite(means).all(dim=-1)           # (C, K_cls)
+            if not bool(fin.all()):
+                self._count_scrubbed(
+                    round_idx, torch.sum((counts > 0) & ~fin, dim=1,
+                                         dtype=torch.int64))
+                means = torch.where(fin[..., None], means, 0.0)
+                counts = torch.where(fin, counts, 0.0)
+        if count_weighted:
+            w = counts[..., None]
+        else:
+            w = (counts > 0).to(torch.float32)[..., None]
+        num = torch.sum(means * w, dim=0)
+        den = torch.sum(w, dim=0)
+        teacher = num / torch.clamp_min(den, 1.0)
+        valid = torch.sum(counts, dim=0) > 0
+        self.bytes_received += means.numel() * 4
+        self.bytes_broadcast += teacher.numel() * 4
         return teacher, valid

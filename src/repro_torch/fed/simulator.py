@@ -6,14 +6,16 @@ KMeans-DRE centroid count per the paper (§IV-A/B):
   IID            → one per class.
 
 ``build_experiment`` also accepts injected dataset arrays, per-client
-initial parameters and per-client k-means seeds: handed the reference's,
-it builds the same experiment the JAX package builds, which is how the
-tests hold the port against a live reference run.
+initial parameters, per-client k-means seeds and KuLSIF auxiliary samples,
+and the FedDF student's initial parameters: handed the reference's, it
+builds the same experiment the JAX package builds, which is how the tests
+hold the port against a live reference run.
 
-Only the ported slice runs: feature-mode datasets, the shared MLP zoo,
-the loop engine with sync rounds and full participation, the flat server
-with the mean aggregate, and EdgeFD. ``check_slice`` refuses everything
-else with ``NotImplementedError`` naming the ROADMAP item that brings it.
+Only the ported slice runs: every method of Table III on feature-mode
+datasets, the shared MLP zoo, the loop engine with sync rounds and full
+participation, and the flat server with the mean aggregate.
+``check_slice`` refuses everything else with ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ def resolve_device(device) -> torch.device:
 
 def check_slice(cfg: FedConfig, dataset_name: str) -> None:
     """Raise ``NotImplementedError`` for any setting outside the ported
-    slice, naming the ROADMAP queue A item that will bring it."""
+    slice, naming the ROADMAP queue A item that will bring it (and
+    ``KeyError`` for an unknown method)."""
     get_method(cfg.method)
     check_dataset(dataset_name)
     refused = [
@@ -113,14 +116,17 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
                      mlp_hidden: Tuple[int, ...] = (256, 128),
                      device="cuda", dataset: Optional[Dataset] = None,
                      init_params: Optional[Sequence[list]] = None,
-                     kmeans_inits: Optional[Sequence[np.ndarray]] = None
+                     kmeans_inits: Optional[Sequence[np.ndarray]] = None,
+                     kulsif_aux: Optional[Sequence[np.ndarray]] = None,
+                     student_params: Optional[list] = None
                      ) -> Tuple[List[Client], Server, np.ndarray, np.ndarray]:
     """Build clients and server on ``device``.
 
     ``dataset`` replaces the generated one; ``init_params[cid]`` (the
     reference's ``[{'w', 'b'}, …]`` per layer) replaces client ``cid``'s
     random init; ``kmeans_inits[cid]`` (k, d) replaces its k-means++
-    seeding."""
+    seeding and ``kulsif_aux[cid]`` (num_aux, d) its KuLSIF auxiliary
+    draw; ``student_params`` replaces the FedDF student's random init."""
     device = torch.device(device)
     ds = (dataset if dataset is not None
           else make_dataset(dataset_name, n_train=n_train, n_test=n_test,
@@ -151,8 +157,20 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         clients.append(Client(
             cid, mlp, shared_opt, cd.x, cd.y, dre,
             num_classes=ds.num_classes, temperature=cfg.temperature,
-            seed=cfg.seed, kernel_backend=cfg.kernel_backend,
-            dre_init=None if kmeans_inits is None else kmeans_inits[cid]))
+            distill_loss=method.distill_loss, seed=cfg.seed,
+            kernel_backend=cfg.kernel_backend,
+            dre_init=None if kmeans_inits is None else kmeans_inits[cid],
+            dre_aux=None if kulsif_aux is None else kulsif_aux[cid]))
+    if method.server_distill:
+        # the FedDF student is drawn after the client loop, as in the
+        # reference, so the clients' inits do not depend on the method
+        student = MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
+                                generator=init_gen, device=device)
+        if student_params is not None:
+            student.load_jax_params(student_params)
+        server.attach_student(student, shared_opt,
+                              temperature=cfg.temperature,
+                              kernel_backend=cfg.kernel_backend)
     return clients, server, ds.x_test, ds.y_test
 
 

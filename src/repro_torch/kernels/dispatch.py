@@ -2,10 +2,11 @@
 PyTorch.
 
 Every compute hot spot of the federated round on the ported path (the
-Lloyd step of the KMeans-DRE fit, the temperature-KL distillation loss and
-its gradient) exists twice: a hand-written CUDA kernel for Hopper
-(``repro_torch.kernels.*.ops``) and its plain PyTorch version
-(``repro_torch.kernels.*.ref``). This module is the switch between them.
+Lloyd step of the KMeans-DRE fit, the KMeans-DRE filter's min-distance
+estimation, the KuLSIF-DRE's RBF Gram matrix, the temperature-KL
+distillation loss and its gradient) exists twice: a hand-written CUDA
+kernel for Hopper (``repro_torch.kernels.*.ops``) and its plain PyTorch
+version (``repro_torch.kernels.*.ref``). This module is the switch between them.
 
 Backends
 --------
@@ -35,12 +36,13 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.kernels.kmeans_dist.ref import lloyd_step as _lloyd_step_torch
+from repro_torch.kernels.kmeans_dist import ref as _kd_ref
 from repro_torch.kernels.kmeans_dist.ref import pairwise_sq_dists
+from repro_torch.kernels.kulsif_rbf import ref as _rbf_ref
 
 __all__ = ["BACKENDS", "ENV_VAR", "requested_backend", "resolve",
            "kernel_backend", "pairwise_sq_dists", "lloyd_step",
-           "kd_kl_per_sample"]
+           "min_dist_and_mask", "rbf_matrix", "kd_kl_per_sample"]
 
 BACKENDS = ("auto", "cuda", "torch")
 ALIASES = {"pallas": "cuda", "jnp": "torch"}
@@ -111,7 +113,28 @@ def lloyd_step(x, centroids, *, backend: Optional[str] = None):
     if resolve(backend) == "cuda":
         from repro_torch.kernels.kmeans_dist import ops as kd_ops
         return kd_ops.lloyd_step(x, centroids)
-    return _lloyd_step_torch(x, centroids)
+    return _kd_ref.lloyd_step(x, centroids)
+
+
+def min_dist_and_mask(x, centroids, threshold, *,
+                      backend: Optional[str] = None):
+    """KMeans-DRE's estimation step: x (t, d), centroids (k, d) ->
+    ``(dist (t,) f32, mask (t,) bool)``, the distance of each row to its
+    nearest centroid and ``dist <= threshold``. ``threshold`` is a float or
+    a one-element tensor; the kernel reads a tensor where it lies."""
+    if resolve(backend) == "cuda":
+        from repro_torch.kernels.kmeans_dist import ops as kd_ops
+        return kd_ops.min_dist_and_mask(x, centroids, threshold)
+    return _kd_ref.min_dist_and_mask(x, centroids, threshold)
+
+
+def rbf_matrix(a, b, sigma, *, backend: Optional[str] = None):
+    """RBF Gram matrix K(a, b), (n, d) × (m, d) -> (n, m) f32: the
+    KuLSIF-DRE learn/estimate hot spot. ``sigma`` is a Python float."""
+    if resolve(backend) == "cuda":
+        from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
+        return rbf_ops.rbf_matrix(a, b, sigma)
+    return _rbf_ref.rbf_matrix(a, b, sigma)
 
 
 def kd_kl_per_sample(student_logits, teacher_logits, temperature: float,

@@ -1,1 +1,2 @@
-"""KMeans-DRE kernels: the fused Lloyd step (``ops.lloyd_step``)."""
+"""KMeans-DRE kernels: the fused Lloyd step of the fit (``ops.lloyd_step``)
+and the filter's min-distance estimation step (``ops.min_dist_and_mask``)."""

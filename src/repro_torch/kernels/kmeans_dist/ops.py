@@ -1,10 +1,12 @@
-"""Wrapper of the fused Lloyd-step CUDA kernel (``csrc/lloyd_step.cu``).
+"""Wrappers of the KMeans-DRE CUDA kernels: the fused Lloyd step of the fit
+(``csrc/lloyd_step.cu``) and the filter's min-distance estimation step
+(``csrc/kmeans_dist.cu``).
 
-``lloyd_step`` is the public op: the kernel for a CUDA tensor, the plain
-version (``ref.lloyd_step``) for a CPU tensor, and an error for anything
-else. ``lloyd_step_cuda`` checks its operands, allocates the outputs and
-the per-tile scratch with ``torch.empty``, launches on the current stream
-and counts its launches in ``lloyd_step_cuda.launches``.
+``lloyd_step`` and ``min_dist_and_mask`` are the public ops: the kernel
+for a CUDA tensor, the plain version (``ref``) for a CPU tensor, and an
+error for anything else. Each ``*_cuda`` wrapper checks its operands,
+allocates its outputs (and scratch) with ``torch.empty``, launches on the
+current stream and counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,18 @@ def _lib() -> ctypes.CDLL:
     lib.repro_lloyd_tile.restype = ctypes.c_int
     lib.repro_lloyd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.repro_lloyd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _dist_lib() -> ctypes.CDLL:
+    lib = build.load("kmeans_dist")
+    lib.repro_min_dist_mask.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_int] * 3
+                                        + [ctypes.c_void_p] * 3)
+    lib.repro_min_dist_mask.restype = ctypes.c_int
+    lib.repro_min_dist_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.repro_min_dist_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -97,3 +111,65 @@ def lloyd_step(x: torch.Tensor, centroids: torch.Tensor):
     if x.ndim == 2:
         return tuple(o[0] for o in lloyd_step_cuda(xb[None], cb[None]))
     return lloyd_step_cuda(xb, cb)
+
+
+def min_dist_and_mask_cuda(x: torch.Tensor, centroids: torch.Tensor,
+                           threshold: torch.Tensor):
+    """Launch the estimation kernel on x (t, d) and centroids (k, d), both
+    f32 and contiguous, with ``threshold`` a one-element f32 tensor, all on
+    one CUDA device (the kernel reads the threshold there, so a calibrated
+    threshold costs no host read). Returns (dist (t,) f32, mask (t,)
+    bool)."""
+    require_cuda(x, "min_dist_and_mask")
+    if x.ndim != 2 or centroids.ndim != 2:
+        raise ValueError("min_dist_and_mask_cuda takes x (t, d) and "
+                         "centroids (k, d)")
+    t, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    check_operand(x, "x", dtype=torch.float32, shape=(t, d), device=dev)
+    check_operand(centroids, "centroids", dtype=torch.float32, shape=(k, d),
+                  device=dev)
+    check_operand(threshold, "threshold", dtype=torch.float32, shape=(1,),
+                  device=dev)
+    if min(t, d, k) == 0:
+        raise ValueError(f"min_dist_and_mask: empty operand x "
+                         f"{tuple(x.shape)}, centroids "
+                         f"{tuple(centroids.shape)}")
+    lib = _dist_lib()
+    smem = lib.repro_min_dist_smem_bytes(d, k)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"min_dist_and_mask: {k} centroids of width {d} need {smem} "
+            f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    dist = torch.empty((t,), dtype=torch.float32, device=dev)
+    mask = torch.empty((t,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.repro_min_dist_mask(
+            x.data_ptr(), centroids.data_ptr(), threshold.data_ptr(), t, d, k,
+            dist.data_ptr(), mask.data_ptr(), stream)
+    build.check(lib, code, "min_dist_and_mask")
+    min_dist_and_mask_cuda.launches += 1
+    return dist, mask
+
+
+min_dist_and_mask_cuda.launches = 0
+
+
+def min_dist_and_mask(x: torch.Tensor, centroids: torch.Tensor, threshold):
+    """KMeans-DRE's estimation step: x (t, d), centroids (k, d), threshold
+    a float or a one-element tensor -> (distance of each row to its nearest
+    centroid (t,) f32, ID mask distance <= threshold (t,) bool).
+
+    On a CUDA tensor the threshold goes to the kernel as a device scalar: a
+    tensor already there is passed as it is, a float is copied up (no host
+    read either way)."""
+    if x.device.type == "cpu":
+        return ref.min_dist_and_mask(x, centroids, threshold)
+    require_cuda(x, "min_dist_and_mask")
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=x.device).reshape(1)
+    return min_dist_and_mask_cuda(x.to(torch.float32).contiguous(),
+                                  centroids.to(torch.float32).contiguous(),
+                                  thr)

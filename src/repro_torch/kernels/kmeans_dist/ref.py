@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the fused-Lloyd kernel's function.
+"""Plain PyTorch versions of the KMeans-DRE kernels' functions.
 
 Op for op the reference's canonical jnp code
-(``repro.kernels.dispatch.pairwise_sq_dists`` / ``_lloyd_step_jnp``): the
-CPU path, the tests and ``chip_smoke.py`` call these; a CUDA tensor goes
-to the kernel (``ops.py``).
+(``repro.kernels.dispatch.pairwise_sq_dists`` / ``_lloyd_step_jnp``, and
+``repro.core.kmeans.min_dist_to_centroids`` with the threshold test of
+``KMeansDRE.is_id``): the CPU path, the tests and ``chip_smoke.py`` call
+these; a CUDA tensor goes to the kernels (``ops.py``).
 """
 from __future__ import annotations
 
@@ -33,3 +34,12 @@ def lloyd_step(x: torch.Tensor, centroids: torch.Tensor):
     counts = torch.sum(one_hot, dim=-2)                         # (…, k)
     sums = one_hot.transpose(-1, -2) @ x                        # (…, k, d)
     return (assign.to(torch.int32), torch.amin(d2, dim=-1), sums, counts)
+
+
+def min_dist_and_mask(x: torch.Tensor, centroids: torch.Tensor, threshold):
+    """The filter's estimation step: x (t, d), centroids (k, d), threshold
+    a float or a one-element tensor -> (distance of each row to its nearest
+    centroid (t,) f32, ID mask distance <= threshold (t,) bool)."""
+    d2 = pairwise_sq_dists(x.to(torch.float32), centroids.to(torch.float32))
+    dist = torch.sqrt(torch.amin(d2, dim=-1))
+    return dist, dist <= threshold

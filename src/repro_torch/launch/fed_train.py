@@ -3,6 +3,8 @@
 ``python -m repro_torch.launch.fed_train --method edgefd --scenario strong \
       --dataset mnist_feat --rounds 10 [--device cuda|cpu]``
 
+``--method`` takes every method of Table III (``repro_torch.core.methods``).
+
 Takes the reference's flags (``repro.launch.fed_train.add_config_args``)
 plus ``--device``, which defaults to ``cuda``: without a CUDA device the
 run raises unless ``--device cpu`` asks for the CPU. Flags whose feature is
@@ -20,15 +22,14 @@ from repro_torch.fed import simulator
 
 # short labels for the per-phase wall-clock breakdown (RoundLog.phase_s)
 PHASE_ABBREV = {"local_train": "lt", "report": "rep", "aggregate": "agg",
-                "distill": "dist", "eval": "ev"}
+                "server_distill": "sdist", "distill": "dist", "eval": "ev"}
 
 
 def add_config_args(ap: argparse.ArgumentParser) -> None:
     """Install every experiment-defining flag (the ``FedConfig`` surface),
     the same flags as ``repro.launch.fed_train``."""
     ap.add_argument("--method", default="edgefd",
-                    choices=sorted(methods.METHODS) + sorted(
-                        methods.NOT_PORTED))
+                    choices=sorted(methods.METHODS))
     ap.add_argument("--scenario", default="strong",
                     choices=["strong", "weak", "iid"])
     ap.add_argument("--dataset", default="mnist_feat",
@@ -150,6 +151,8 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
 def print_round(log) -> None:
     """One progress line per round."""
     extra = ""
+    if log.server_student_acc is not None:
+        extra += f"  student={log.server_student_acc:.4f}"
     if log.phase_s:
         breakdown = " ".join(f"{PHASE_ABBREV.get(k, k)}={v:.3f}"
                              for k, v in log.phase_s.items())

@@ -1,0 +1,174 @@
+"""Parity harness: a method of Table III in the port against a live run of
+the JAX reference.
+
+The reference builds its experiment (``repro.fed.simulator``) and runs it
+on the jnp backend; the port builds the same experiment from the
+reference's dataset arrays, initial parameters (clients' and, for FedDF,
+the server student's), k-means++ seeds and KuLSIF auxiliary samples (the
+things drawn with ``jax.random``) and runs on the CPU through its plain
+PyTorch versions. Everything else — partition, proxy set, batch order,
+proxy draws — comes from numpy streams both packages share.
+
+Tolerances, per round (``assert_logs_match``):
+  * local, distill and server-student distill losses within rtol 1e-4
+    (float32 matmuls in two libraries, a few SGD steps apart);
+  * per-client and server-student accuracy off by at most one test sample;
+  * ``id_fraction``, ``bytes_up`` and ``bytes_down`` exact, except for ID
+    mask flips on (client, sample) pairs outside stage 1 whose DRE
+    statistic lies within 1e-5 relative of the client's threshold (the
+    KMeans-DRE distance, or the KuLSIF-DRE ratio): such pairs are counted,
+    and each may move ``bytes_up`` by K·4 bytes per round and
+    ``id_fraction`` by one pair.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.common.types import FedConfig as RefFedConfig
+from repro.core.kmeans import kmeans_plus_plus as ref_kmeans_plus_plus
+from repro.core.methods import get_method as ref_get_method
+from repro.core.protocol import run_experiment as ref_run_experiment
+from repro.data.synthetic import make_dataset as ref_make_dataset
+from repro.fed import simulator as ref_simulator
+from repro_torch.common.types import FedConfig
+from repro_torch.core.protocol import run_experiment
+from repro_torch.data.synthetic import dataset_from_arrays
+from repro_torch.fed import simulator
+
+N_TRAIN, N_TEST, CLIENTS, ROUNDS = 800, 200, 4, 2
+LOSS_RTOL = 1e-4
+NEAR_THRESHOLD_REL = 1e-5
+MAX_NEAR_PAIRS = 2
+
+
+def config(method: str, scenario: str) -> dict:
+    return dict(num_clients=CLIENTS, rounds=ROUNDS, method=method,
+                scenario=scenario, seed=0, kernel_backend="jnp",
+                round_mode="sync", zoo="shared")
+
+
+def _numpy_params(params) -> list:
+    return [{k: np.asarray(v) for k, v in layer.items()} for layer in params]
+
+
+@dataclasses.dataclass
+class Run:
+    result: Any                      # ExperimentResult
+    clients: List[Any]
+    server: Any
+
+
+@dataclasses.dataclass
+class Reference(Run):
+    dataset: Any = None
+    params: Optional[list] = None              # per client
+    kmeans_inits: Optional[list] = None        # per client, kmeans filter
+    kulsif_aux: Optional[list] = None          # per client, kulsif filter
+    student_params: Optional[list] = None      # FedDF only
+
+
+def run_reference(kw: dict) -> Reference:
+    cfg = RefFedConfig(**kw)
+    method = ref_get_method(cfg.method)
+    ds = ref_make_dataset("mnist_feat", n_train=N_TRAIN, n_test=N_TEST,
+                          seed=cfg.seed)
+    clients, server, x_test, y_test = ref_simulator.build_experiment(
+        cfg, "mnist_feat", n_train=N_TRAIN, n_test=N_TEST)
+    params = [_numpy_params(c.params) for c in clients]
+    student = (None if server.student is None
+               else _numpy_params(server.student.params))
+    inits = None
+    if method.client_filter == "kmeans":
+        # the seeds the reference's jnp fit draws: fold_in(PRNGKey(seed), i)
+        # per client (LoopEngine.learn_dres), k-means++ under jit as in
+        # _kmeans_fit_jnp
+        kpp = jax.jit(ref_kmeans_plus_plus, static_argnums=2)
+        key = jax.random.PRNGKey(cfg.seed)
+        inits = [np.asarray(kpp(jax.random.fold_in(key, i),
+                                jnp.asarray(c.x.reshape(len(c.x), -1),
+                                            jnp.float32),
+                                c.dre.num_centroids))
+                 for i, c in enumerate(clients)]
+    res = ref_run_experiment(clients, server, cfg.method, cfg, x_test, y_test)
+    aux = (None if method.client_filter != "kulsif"
+           else [np.asarray(c.dre.aux) for c in clients])
+    return Reference(res, clients, server, dataset=ds, params=params,
+                     kmeans_inits=inits, kulsif_aux=aux,
+                     student_params=student)
+
+
+def run_port(kw: dict, ref: Reference) -> Run:
+    cfg = FedConfig(**kw)
+    ds = ref.dataset
+    dataset = dataset_from_arrays(ds.x, ds.y, ds.x_test, ds.y_test,
+                                  ds.num_classes)
+    clients, server, x_test, y_test = simulator.build_experiment(
+        cfg, device="cpu", dataset=dataset, init_params=ref.params,
+        kmeans_inits=ref.kmeans_inits, kulsif_aux=ref.kulsif_aux,
+        student_params=ref.student_params)
+    res = run_experiment(clients, server, cfg.method, cfg, x_test, y_test)
+    return Run(res, clients, server)
+
+
+def _statistic(dre, px):
+    """(the DRE's per-sample filter statistic, its threshold), as numpy."""
+    if hasattr(dre, "distances"):
+        return np.asarray(dre.distances(px)), float(dre.threshold)
+    return np.asarray(dre.estimate(px)), float(dre.threshold)
+
+
+def near_threshold_pairs(ref: Reference, port: Run) -> int:
+    """(client, proxy sample) pairs outside stage 1 whose filter statistic
+    lies within NEAR_THRESHOLD_REL of the client's threshold in either
+    run; 0 for methods without a client filter."""
+    proxy = port.server.proxy
+    px = proxy.x.reshape(len(proxy.x), -1)
+    total = 0
+    for i, (rc, pc) in enumerate(zip(ref.clients, port.clients)):
+        if rc.dre is None:
+            continue
+        s_r, t_r = _statistic(rc.dre, jnp.asarray(px))
+        s_p, t_p = _statistic(pc.dre, torch.as_tensor(px))
+        near = ((np.abs(s_r - t_r) <= NEAR_THRESHOLD_REL * abs(t_r))
+                | (np.abs(s_p - t_p) <= NEAR_THRESHOLD_REL * abs(t_p)))
+        total += int((near & (proxy.owner != i)).sum())
+    return total
+
+
+def assert_logs_match(kw: dict) -> tuple:
+    """Run ``kw``'s method in both packages and hold the port's round logs
+    to the reference's within the tolerances above. Returns (reference,
+    port) for further checks."""
+    ref = run_reference(kw)
+    port = run_port(kw, ref)
+    np.testing.assert_array_equal(port.server.proxy.x, ref.server.proxy.x)
+    near = near_threshold_pairs(ref, port)
+    assert near <= MAX_NEAR_PAIRS, (
+        f"{near} near-threshold pairs: the case is too fragile")
+    k = ref.dataset.num_classes
+    pairs = CLIENTS * min(kw.get("proxy_batch", FedConfig.proxy_batch),
+                          len(port.server.proxy.y))
+    acc_tol = 1.0 / N_TEST + 1e-9
+    p_rounds, q_rounds = port.result.rounds, ref.result.rounds
+    assert len(p_rounds) == len(q_rounds) == ROUNDS
+    for r, (p, q) in enumerate(zip(p_rounds, q_rounds)):
+        assert set(p.phase_s) == set(q.phase_s), (p.phase_s, q.phase_s)
+        for f in ("local_loss", "distill_loss", "server_distill_loss"):
+            np.testing.assert_allclose(getattr(p, f), getattr(q, f),
+                                       rtol=LOSS_RTOL, err_msg=f)
+        np.testing.assert_allclose(p.accs, q.accs, atol=acc_tol)
+        if q.server_student_acc is None:
+            assert p.server_student_acc is None
+        else:
+            assert abs(p.server_student_acc - q.server_student_acc) <= acc_tol
+        assert abs(p.id_fraction - q.id_fraction) <= near / pairs + 1e-12
+        assert abs(p.bytes_up - q.bytes_up) <= (r + 1) * near * k * 4
+        assert p.bytes_down == q.bytes_down
+        assert p.scrubbed_rows == q.scrubbed_rows == 0
+    return ref, port

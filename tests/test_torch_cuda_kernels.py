@@ -22,6 +22,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.distill_kl import ops as kl_ops
 from repro_torch.kernels.distill_kl import ref as kl_ref
 from repro_torch.kernels.kmeans_dist import ops as kd_ops
+from repro_torch.kernels.kmeans_dist import ref as kd_ref
+from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -57,19 +59,66 @@ def test_kd_kl_autograd_runs_the_kernels(smoke, teacher_grad):
     s, t, g = smoke.kl_inputs(64, 10, seed=2)
     s_k = s.clone().requires_grad_(True)
     t_k = t.clone().requires_grad_(teacher_grad)
-    before = [w.launches for w in smoke.launch_counts().values()]
+    before = {n: w.launches for n, w in smoke.launch_counts().items()}
     out = dispatch.kd_kl_per_sample(s_k, t_k, 3.0)
     out.backward(g)
-    after = [w.launches for w in smoke.launch_counts().values()]
-    # lloyd, fwd, ds, dt: dt only when the teacher needs a gradient
-    assert [b - a for a, b in zip(before, after)] == [0, 1, 1,
-                                                      int(teacher_grad)]
+    after = {n: w.launches for n, w in smoke.launch_counts().items()}
+    # fwd and ds once, dt only when the teacher needs a gradient
+    assert {n: after[n] - before[n] for n in after} == {
+        "lloyd_step": 0, "min_dist_and_mask": 0, "kd_kl_fwd": 1,
+        "kd_kl_bwd_ds": 1, "kd_kl_bwd_dt": int(teacher_grad),
+        "rbf_matrix": 0}
     s_r = s.clone().requires_grad_(True)
     t_r = t.clone().requires_grad_(teacher_grad)
     kl_ref.kd_kl_per_sample(s_r, t_r, 3.0).backward(g)
     torch.testing.assert_close(s_k.grad, s_r.grad, rtol=1e-5, atol=1e-6)
     if teacher_grad:
         torch.testing.assert_close(t_k.grad, t_r.grad, rtol=1e-5, atol=1e-6)
+
+
+# reports (strong, weak, iid), a calibration, a ragged t, a wide k
+@pytest.mark.parametrize("t,k", [(512, 1), (512, 3), (512, 10), (6000, 1),
+                                 (5999, 3), (300, 64)])
+def test_min_dist_kernel_matches_plain_and_is_deterministic(smoke, t, k):
+    smoke.check_min_dist(t, 50, k)
+
+
+# learn K11 and K12, report k_ta and k_tp, ragged both ways, a narrow d
+@pytest.mark.parametrize("n,m,d", [(256, 256, 50), (256, 6000, 50),
+                                   (512, 256, 50), (512, 6000, 50),
+                                   (511, 5999, 50), (70, 33, 7)])
+def test_rbf_kernel_matches_plain_and_is_deterministic(smoke, n, m, d):
+    smoke.check_rbf(n, m, d)
+
+
+def test_kmeans_dre_filter_on_the_card_reads_its_threshold_there(smoke):
+    """The calibrated threshold stays a device tensor and the filter's
+    estimation step takes it without a host read; fit, calibration and
+    filter agree with the CPU's plain route."""
+    from repro_torch.core.dre import KMeansDRE
+    # separated blobs, as in the k-means test below: a well-posed fit, so
+    # the two devices' float sums cannot steer it to different optima
+    g = torch.Generator().manual_seed(7)
+    centers = torch.randn((3, 50), generator=g) * 4
+    x_cpu = (centers[torch.arange(3000) % 3]
+             + torch.randn((3000, 50), generator=g))
+    init = x_cpu[:3] + 1.0
+    x = x_cpu.cuda()
+    before = kd_ops.min_dist_and_mask_cuda.launches
+    gpu = KMeansDRE(num_centroids=3).learn(x, init=init.cuda())
+    cpu = KMeansDRE(num_centroids=3).learn(x_cpu, init=init)
+    assert kd_ops.min_dist_and_mask_cuda.launches - before == 1
+    assert gpu.threshold.device.type == "cuda"
+    torch.testing.assert_close(gpu.threshold.cpu(), cpu.threshold,
+                               rtol=1e-5, atol=1e-5)
+    probe = x[::7] + 0.5
+    d_gpu, id_gpu = gpu.distances_and_id(probe)
+    d_cpu, id_cpu = kd_ref.min_dist_and_mask(probe.cpu(), gpu.centroids.cpu(),
+                                             gpu.threshold.cpu())
+    assert kd_ops.min_dist_and_mask_cuda.launches - before == 2
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-5, atol=1e-4)
+    near = (d_cpu - gpu.threshold.cpu()).abs() <= 1e-4
+    assert torch.equal(id_gpu.cpu()[~near], id_cpu[~near])
 
 
 def test_kmeans_fit_on_the_card_matches_the_cpu(smoke):
@@ -103,3 +152,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(smoke):
     s, t, _ = smoke.kl_inputs(8, 10, seed=0)
     with pytest.raises(ValueError, match="shape"):
         kl_ops.kd_kl_fwd_cuda(s, t[:4], 3.0)
+    xd = x[0]
+    with pytest.raises(ValueError, match="threshold"):
+        kd_ops.min_dist_and_mask_cuda(xd, cents[0], torch.ones(1))  # on CPU
+    with pytest.raises(ValueError, match="shared memory"):
+        kd_ops.min_dist_and_mask_cuda(torch.zeros((10, 64), device="cuda"),
+                                      big[0], torch.ones(1, device="cuda"))
+    with pytest.raises(TypeError, match="dtype"):
+        rbf_ops.rbf_matrix_cuda(xd.double(), xd.double(), 4.0)
+    with pytest.raises(ValueError, match="shape"):
+        rbf_ops.rbf_matrix_cuda(xd, torch.zeros((3, 5), device="cuda"), 4.0)

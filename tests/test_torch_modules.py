@@ -21,6 +21,7 @@ from repro.core.filtering import two_stage_filter as ref_two_stage_filter
 from repro.core.kmeans import kmeans_fit as ref_kmeans_fit
 from repro.core.kmeans import kmeans_plus_plus as ref_kmeans_plus_plus
 from repro.core.kmeans import min_dist_to_centroids as ref_min_dist
+from repro.core.methods import METHODS as REF_METHODS
 from repro.data import proxy as ref_proxy
 from repro.data.partition import partition as ref_partition
 from repro.fed import batching as ref_batching
@@ -34,7 +35,7 @@ from repro_torch.core.dre import KMeansDRE
 from repro_torch.core.filtering import two_stage_filter
 from repro_torch.core.kmeans import (kmeans_fit, kmeans_plus_plus,
                                      min_dist_to_centroids)
-from repro_torch.core.methods import get_method
+from repro_torch.core.methods import METHODS, get_method
 from repro_torch.data import partition, proxy
 from repro_torch.fed import batching
 from repro_torch.fed.server import Server
@@ -351,8 +352,21 @@ def test_unknown_backend_rejected(monkeypatch):
 
 
 def test_methods_outside_the_slice_raise():
-    assert get_method("edgefd").client_filter == "kmeans"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        get_method("fedmd")
+    """No method of Table III lies outside the slice any more: all nine
+    names resolve, each to a record whose fields equal the reference's,
+    with the same DRE defaults; only an unknown name raises."""
+    assert sorted(METHODS) == sorted(REF_METHODS)
+    for name, ref in REF_METHODS.items():
+        got = get_method(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+        dre = got.make_dre(num_centroids=3, threshold=1.5)
+        want = ref.make_dre(num_centroids=3, threshold=1.5)
+        assert type(dre).__name__ == type(want).__name__
+        if want is not None:
+            fields = [f.name for f in dataclasses.fields(want)
+                      if f.name not in ("centroids", "alpha", "aux",
+                                        "private")]
+            assert {f: getattr(dre, f) for f in fields} == {
+                f: getattr(want, f) for f in fields}
     with pytest.raises(KeyError, match="unknown method"):
         get_method("nope")

@@ -81,6 +81,19 @@ def test_fed_train_runs_on_the_cpu_when_asked(tmp_path, capsys):
     assert out.exists()
 
 
+@pytest.mark.parametrize("method", ["server_distill", "selective-fd"])
+def test_fed_train_runs_the_table_iii_methods(method, capsys):
+    res = fed_train.main(SMALL + ["--device", "cpu", "--method", method])
+    log = res.rounds[0]
+    assert res.method == method and 0.0 <= log.mean_acc <= 1.0
+    out = capsys.readouterr().out
+    if method == "server_distill":
+        assert "server_distill" in log.phase_s
+        assert log.server_student_acc is not None and "student=" in out
+    else:
+        assert 0.0 < log.id_fraction < 1.0
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "cohort"], "item 5"),
     (["--zoo", "mixed"], "item 5"),
@@ -99,8 +112,6 @@ def test_fed_train_runs_on_the_cpu_when_asked(tmp_path, capsys):
     (["--watchdog"], "item 7"),
     (["--dataset", "mnist_like"], "item 4"),
     (["--dataset", "lm_tokens"], "item 9"),
-    (["--method", "fedmd"], "item 4"),
-    (["--method", "selective-fd"], "item 4"),
 ])
 def test_flags_outside_the_slice_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
