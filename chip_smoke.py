@@ -11,20 +11,28 @@ Phases, in order; any failure raises and exits non-zero:
      (one nvcc per source, all started together);
   3. every kernel against its plain PyTorch version on the card at the
      main path's shapes and at ragged ones, with the stated tolerances,
-     and the bitwise determinism of the Lloyd, min-distance and RBF
-     kernels across two runs;
+     and the bitwise determinism of the Lloyd, min-distance, RBF and
+     flash-attention kernels across two runs (flash attention also on
+     strided views in the model's layout, and its autograd function's
+     gradients against autograd of the plain version);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
      weak runs): n_iter, assignments, centroids, DRE thresholds, reported;
   5. small fed_train runs (edgefd and selective-fd) on the card against
-     the same runs on the CPU (which takes the plain versions);
+     the same runs on the CPU (which takes the plain versions), and a small
+     lm_tokens edgefd run (the reduced granite backbone) on the card
+     against the CPU from the same initial weights;
   6. the main path: fed_train, 10 clients with MNIST's split sizes
      (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
      of their own (fedmd, feded, dsfl, fkd, pls, indlearn, server_distill),
-     strong — with each kernel's launch count (counts set to 0 just before
-     and read just after);
+     strong — then the transformer scenario at granite-8b's widths
+     (d_model 4096, 32/8 heads of 128, d_ff 14336; depth cut to 2 layers
+     and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
+     n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
+     its peak device memory; each kernel's launch count (counts set to 0
+     just before and read just after);
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -62,6 +70,18 @@ MAIN_LLOYD = dict(n=6000, d=50)      # one strong client's private set
 MAIN_KL = (64, 10)                   # one distill step: batch x classes
 MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
 MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
+# flash attention: |Δo| ≤ atol + rtol·|o| — f32 FMAs summed in another
+# order than cuBLAS's, over at most 4096 keys
+ATTN_RTOL, ATTN_ATOL = 1e-5, 2e-5
+# a training step at granite-8b's widths: batch, heads, kv heads, S, h
+MAIN_ATTN = (64, 32, 8, 16, 128)
+ATTN_SHAPES = (MAIN_ATTN,
+               (3, 32, 8, 300, 128),      # ragged S (two 256-blocks on TPU)
+               (16, 4, 1, 16, 16),        # the reduced backbone, GQA 4
+               (4, 8, 8, 40, 64),         # GQA 1, two small query tiles
+               (1, 32, 8, 4096, 128))     # one long causal sequence
+LM_ROUNDS = 3
+LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
                            "indlearn", "server_distill")
 
@@ -291,6 +311,63 @@ def check_rbf(n, m, d, seed=0):
     return float(err.max())
 
 
+def attn_inputs(b, n, nkv, s, h, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g) for shape in
+               ((b, n, s, h), (b, nkv, s, h), (b, nkv, s, h)))
+    return q.cuda(), k.cuda(), v.cuda()
+
+
+def check_flash(b, n, nkv, s, h, causal=True, seed=0):
+    """Flash-attention kernel vs plain version; also on strided (B, N, S,
+    h) views of (B, S, N, h) tensors (the model's layout), which must give
+    the same bits. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = attn_inputs(b, n, nkv, s, h, seed)
+    got = ops.flash_attention_cuda(q, k, v, causal)
+    again = ops.flash_attention_cuda(q, k, v, causal)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    strided = ops.flash_attention_cuda(*views, causal)
+    want = ref.attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    label = f"flash_attention ({b}, {n}, {s}, {h}) kv {nkv} causal={causal}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs differ")
+    if not torch.equal(got, strided):
+        raise AssertionError(f"{label}: strided views give other bits")
+    torch.testing.assert_close(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    err = float((got - want).abs().max())
+    log(f"  {label}: max|err|={err:.3e} (rtol {ATTN_RTOL:g}, atol "
+        f"{ATTN_ATOL:g}) deterministic=yes, strided views bitwise equal")
+    return err
+
+
+def check_flash_grads(b, n, nkv, s, h, seed=0):
+    """The autograd function (kernel forward, recompute backward) against
+    autograd of the plain version: one launch, gradients to q, k, v."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = attn_inputs(b, n, nkv, s, h, seed)
+    g = attn_inputs(b, n, n, s, h, seed + 1)[0]
+    kern = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.flash_attention_cuda.launches
+    ops.flash_attention(*kern, causal=True).backward(g)
+    if ops.flash_attention_cuda.launches - before != 1:
+        raise AssertionError("the autograd function did not launch the "
+                             "kernel exactly once")
+    ref.attention_gqa(*plain, causal=True).backward(g)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, w in zip("qkv", kern, plain):
+        torch.testing.assert_close(a.grad, w.grad, rtol=1e-4, atol=1e-5)
+        errs.append(f"d{name} {float((a.grad - w.grad).abs().max()):.3e}")
+    log(f"  flash_attention grads ({b}, {n}, {s}, {h}) kv {nkv}: max|err| "
+        + ", ".join(errs) + " (rtol 1e-4, atol 1e-5)")
+
+
 def check_kernels():
     log("[3] kernels vs plain versions on the card")
     lloyd_err = {}
@@ -310,7 +387,12 @@ def check_kernels():
     for n, m, d in ((256, 256, 50), (256, 6000, 50), (512, 256, 50),
                     MAIN_RBF, (511, 5999, 50)):
         rbf_err[(n, m, d)] = check_rbf(n, m, d)
-    return lloyd_err, kl_err, dist_err, rbf_err
+    attn_err = {shape: check_flash(*shape) for shape in ATTN_SHAPES}
+    check_flash(2, 4, 4, 20, 32, causal=False)
+    check_flash(3, 32, 8, 300, 128, causal=False)
+    check_flash_grads(*MAIN_ATTN)
+    check_flash_grads(16, 4, 1, 16, 16)
+    return lloyd_err, kl_err, dist_err, rbf_err, attn_err
 
 
 # ----------------------------------------------------------------- phase 4
@@ -437,31 +519,64 @@ def fed_train(args):
     return ft.main(args)
 
 
+def compare_runs(label, gpu, cpu, n_test):
+    for p, q in zip(gpu.rounds, cpu.rounds):
+        for f in ("local_loss", "distill_loss"):
+            a, b = getattr(p, f), getattr(q, f)
+            if not abs(a - b) <= 1e-3 * abs(b):
+                raise AssertionError(f"{label} round {p.round} {f}: "
+                                     f"card {a} vs CPU {b}")
+        for a, b in zip(p.accs, q.accs):
+            if abs(a - b) > 1.5 / n_test:
+                raise AssertionError(f"{label} round {p.round} accs: "
+                                     f"card {p.accs} vs CPU {q.accs}")
+    log(f"  {label}: card and CPU agree (losses rtol 1e-3, accuracies "
+        "within a test sample); last round card "
+        f"{gpu.rounds[-1].local_loss:.6f}/{gpu.rounds[-1].distill_loss:.6f}"
+        f" CPU {cpu.rounds[-1].local_loss:.6f}/"
+        f"{cpu.rounds[-1].distill_loss:.6f} (local/distill loss), id "
+        f"fraction card {gpu.rounds[-1].id_fraction:.4f} CPU "
+        f"{cpu.rounds[-1].id_fraction:.4f}")
+
+
 def check_small_run():
     """The port on the card (kernels) against the port on the CPU (plain
     versions), same seed, small size: float32 matmuls differ between the
-    two devices, so losses hold to rtol 1e-3 and accuracies to a sample."""
+    two devices, so losses hold to rtol 1e-3 and accuracies to a sample.
+    The transformer clients draw their weights on their device, so the
+    card's lm_tokens run loads the CPU run's initial weights."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.core.protocol import run_experiment
+    from repro_torch.fed.simulator import build_experiment
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     log("[5] small fed_train: card vs CPU")
     for method in ("edgefd", "selective-fd"):
         base = ["--method", method, "--scenario", "weak", "--clients", "4",
                 "--rounds", "2", "--n-train", "800", "--n-test", "200"]
         gpu = fed_train(base + ["--device", "cuda"])
         cpu = fed_train(base + ["--device", "cpu"])
-        for p, q in zip(gpu.rounds, cpu.rounds):
-            for f in ("local_loss", "distill_loss"):
-                a, b = getattr(p, f), getattr(q, f)
-                if not abs(a - b) <= 1e-3 * abs(b):
-                    raise AssertionError(f"{method} round {p.round} {f}: "
-                                         f"card {a} vs CPU {b}")
-            for a, b in zip(p.accs, q.accs):
-                if abs(a - b) > 1.5 / 200:
-                    raise AssertionError(f"{method} round {p.round} accs: "
-                                         f"card {p.accs} vs CPU {q.accs}")
-        log(f"  {method}: card and CPU agree")
+        compare_runs(method, gpu, cpu, 200)
+    cfg = FedConfig(method="edgefd", scenario="weak", num_clients=4,
+                    rounds=2, proxy_batch=64, batch_size=16, seed=0)
+    sizes = dict(n_train=800, n_test=200)
+    cpu_exp = build_experiment(cfg, "lm_tokens", device="cpu", **sizes)
+    init = [c.model.export_params() for c in cpu_exp[0]]
+    gpu_exp = build_experiment(cfg, "lm_tokens", device="cuda",
+                               init_params=init, **sizes)
+    before = fa_ops.flash_attention_cuda.launches
+    gpu = run_experiment(*gpu_exp[:2], cfg.method, cfg, *gpu_exp[2:])
+    launched = fa_ops.flash_attention_cuda.launches - before
+    if launched == 0:
+        raise AssertionError("the small lm_tokens run never launched "
+                             "flash_attention")
+    cpu = run_experiment(*cpu_exp[:2], cfg.method, cfg, *cpu_exp[2:])
+    compare_runs(f"lm_tokens edgefd weak, reduced backbone ({launched} "
+                 "flash_attention launches on the card)", gpu, cpu, 200)
 
 
 def launch_counts():
     from repro_torch.kernels.distill_kl import ops as kl
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.kmeans_dist import ops as kd
     from repro_torch.kernels.kulsif_rbf import ops as rbf
     return {"lloyd_step": kd.lloyd_step_cuda,
@@ -469,79 +584,153 @@ def launch_counts():
             "kd_kl_fwd": kl.kd_kl_fwd_cuda,
             "kd_kl_bwd_ds": kl.kd_kl_bwd_ds_cuda,
             "kd_kl_bwd_dt": kl.kd_kl_bwd_dt_cuda,
-            "rbf_matrix": rbf.rbf_matrix_cuda}
+            "rbf_matrix": rbf.rbf_matrix_cuda,
+            "flash_attention": fa.flash_attention_cuda}
+
+
+def check_finite(label, res):
+    for r in res.rounds:
+        vals = (r.mean_acc, r.local_loss, r.distill_loss,
+                r.server_distill_loss, r.id_fraction)
+        if r.server_student_acc is not None:
+            vals += (r.server_student_acc,)
+        if not all(v == v and abs(v) < float("inf") for v in vals):
+            raise AssertionError(f"{label} round {r.round}: non-finite "
+                                 f"metrics {vals}")
+
+
+def phase_seconds(res):
+    phases = {}
+    for r in res.rounds:
+        for ph, sec in r.phase_s.items():
+            phases[ph] = phases.get(ph, 0.0) + sec
+    return " ".join(f"{k}={v:.3f}" for k, v in phases.items())
+
+
+def lm_full_width_arch():
+    """granite-8b at its published widths, depth cut to 2 layers (the
+    reference token mode's depth; 36 would need 31 GB of f32 weights per
+    client) and vocab to the dataset's 32 labels (the last-position sample
+    logit of the reference's FD convention)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("granite-8b"), num_layers=2,
+                               vocab_size=32)
+
+
+def run_lm_full_width():
+    """lm_tokens edgefd strong at granite-8b's widths through
+    ``simulator.run`` (``fed_train`` builds the reduced backbone; the
+    width is the ``transformer_cfg`` keyword). The learning rate is 5e-4,
+    not the default 1e-2, which suits the reduced backbone's d_model 64:
+    under plain SGD the change one step makes to a layer's output grows
+    with the width of its input."""
+    import torch
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    from repro_torch.launch.fed_train import print_round
+    arch = lm_full_width_arch()
+    cfg = FedConfig(method="edgefd", scenario="strong", num_clients=10,
+                    rounds=LM_ROUNDS, batch_size=64, proxy_batch=256,
+                    lr=LM_LR, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = simulator.run(cfg, "lm_tokens", n_train=6000, n_test=1000,
+                        device="cuda", transformer_cfg=arch,
+                        progress=print_round)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  lm_tokens edgefd strong at granite-8b widths: d_model "
+        f"{arch.d_model}, heads {arch.num_heads}/{arch.num_kv_heads} of "
+        f"{arch.resolved_head_dim}, d_ff {arch.d_ff}, {arch.num_layers} "
+        f"layers, vocab {arch.vocab_size}: {arch.param_count() / 1e6:.1f} M "
+        f"parameters per client, lr {cfg.lr:g}; peak device memory "
+        f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    return res
 
 
 def run_main_path():
     """Phase 6. Returns the launch counts of the whole phase."""
     import torch
-    runs = ([("edgefd", sc) for sc in ("strong", "weak")]
-            + [("selective-fd", sc) for sc in ("strong", "weak")]
-            + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
+    from repro_torch.kernels import dispatch
+    mlp_runs = ([("edgefd", sc) for sc in ("strong", "weak")]
+                + [("selective-fd", sc) for sc in ("strong", "weak")]
+                + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
+    runs = [(f"{m} {sc}", lambda m=m, sc=sc: fed_train(
+        ["--method", m, "--scenario", sc, "--clients", "10", "--rounds",
+         "3", "--n-train", "60000", "--n-test", "10000", "--proxy-batch",
+         "512", "--device", "cuda"])) for m, sc in mlp_runs]
+    runs.append(("lm_tokens edgefd strong", run_lm_full_width))
     log("[6] main path: fed_train, 10 clients, n_train 60000, n_test 10000, "
         "3 rounds, proxy batch 512: "
-        + ", ".join(f"{m} {sc}" for m, sc in runs))
+        + ", ".join(f"{m} {sc}" for m, sc in mlp_runs)
+        + f"; then lm_tokens edgefd strong at granite-8b's widths, 10 "
+        f"clients, n_train 6000, n_test 1000, {LM_ROUNDS} rounds, batch 64, "
+        "proxy batch 256")
+    if dispatch.resolve() != "cuda":
+        raise AssertionError("the kernel backend does not resolve to cuda")
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
     results, per_run = {}, {}
-    for method, scenario in runs:
+    for label, drive in runs:
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fed_train(["--method", method, "--scenario", scenario,
-                         "--clients", "10", "--rounds", "3",
-                         "--n-train", "60000", "--n-test", "10000",
-                         "--proxy-batch", "512", "--device", "cuda"])
+        res = drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: w.launches - before[n] for n, w in wrappers.items()}
-        phases = {}
-        for r in res.rounds:
-            for ph, sec in r.phase_s.items():
-                phases[ph] = phases.get(ph, 0.0) + sec
-            vals = (r.mean_acc, r.local_loss, r.distill_loss,
-                    r.server_distill_loss, r.id_fraction)
-            if r.server_student_acc is not None:
-                vals += (r.server_student_acc,)
-            if not all(v == v and abs(v) < float("inf") for v in vals):
-                raise AssertionError(f"{method} {scenario} round {r.round}: "
-                                     f"non-finite metrics {vals}")
+        check_finite(label, res)
         last = res.rounds[-1]
         student = ("" if last.server_student_acc is None
                    else f", student acc {last.server_student_acc:.4f}")
-        log(f"  {method} {scenario}: final acc {res.final_acc:.4f}{student}, "
-            f"id fraction {last.id_fraction:.4f}, MB up "
-            f"{last.bytes_up / 1e6:.3f}, wall {wall:.3f} s (set-up + 3 "
-            "rounds), phase seconds over 3 rounds "
-            + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
-        log(f"  {method} {scenario}: launches "
+        log(f"  {label}: final acc {res.final_acc:.4f}{student}, id "
+            f"fraction {last.id_fraction:.4f}, MB up "
+            f"{last.bytes_up / 1e6:.3f}, last losses local "
+            f"{last.local_loss:.4f} distill {last.distill_loss:.4f}, wall "
+            f"{wall:.3f} s (set-up + {len(res.rounds)} rounds), phase "
+            f"seconds over {len(res.rounds)} rounds {phase_seconds(res)}")
+        log(f"  {label}: launches "
             + str({n: v for n, v in launches.items() if v}))
-        results[(method, scenario)] = res
-        per_run[(method, scenario)] = launches
+        results[label] = res
+        per_run[label] = launches
     counts = {n: w.launches for n, w in wrappers.items()}
     for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_fwd",
-                 "kd_kl_bwd_ds", "rbf_matrix"):
+                 "kd_kl_bwd_ds", "rbf_matrix", "flash_attention"):
         if counts[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
     for scenario in ("strong", "weak"):
-        if per_run[("edgefd", scenario)]["min_dist_and_mask"] == 0:
+        if per_run[f"edgefd {scenario}"]["min_dist_and_mask"] == 0:
             raise AssertionError(f"edgefd {scenario} never launched "
                                  "min_dist_and_mask")
-        if per_run[("selective-fd", scenario)]["rbf_matrix"] == 0:
+        if per_run[f"selective-fd {scenario}"]["rbf_matrix"] == 0:
             raise AssertionError(f"selective-fd {scenario} never launched "
                                  "rbf_matrix")
+    lm = per_run["lm_tokens edgefd strong"]
+    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_fwd",
+                 "kd_kl_bwd_ds", "flash_attention"):
+        if lm[name] == 0:
+            raise AssertionError(f"lm_tokens edgefd never launched {name}")
+    layers = lm_full_width_arch().num_layers
+    if lm["flash_attention"] % layers:
+        raise AssertionError(f"lm_tokens edgefd: {lm['flash_attention']} "
+                             f"flash_attention launches, not {layers} per "
+                             "forward")
+    if any(per_run[f"{m} {sc}"]["flash_attention"] for m, sc in mlp_runs):
+        raise AssertionError("a feature-path run launched flash_attention")
     # server_distill's clients distill exactly as fedmd's do; the rest of
     # its KL launches are the server student's
-    student_kl = (per_run[("server_distill", "strong")]["kd_kl_fwd"]
-                  - per_run[("fedmd", "strong")]["kd_kl_fwd"])
+    student_kl = (per_run["server_distill strong"]["kd_kl_fwd"]
+                  - per_run["fedmd strong"]["kd_kl_fwd"])
     if student_kl <= 0:
         raise AssertionError("the server_distill student never launched "
                              "kd_kl_fwd")
     log(f"  launches on the main path (all {len(runs)} runs): {counts}; "
         f"the server_distill student's kd_kl_fwd: {student_kl}; "
-        "kd_kl_bwd_dt is dead there (the teacher is a constant)")
-    final = results[("edgefd", "strong")].final_acc
+        f"lm_tokens: {lm['flash_attention'] // layers} forwards of "
+        f"{layers} layers; kd_kl_bwd_dt is dead there (the teacher is a "
+        "constant)")
+    final = results["edgefd strong"].final_acc
     if not final > 0.7:
         raise AssertionError(f"edgefd strong final mean accuracy {final} "
                              "<= 0.7")
@@ -613,7 +802,58 @@ def measure_rbf(counts, rbf_err):
     return row
 
 
-def measure(counts, lloyd_err, kl_err, dist_err, rbf_err):
+def measure_flash(counts, attn_err):
+    """B6 at the transformer path's shapes (a training step, a report's
+    proxy batch, an eval batch) and on one long causal sequence, beside
+    the plain version and PyTorch's scaled_dot_product_attention (timed
+    only; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    row = None
+    for b, n, nkv, s, h in (MAIN_ATTN, (256, 32, 8, 16, 128),
+                            (512, 32, 8, 16, 128), (1, 32, 8, 4096, 128)):
+        q, k, v = attn_inputs(b, n, nkv, s, h, seed=1)
+        # read q, k, v once (kv heads unexpanded), write o; per unmasked
+        # (query, key) pair 2h ops for q·k, 2h for p·v and ~5 for scale,
+        # mask, max, exp and sum
+        moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+        pairs = s * (s + 1) // 2
+        flops = b * n * pairs * (4 * h + 5)
+        iters, warm = (20, 3) if s > 1024 else (200, 20)
+
+        def kern():
+            return ops.flash_attention_cuda(q, k, v, True)
+
+        def plain():
+            return ref.attention_gqa(q, k, v, causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        ms = time_ms(kern, iters, warm)
+        plain_ms = time_ms(plain, iters, warm)
+        lib_ms = time_ms(library, iters, warm)
+        b_ms, b_by = bound(moved, flops)
+        log(f"  flash_attention ({b}, {n}, {s}, {h}) kv {nkv} causal: "
+            f"kernel {ms:.5f} plain {plain_ms:.5f} library {lib_ms:.5f} "
+            f"bound {b_ms:.6f} ({b_by}: {moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP); device only: kernel "
+            f"{fmt(device_ms(kern))} plain {fmt(device_ms(plain))} library "
+            f"{fmt(device_ms(library))}")
+        if (b, n, nkv, s, h) == MAIN_ATTN:
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/"
+                             "flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention/"
+                               "kernel.py:76",
+                   "launches": counts["flash_attention"],
+                   "max_abs_err": attn_err[MAIN_ATTN], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+    return row
+
+
+def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.distill_kl import ops as kl_ops
@@ -693,6 +933,7 @@ def measure(counts, lloyd_err, kl_err, dist_err, rbf_err):
                              "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": lib_ms})
     rows.append(measure_rbf(counts, rbf_err))
+    rows.append(measure_flash(counts, attn_err))
     return rows
 
 
@@ -731,11 +972,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
-    lloyd_err, kl_err, dist_err, rbf_err = check_kernels()
+    lloyd_err, kl_err, dist_err, rbf_err, attn_err = check_kernels()
     check_kmeans_agreement()
     check_small_run()
     counts = run_main_path()
-    rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err)
+    rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err)
 
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,9 @@
-"""Configuration of a federated-distillation experiment.
+"""Typed configuration objects: architectures and federated experiments.
+
+``ArchConfig`` (with ``AttentionKind``, ``MoEConfig`` and ``InputShape``)
+copies the reference ``repro.common.types`` records field for field: the
+model zoo (``repro_torch.models.transformer``) builds its modules from it
+and ``repro_torch.configs`` holds the published architectures.
 
 ``FedConfig`` copies the reference ``repro.common.types.FedConfig`` field
 for field, with the same names and defaults, so one set of keyword
@@ -9,8 +14,120 @@ would need them (see ``fed.simulator.check_slice``).
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional
 
+
+class AttentionKind(str, enum.Enum):
+    FULL = "full"                  # causal full attention
+    SLIDING = "sliding"            # sliding-window causal attention
+    LOCAL_HYBRID = "local_hybrid"  # RG-LRU blocks interleaved w/ local attn
+    RECURRENT = "recurrent"        # attention-free (xLSTM)
+    ENCODER = "encoder"            # bidirectional, encoder-only (audio)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    # capacity factor used for fixed-shape expert dispatch (TPU-friendly)
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # dense | moe | vlm | audio | ssm | hybrid
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // num_heads
+    moe: Optional[MoEConfig] = None
+    attention: AttentionKind = AttentionKind.FULL
+    qkv_bias: bool = False                  # qwen2.5 style
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    # vlm: every `cross_attn_every` layers one cross-attention layer is
+    # inserted (llama-3.2-vision style); the vision tokens come in as a
+    # stubbed precomputed embedding input.
+    cross_attn_every: int = 0
+    num_vision_tokens: int = 0
+    # hybrid (recurrentgemma): pattern period, e.g. 3 => (rglru, rglru, attn)
+    hybrid_period: int = 0
+    local_window: int = 2048                # local/sliding attn window
+    # ssm (xlstm): ratio of mLSTM blocks (rest sLSTM)
+    slstm_every: int = 0
+    # audio: encoder-only, frontend stubbed; inputs are frame embeddings
+    frontend_stub_dim: int = 0
+    dtype: str = "bfloat16"
+    # citation for the config (source paper / model card)
+    source: str = ""
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.attention != AttentionKind.ENCODER
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS = 6·N·D roofline term)."""
+        d, h = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        attn = d * (nq * h) + 2 * d * (nkv * h) + (nq * h) * d
+        if self.qkv_bias:
+            attn += (nq + 2 * nkv) * h
+        if self.moe is not None:
+            ffn = self.moe.num_experts * 3 * d * self.d_ff + d * self.moe.num_experts
+        elif self.d_ff > 0:
+            ffn = 3 * d * self.d_ff  # gate/up/down (SwiGLU)
+        else:
+            ffn = 0
+        if self.attention == AttentionKind.RECURRENT:
+            # xLSTM block ~ 4 gate projections + cell params, approx 8*d*d
+            attn = 8 * d * d
+            ffn = 0 if self.d_ff == 0 else ffn
+        per_layer = attn + ffn + 2 * d  # two RMSNorm scales
+        if self.cross_attn_every:
+            n_cross = self.num_layers // self.cross_attn_every
+            per_cross = 2 * d * (nq * h) + 2 * d * (nkv * h) + 2 * d
+            cross = n_cross * per_cross
+        else:
+            cross = 0
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return self.num_layers * per_layer + cross + emb + head + d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE uses top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        ffn_all = self.num_layers * self.moe.num_experts * 3 * self.d_model * self.d_ff
+        ffn_act = self.num_layers * self.moe.top_k * 3 * self.d_model * self.d_ff
+        return full - ffn_all + ffn_act
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str    # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
+
+
+# ----------------------------------------------------------------------------
+# Federated (paper-scale) configs
+# ----------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:

@@ -1,0 +1,15 @@
+"""internlm2-20b [dense] — GQA. [arXiv:2403.17297]"""
+from repro_torch.common.types import ArchConfig, AttentionKind
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=92544,
+    attention=AttentionKind.FULL,
+    source="arXiv:2403.17297",
+)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.common.types import FedConfig
 from repro_torch.core.methods import get_method
+from repro_torch.data.synthetic import sample_tensor
 
 if TYPE_CHECKING:  # avoid a core <-> fed import cycle at runtime
     from repro_torch.fed.client import Client
@@ -117,7 +118,7 @@ class LoopEngine:
     def phase_report(self, px, powner):
         """Returns (logits (C, t, K), masks (C, t) bool) as tensors on the
         clients' device; nothing is read back to the host."""
-        px_d = self._dev(px, torch.float32)
+        px_d = sample_tensor(px, self.device)
         owner_d = self._dev(powner)
         logits, masks = [], []
         for c in self.clients:                             # lines 20–25
@@ -127,7 +128,7 @@ class LoopEngine:
 
     def phase_distill(self, px, teacher, weight, epochs: int,
                       batch_size: int) -> List[float]:
-        px_d = self._dev(px, torch.float32)
+        px_d = sample_tensor(px, self.device)
         teacher_d = self._dev(teacher, torch.float32)
         weight_d = self._dev(weight, torch.float32)
         return [c.distill(px_d, teacher_d, weight_d, epochs, batch_size)
@@ -145,7 +146,7 @@ class LoopEngine:
                 for c in self.clients]
 
     def phase_eval(self, x_test, y_test) -> List[float]:
-        x_d = self._dev(x_test, torch.float32)
+        x_d = sample_tensor(x_test, self.device)
         y_d = self._dev(y_test, torch.int64)
         return [c.evaluate(x_d, y_d) for c in self.clients]
 
@@ -170,7 +171,7 @@ def run_experiment(clients, server: "Server", method_name: str,
     if method.client_filter != "none":                     # Initialization
         engine.learn_dres(cfg.seed)
     # the test set is copied to the device once, not every round
-    x_test = torch.tensor(x_test, dtype=torch.float32, device=engine.device)
+    x_test = sample_tensor(x_test, engine.device)
     y_test = torch.tensor(y_test, dtype=torch.int64, device=engine.device)
     logs = RoundScheduler(engine, server, method, cfg, x_test, y_test
                           ).run_rounds(0, cfg.rounds, progress=progress)

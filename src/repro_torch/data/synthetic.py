@@ -1,15 +1,20 @@
-"""Synthetic class-clustered feature datasets (the reference's feature mode).
+"""Synthetic class-clustered datasets: the reference's feature and token
+modes.
 
-Each dataset is a mixture of per-class Gaussian clusters in a latent
+A feature dataset is a mixture of per-class Gaussian clusters in a latent
 space, rendered as flat feature vectors through a fixed random linear
 decoder — the CIFAR10*-style pre-extracted-feature mode of the paper, with
-the class separation of ``repro.data.synthetic.SPECS``. The reference
-draws with ``jax.random``, which PyTorch cannot reproduce, so
-``make_dataset`` draws the same distribution from a seeded CPU
-``torch.Generator``; ``dataset_from_arrays`` wraps arrays made elsewhere
-(for example by the reference, for a parity run).
+the class separation of ``repro.data.synthetic.SPECS``. The token dataset
+``lm_tokens`` (transformer clients) draws each sample as a (seq_len,)
+int32 sequence from a narrow vocab band around a latent token y, labelled
+y: an LM next-token task whose classes are vocab entries, separable in raw
+token-id space for the KMeans-DRE filter. The reference draws with
+``jax.random``, which PyTorch cannot reproduce, so ``make_dataset`` draws
+the same distributions from a seeded CPU ``torch.Generator``;
+``dataset_from_arrays`` wraps arrays made elsewhere (for example by the
+reference, for a parity run).
 
-Image (``*_like``) and token (``lm_tokens``) datasets are not ported yet.
+Image (``*_like``) datasets are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 
 class Dataset(NamedTuple):
-    x: np.ndarray        # (n, d) float32 features
+    x: np.ndarray        # (n, d) float32 features or (n, S) int32 tokens
     y: np.ndarray        # (n,) int32 labels
     x_test: np.ndarray
     y_test: np.ndarray
@@ -38,6 +43,7 @@ class SyntheticSpec:
     separation: float = 6.0      # distance between class means
     within_std: float = 1.0      # intra-class spread
     feature_dim: int = 50        # flat-feature output dim
+    seq_len: int = 0             # >0 = token mode: x is (n, seq_len) int32
 
 
 SPECS = {
@@ -48,12 +54,12 @@ SPECS = {
                                 latent_dim=32),
     "cifar_feat_resnet": SyntheticSpec("cifar_feat_resnet", separation=6.0,
                                        within_std=1.1, latent_dim=32),
+    "lm_tokens": SyntheticSpec("lm_tokens", num_classes=32, seq_len=16),
 }
 # reference datasets whose port is still to come (ROADMAP queue A)
 NOT_PORTED = {"mnist_like": "4 (the image CNN zoo)",
               "fashion_like": "4 (the image CNN zoo)",
-              "cifar_like": "4 (the image CNN zoo)",
-              "lm_tokens": "9 (the transformer scenario)"}
+              "cifar_like": "4 (the image CNN zoo)"}
 
 
 def check_dataset(name: str) -> None:
@@ -70,6 +76,8 @@ def make_dataset(name: str, *, n_train: int = 5000, n_test: int = 1000,
     check_dataset(name)
     spec = SPECS[name]
     g = torch.Generator().manual_seed(seed)
+    if spec.seq_len:
+        return _token_dataset(spec, g, n_train, n_test)
     means = torch.randn((spec.num_classes, spec.latent_dim), generator=g)
     means = (means / torch.linalg.vector_norm(means, dim=-1, keepdim=True)
              * spec.separation)
@@ -89,10 +97,48 @@ def make_dataset(name: str, *, n_train: int = 5000, n_test: int = 1000,
                    num_classes=spec.num_classes, name=name)
 
 
+def _token_dataset(spec: SyntheticSpec, g: torch.Generator, n_train: int,
+                   n_test: int) -> Dataset:
+    """Tokens (y + noise) mod K, noise uniform in [-half_w, half_w] with
+    half_w = max(1, K // 16), labelled y (the reference's sampler)."""
+    k = spec.num_classes
+    half_w = max(1, k // 16)
+
+    def sample(n):
+        y = torch.randint(0, k, (n,), generator=g)
+        noise = torch.randint(-half_w, half_w + 1, (n, spec.seq_len),
+                              generator=g)
+        x = torch.remainder(y[:, None] + noise, k)
+        return x.to(torch.int32).numpy(), y.to(torch.int32).numpy()
+
+    x_tr, y_tr = sample(n_train)
+    x_te, y_te = sample(n_test)
+    return Dataset(x=x_tr, y=y_tr, x_test=x_te, y_test=y_te, num_classes=k,
+                   name=spec.name)
+
+
+def _as_samples(a) -> np.ndarray:
+    """Integer arrays (token ids) stay integers, as int32; anything else
+    becomes float32 features."""
+    a = np.asarray(a)
+    return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)
+                    else np.float32)
+
+
+def sample_tensor(a, device) -> torch.Tensor:
+    """Samples on ``device`` in the data's own kind: token ids as int64
+    (embedding indices), features as float32. A tensor already there in
+    that dtype is not copied."""
+    t = torch.as_tensor(a)
+    return t.to(device=device, dtype=torch.float32 if t.is_floating_point()
+                else torch.int64)
+
+
 def dataset_from_arrays(x, y, x_test, y_test, num_classes: int,
                         name: str = "arrays") -> Dataset:
-    """Wrap externally made feature arrays as a ``Dataset``."""
-    return Dataset(x=np.asarray(x, np.float32), y=np.asarray(y, np.int32),
-                   x_test=np.asarray(x_test, np.float32),
+    """Wrap externally made arrays as a ``Dataset``: float features, or
+    integer token ids, which stay integers."""
+    return Dataset(x=_as_samples(x), y=np.asarray(y, np.int32),
+                   x_test=_as_samples(x_test),
                    y_test=np.asarray(y_test, np.int32),
                    num_classes=int(num_classes), name=name)

@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.core import distill as D
 from repro_torch.core.aggregation import classwise_mean_logits
 from repro_torch.core.filtering import FilterStats, two_stage_filter
+from repro_torch.data.synthetic import sample_tensor
 from repro_torch.fed.batching import epoch_batches
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
@@ -103,8 +104,10 @@ class Client(Learner):
         self.cid = cid
         self.x = np.asarray(x)
         self.y = np.asarray(y)
-        self._x = torch.as_tensor(self.x, dtype=torch.float32,
-                                  device=self.device)
+        # samples in their own kind (token ids stay integers for the
+        # embedding lookup); the DRE's features are the flattened samples
+        # as f32, raw token ids included, as in the reference
+        self._x = sample_tensor(self.x, self.device)
         self._y = torch.as_tensor(self.y, dtype=torch.int64,
                                   device=self.device)
         self.dre = dre
@@ -123,7 +126,7 @@ class Client(Learner):
     def learn_dre(self, generator: Optional[torch.Generator] = None) -> None:
         if self.dre is None:
             return
-        feats = self._x.reshape(len(self.x), -1)
+        feats = self._x.reshape(len(self.x), -1).to(torch.float32)
         if hasattr(self.dre, "distances"):      # KMeans-DRE
             self.dre = self.dre.learn(feats, generator=generator,
                                       init=self._dev(self.dre_init))
@@ -152,8 +155,9 @@ class Client(Learner):
             ones = torch.ones((t,), dtype=torch.bool, device=self.device)
             return FilterStats(ones, ones, ones,
                                torch.zeros((t,), device=self.device))
-        return two_stage_filter(self.dre, proxy_x.reshape(len(proxy_x), -1),
-                                proxy_owner, self.cid)
+        return two_stage_filter(
+            self.dre, proxy_x.reshape(len(proxy_x), -1).to(torch.float32),
+            proxy_owner, self.cid)
 
     def classwise_means(self):
         """FKD/PLS: per-class mean logits over the private data and the

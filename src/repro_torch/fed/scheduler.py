@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.protocol import RoundLog
+from repro_torch.data.synthetic import sample_tensor
 
 ROUND_MODES = ("sync", "overlap")
 # the five phase names, in intra-round dependency order
@@ -127,8 +128,8 @@ class RoundScheduler:
         st.idx = self.server.select_indices(cfg.proxy_batch)
         # the round's proxy batch goes to the device once, for report and
         # distill alike
-        st.px = torch.as_tensor(self.server.proxy.x[st.idx],
-                                dtype=torch.float32, device=self.engine.device)
+        st.px = sample_tensor(self.server.proxy.x[st.idx],
+                              self.engine.device)
         powner = self.server.proxy.owner[st.idx]
         logits, masks = self.engine.phase_report(st.px, powner)
         # ID fraction over every (client, sample) pair of the round: an

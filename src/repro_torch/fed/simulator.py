@@ -5,17 +5,27 @@ KMeans-DRE centroid count per the paper (§IV-A/B):
   weak non-IID   → one per held label;
   IID            → one per class.
 
+A feature dataset gets the shared MLP zoo; a token dataset (``lm_tokens``:
+(n, S) integer sequences) gets one transformer client per cid,
+``core.fd_trainer.TransformerClientModel``: by default the reference's
+reduced granite backbone (``reduced(get_arch("granite-8b"), layers=2,
+d_model=64, vocab=K)``, vocab = the label space, the last-position sample
+logit convention); ``transformer_cfg`` replaces it, for example with
+granite-8b's published widths. Transformer weights are drawn on the target
+device from a generator of that device.
+
 ``build_experiment`` also accepts injected dataset arrays, per-client
-initial parameters, per-client k-means seeds and KuLSIF auxiliary samples,
-and the FedDF student's initial parameters: handed the reference's, it
-builds the same experiment the JAX package builds, which is how the tests
-hold the port against a live reference run.
+initial parameters (MLP layer lists or transformer pytrees), per-client
+k-means seeds and KuLSIF auxiliary samples, and the FedDF student's
+initial parameters: handed the reference's, it builds the same experiment
+the JAX package builds, which is how the tests hold the port against a
+live reference run.
 
 Only the ported slice runs: every method of Table III on feature-mode
-datasets, the shared MLP zoo, the loop engine with sync rounds and full
-participation, and the flat server with the mean aggregate.
-``check_slice`` refuses everything else with ``NotImplementedError``
-naming the ROADMAP item that brings it.
+datasets and on ``lm_tokens``, the shared MLP zoo, the loop engine with
+sync rounds and full participation, and the flat server with the mean
+aggregate. ``check_slice`` refuses everything else with
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.types import FedConfig
+from repro_torch.common.types import ArchConfig, FedConfig
+from repro_torch.configs import get_arch, reduced
+from repro_torch.core.fd_trainer import TransformerClientModel
 from repro_torch.core.methods import get_method
 from repro_torch.core.protocol import ExperimentResult, run_experiment
 from repro_torch.data.partition import partition
@@ -111,22 +123,32 @@ def _centroids_for(scenario: str, num_labels: int, num_classes: int) -> int:
     return num_classes
 
 
+def default_transformer_cfg(num_classes: int) -> ArchConfig:
+    """The reference's token-mode backbone: granite-8b reduced to 2 layers
+    and d_model 64, with vocab = the dataset's label space."""
+    return reduced(get_arch("granite-8b"), layers=2, d_model=64,
+                   vocab=num_classes)
+
+
 def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
                      n_train: int = 5000, n_test: int = 1000,
                      mlp_hidden: Tuple[int, ...] = (256, 128),
+                     transformer_cfg: Optional[ArchConfig] = None,
                      device="cuda", dataset: Optional[Dataset] = None,
-                     init_params: Optional[Sequence[list]] = None,
+                     init_params: Optional[Sequence] = None,
                      kmeans_inits: Optional[Sequence[np.ndarray]] = None,
                      kulsif_aux: Optional[Sequence[np.ndarray]] = None,
-                     student_params: Optional[list] = None
+                     student_params=None
                      ) -> Tuple[List[Client], Server, np.ndarray, np.ndarray]:
     """Build clients and server on ``device``.
 
-    ``dataset`` replaces the generated one; ``init_params[cid]`` (the
-    reference's ``[{'w', 'b'}, …]`` per layer) replaces client ``cid``'s
-    random init; ``kmeans_inits[cid]`` (k, d) replaces its k-means++
-    seeding and ``kulsif_aux[cid]`` (num_aux, d) its KuLSIF auxiliary
-    draw; ``student_params`` replaces the FedDF student's random init."""
+    ``dataset`` replaces the generated one; ``transformer_cfg`` replaces
+    the token mode's default backbone; ``init_params[cid]`` (the
+    reference's ``[{'w', 'b'}, …]`` per MLP layer, or its transformer
+    pytree) replaces client ``cid``'s random init; ``kmeans_inits[cid]``
+    (k, d) replaces its k-means++ seeding and ``kulsif_aux[cid]``
+    (num_aux, d) its KuLSIF auxiliary draw; ``student_params`` replaces the
+    FedDF student's random init."""
     device = torch.device(device)
     ds = (dataset if dataset is not None
           else make_dataset(dataset_name, n_train=n_train, n_test=n_test,
@@ -140,22 +162,37 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     server = Server(proxy, seed=cfg.seed, sanitize=cfg.sanitize_reports,
                     device=device)
     method = get_method(cfg.method)
-    d_in = ds.x.shape[-1]
+    # token mode: (n, S) integer sequences -> transformer clients
+    token_mode = ds.x.ndim == 2 and np.issubdtype(ds.x.dtype, np.integer)
+    if token_mode:
+        t_cfg = transformer_cfg or default_transformer_cfg(ds.num_classes)
+        # drawn on the device: a full-width client is 436 M values
+        init_gen = torch.Generator(device=device).manual_seed(cfg.seed)
+
+        def make_model():
+            return TransformerClientModel(
+                t_cfg, generator=init_gen, device=device,
+                kernel_backend=cfg.kernel_backend)
+    else:
+        d_in = ds.x.shape[-1]
+        init_gen = torch.Generator().manual_seed(cfg.seed)
+
+        def make_model():
+            return MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
+                                 generator=init_gen, device=device)
     # one optimizer and one init stream shared by the whole population
     shared_opt = sgd(cfg.lr)
-    init_gen = torch.Generator().manual_seed(cfg.seed)
     clients: List[Client] = []
     for cid, cd in enumerate(clients_data):
-        mlp = MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
-                            generator=init_gen, device=device)
+        model = make_model()
         if init_params is not None:
-            mlp.load_jax_params(init_params[cid])
+            model.load_jax_params(init_params[cid])
         dre = method.make_dre(
             num_centroids=_centroids_for(cfg.scenario, len(cd.labels),
                                          ds.num_classes),
             threshold=cfg.id_threshold, kernel_backend=cfg.kernel_backend)
         clients.append(Client(
-            cid, mlp, shared_opt, cd.x, cd.y, dre,
+            cid, model, shared_opt, cd.x, cd.y, dre,
             num_classes=ds.num_classes, temperature=cfg.temperature,
             distill_loss=method.distill_loss, seed=cfg.seed,
             kernel_backend=cfg.kernel_backend,
@@ -164,8 +201,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     if method.server_distill:
         # the FedDF student is drawn after the client loop, as in the
         # reference, so the clients' inits do not depend on the method
-        student = MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
-                                generator=init_gen, device=device)
+        student = make_model()
         if student_params is not None:
             student.load_jax_params(student_params)
         server.attach_student(student, shared_opt,
@@ -176,6 +212,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
 
 def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         n_train: int = 5000, n_test: int = 1000, device="cuda",
+        transformer_cfg: Optional[ArchConfig] = None,
         progress=None) -> ExperimentResult:
     # fail fast on a config outside the slice, a bad backend or a missing
     # device, before any client is built
@@ -183,6 +220,7 @@ def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     dispatch.resolve(cfg.kernel_backend)
     device = resolve_device(device)
     clients, server, x_test, y_test = build_experiment(
-        cfg, dataset_name, n_train=n_train, n_test=n_test, device=device)
+        cfg, dataset_name, n_train=n_train, n_test=n_test, device=device,
+        transformer_cfg=transformer_cfg)
     return run_experiment(clients, server, cfg.method, cfg, x_test, y_test,
                           progress=progress)

@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lloyd_step", "kd_kl", "kmeans_dist", "rbf_matrix")
+SOURCES = ("lloyd_step", "kd_kl", "kmeans_dist", "rbf_matrix",
+           "flash_attention")
 # sm_90a (not sm_90): Hopper's wgmma/setmaxnreg exist only for that target.
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
 # the build log kept beside the library.

@@ -4,7 +4,8 @@ PyTorch.
 Every compute hot spot of the federated round on the ported path (the
 Lloyd step of the KMeans-DRE fit, the KMeans-DRE filter's min-distance
 estimation, the KuLSIF-DRE's RBF Gram matrix, the temperature-KL
-distillation loss and its gradient) exists twice: a hand-written CUDA
+distillation loss and its gradient, and the transformer clients'
+attention) exists twice: a hand-written CUDA
 kernel for Hopper (``repro_torch.kernels.*.ops``) and its plain PyTorch
 version (``repro_torch.kernels.*.ref``). This module is the switch between them.
 
@@ -42,7 +43,8 @@ from repro_torch.kernels.kulsif_rbf import ref as _rbf_ref
 
 __all__ = ["BACKENDS", "ENV_VAR", "requested_backend", "resolve",
            "kernel_backend", "pairwise_sq_dists", "lloyd_step",
-           "min_dist_and_mask", "rbf_matrix", "kd_kl_per_sample"]
+           "min_dist_and_mask", "rbf_matrix", "kd_kl_per_sample",
+           "flash_attention"]
 
 BACKENDS = ("auto", "cuda", "torch")
 ALIASES = {"pallas": "cuda", "jnp": "torch"}
@@ -150,3 +152,31 @@ def kd_kl_per_sample(student_logits, teacher_logits, temperature: float,
     from repro_torch.kernels.distill_kl import ref as kl_ref
     return kl_ref.kd_kl_per_sample(student_logits, teacher_logits,
                                    temperature)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    backend: Optional[str] = None):
+    """Full-sequence attention in the model layout: q (B, S, N, h), k and
+    v (B, S, Nkv, h) with Nkv dividing N. Returns (B, S, N, h) in
+    ``v.dtype``.
+
+    The transformer clients' local-train, report, distill and eval hot
+    path. The plain route expands k/v to N heads by repeat and runs
+    ``models.layers``' mask + scores sequence, op for op the reference's
+    jnp route; the kernel route reads the kv heads in place, with no
+    transpose or repeat copy (the kernel takes strided (B, N, S, h) views).
+    It covers causal and full attention only: a sliding ``window`` always
+    takes the plain route. Differentiable on both routes (the kernel route
+    is an ``autograd.Function`` whose backward recomputes through the
+    plain version)."""
+    if window == 0 and resolve(backend) == "cuda":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        o = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal)
+        return o.transpose(1, 2).to(v.dtype)
+    from repro_torch.models import layers as L
+    n_rep = q.shape[2] // k.shape[2]
+    mask = L.make_mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                       device=q.device)
+    return L.attention_scores(q, L._expand_kv(k, n_rep), L._expand_kv(v, n_rep),
+                              mask)

@@ -3,7 +3,9 @@
 ``python -m repro_torch.launch.fed_train --method edgefd --scenario strong \
       --dataset mnist_feat --rounds 10 [--device cuda|cpu]``
 
-``--method`` takes every method of Table III (``repro_torch.core.methods``).
+``--method`` takes every method of Table III (``repro_torch.core.methods``);
+``--dataset`` takes the feature datasets and ``lm_tokens`` (transformer
+clients).
 
 Takes the reference's flags (``repro.launch.fed_train.add_config_args``)
 plus ``--device``, which defaults to ``cuda``: without a CUDA device the
@@ -34,7 +36,9 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
                     choices=["strong", "weak", "iid"])
     ap.add_argument("--dataset", default="mnist_feat",
                     help="synthetic dataset: *_feat = flat features (MLP "
-                         "zoo); image and token datasets are not ported")
+                         "zoo); lm_tokens = token sequences (transformer "
+                         "clients, the reduced granite backbone); image "
+                         "datasets are not ported")
     ap.add_argument("--engine", default="loop", choices=["loop", "cohort"])
     ap.add_argument("--devices", type=int, default=0)
     ap.add_argument("--model-shards", type=int, default=0)

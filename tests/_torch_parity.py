@@ -4,9 +4,12 @@ the JAX reference.
 The reference builds its experiment (``repro.fed.simulator``) and runs it
 on the jnp backend; the port builds the same experiment from the
 reference's dataset arrays, initial parameters (clients' and, for FedDF,
-the server student's), k-means++ seeds and KuLSIF auxiliary samples (the
+the server student's: MLP layer lists, or transformer pytrees on the
+``lm_tokens`` dataset), k-means++ seeds and KuLSIF auxiliary samples (the
 things drawn with ``jax.random``) and runs on the CPU through its plain
-PyTorch versions. Everything else — partition, proxy set, batch order,
+PyTorch versions. The dataset and its sizes are arguments
+(``mnist_feat`` at N_TRAIN/N_TEST by default); the client count and the
+rounds come from the config. Everything else — partition, proxy set, batch order,
 proxy draws — comes from numpy streams both packages share.
 
 Tolerances, per round (``assert_logs_match``):
@@ -47,14 +50,17 @@ NEAR_THRESHOLD_REL = 1e-5
 MAX_NEAR_PAIRS = 2
 
 
-def config(method: str, scenario: str) -> dict:
-    return dict(num_clients=CLIENTS, rounds=ROUNDS, method=method,
-                scenario=scenario, seed=0, kernel_backend="jnp",
-                round_mode="sync", zoo="shared")
+def config(method: str, scenario: str, **overrides) -> dict:
+    kw = dict(num_clients=CLIENTS, rounds=ROUNDS, method=method,
+              scenario=scenario, seed=0, kernel_backend="jnp",
+              round_mode="sync", zoo="shared")
+    kw.update(overrides)
+    return kw
 
 
-def _numpy_params(params) -> list:
-    return [{k: np.asarray(v) for k, v in layer.items()} for layer in params]
+def _numpy_params(params):
+    """A parameter pytree (MLP layer list or transformer dict) as numpy."""
+    return jax.tree.map(np.asarray, params)
 
 
 @dataclasses.dataclass
@@ -73,13 +79,14 @@ class Reference(Run):
     student_params: Optional[list] = None      # FedDF only
 
 
-def run_reference(kw: dict) -> Reference:
+def run_reference(kw: dict, dataset: str = "mnist_feat",
+                  n_train: int = N_TRAIN, n_test: int = N_TEST) -> Reference:
     cfg = RefFedConfig(**kw)
     method = ref_get_method(cfg.method)
-    ds = ref_make_dataset("mnist_feat", n_train=N_TRAIN, n_test=N_TEST,
+    ds = ref_make_dataset(dataset, n_train=n_train, n_test=n_test,
                           seed=cfg.seed)
     clients, server, x_test, y_test = ref_simulator.build_experiment(
-        cfg, "mnist_feat", n_train=N_TRAIN, n_test=N_TEST)
+        cfg, dataset, n_train=n_train, n_test=n_test)
     params = [_numpy_params(c.params) for c in clients]
     student = (None if server.student is None
                else _numpy_params(server.student.params))
@@ -141,22 +148,23 @@ def near_threshold_pairs(ref: Reference, port: Run) -> int:
     return total
 
 
-def assert_logs_match(kw: dict) -> tuple:
-    """Run ``kw``'s method in both packages and hold the port's round logs
-    to the reference's within the tolerances above. Returns (reference,
-    port) for further checks."""
-    ref = run_reference(kw)
+def assert_logs_match(kw: dict, dataset: str = "mnist_feat",
+                      n_train: int = N_TRAIN, n_test: int = N_TEST) -> tuple:
+    """Run ``kw``'s method in both packages on ``dataset`` and hold the
+    port's round logs to the reference's within the tolerances above.
+    Returns (reference, port) for further checks."""
+    ref = run_reference(kw, dataset, n_train, n_test)
     port = run_port(kw, ref)
     np.testing.assert_array_equal(port.server.proxy.x, ref.server.proxy.x)
     near = near_threshold_pairs(ref, port)
     assert near <= MAX_NEAR_PAIRS, (
         f"{near} near-threshold pairs: the case is too fragile")
     k = ref.dataset.num_classes
-    pairs = CLIENTS * min(kw.get("proxy_batch", FedConfig.proxy_batch),
-                          len(port.server.proxy.y))
-    acc_tol = 1.0 / N_TEST + 1e-9
+    pairs = kw["num_clients"] * min(
+        kw.get("proxy_batch", FedConfig.proxy_batch), len(port.server.proxy.y))
+    acc_tol = 1.0 / n_test + 1e-9
     p_rounds, q_rounds = port.result.rounds, ref.result.rounds
-    assert len(p_rounds) == len(q_rounds) == ROUNDS
+    assert len(p_rounds) == len(q_rounds) == kw["rounds"]
     for r, (p, q) in enumerate(zip(p_rounds, q_rounds)):
         assert set(p.phase_s) == set(q.phase_s), (p.phase_s, q.phase_s)
         for f in ("local_loss", "distill_loss", "server_distill_loss"):

@@ -21,6 +21,7 @@ from repro_torch.core.kmeans import kmeans_fit
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.distill_kl import ops as kl_ops
 from repro_torch.kernels.distill_kl import ref as kl_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.kmeans_dist import ops as kd_ops
 from repro_torch.kernels.kmeans_dist import ref as kd_ref
 from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
@@ -67,7 +68,7 @@ def test_kd_kl_autograd_runs_the_kernels(smoke, teacher_grad):
     assert {n: after[n] - before[n] for n in after} == {
         "lloyd_step": 0, "min_dist_and_mask": 0, "kd_kl_fwd": 1,
         "kd_kl_bwd_ds": 1, "kd_kl_bwd_dt": int(teacher_grad),
-        "rbf_matrix": 0}
+        "rbf_matrix": 0, "flash_attention": 0}
     s_r = s.clone().requires_grad_(True)
     t_r = t.clone().requires_grad_(teacher_grad)
     kl_ref.kd_kl_per_sample(s_r, t_r, 3.0).backward(g)
@@ -89,6 +90,48 @@ def test_min_dist_kernel_matches_plain_and_is_deterministic(smoke, t, k):
                                    (511, 5999, 50), (70, 33, 7)])
 def test_rbf_kernel_matches_plain_and_is_deterministic(smoke, n, m, d):
     smoke.check_rbf(n, m, d)
+
+
+# a training step and a report at granite-8b's widths, ragged S (two
+# 64-row tiles and a partial one), the reduced backbone (GQA 4), GQA 1
+# with h 64 and 32
+@pytest.mark.parametrize("b,n,nkv,s,h", [(64, 32, 8, 16, 128),
+                                         (256, 32, 8, 16, 128),
+                                         (3, 32, 8, 300, 128),
+                                         (16, 4, 1, 16, 16),
+                                         (4, 8, 8, 40, 64),
+                                         (2, 4, 4, 20, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain_and_is_deterministic(
+        smoke, b, n, nkv, s, h, causal):
+    smoke.check_flash(b, n, nkv, s, h, causal=causal)
+
+
+@pytest.mark.parametrize("b,n,nkv,s,h", [(64, 32, 8, 16, 128),
+                                         (16, 4, 1, 16, 16),
+                                         (3, 32, 8, 300, 128)])
+def test_flash_attention_function_grads_match_plain_autograd(smoke, b, n,
+                                                             nkv, s, h):
+    smoke.check_flash_grads(b, n, nkv, s, h)
+
+
+def test_model_attention_on_the_card_runs_the_kernel(smoke):
+    """The transformer's forward launches the kernel once per layer, and
+    the client's ``kernel_backend="torch"`` keeps attention plain."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.fd_trainer import TransformerClientModel
+    cfg = reduced(get_arch("granite-8b"), layers=2, d_model=64, vocab=32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 32, (8, 16), device="cuda", generator=gen)
+    kern = TransformerClientModel(cfg, generator=gen, device="cuda")
+    plain = TransformerClientModel(cfg, device="cuda", kernel_backend="torch")
+    plain.load_state_dict(kern.state_dict())
+    before = fa_ops.flash_attention_cuda.launches
+    out_k = kern(tokens)
+    assert fa_ops.flash_attention_cuda.launches - before == 2
+    out_p = plain(tokens)
+    assert fa_ops.flash_attention_cuda.launches - before == 2
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
 
 
 def test_kmeans_dre_filter_on_the_card_reads_its_threshold_there(smoke):
@@ -162,3 +205,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(smoke):
         rbf_ops.rbf_matrix_cuda(xd.double(), xd.double(), 4.0)
     with pytest.raises(ValueError, match="shape"):
         rbf_ops.rbf_matrix_cuda(xd, torch.zeros((3, 5), device="cuda"), 4.0)
+    q, k, v = smoke.attn_inputs(2, 4, 2, 16, 16, seed=0)
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.flash_attention_cuda(q.double(), k.double(), v.double(), True)
+    with pytest.raises(ValueError, match="divide"):
+        fa_ops.flash_attention_cuda(q, k[:, :1].repeat(1, 3, 1, 1),
+                                    v[:, :1].repeat(1, 3, 1, 1), True)
+    with pytest.raises(ValueError, match="head width"):
+        fa_ops.flash_attention_cuda(q[..., :8].contiguous(),
+                                    k[..., :8].contiguous(),
+                                    v[..., :8].contiguous(), True)
+    with pytest.raises(ValueError, match="last axis"):
+        fa_ops.flash_attention_cuda(q.transpose(2, 3), k, v, True)

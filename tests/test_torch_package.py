@@ -94,6 +94,18 @@ def test_fed_train_runs_the_table_iii_methods(method, capsys):
         assert 0.0 < log.id_fraction < 1.0
 
 
+def test_fed_train_runs_lm_tokens_on_the_cpu():
+    """The transformer scenario through the entry point: reduced granite
+    clients, the KMeans-DRE filter on raw token ids."""
+    res = fed_train.main(SMALL + ["--device", "cpu", "--dataset", "lm_tokens",
+                                  "--proxy-batch", "32"])
+    log = res.rounds[0]
+    assert set(log.phase_s) == {"local_train", "report", "aggregate",
+                                "distill", "eval"}
+    assert 0.0 < log.id_fraction <= 1.0 and log.bytes_up > 0
+    assert log.local_loss == log.local_loss and log.distill_loss > 0.0
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "cohort"], "item 5"),
     (["--zoo", "mixed"], "item 5"),
@@ -111,7 +123,7 @@ def test_fed_train_runs_the_table_iii_methods(method, capsys):
     (["--quarantine-threshold", "1.5"], "item 7"),
     (["--watchdog"], "item 7"),
     (["--dataset", "mnist_like"], "item 4"),
-    (["--dataset", "lm_tokens"], "item 9"),
+    (["--dataset", "cifar_like"], "item 4"),
 ])
 def test_flags_outside_the_slice_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
