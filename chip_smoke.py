@@ -11,10 +11,11 @@ Phases, in order; any failure raises and exits non-zero:
      (one nvcc per source, all started together);
   3. every kernel against its plain PyTorch version on the card at the
      main path's shapes and at ragged ones, with the stated tolerances,
-     and the bitwise determinism of the Lloyd, min-distance, RBF and
-     flash-attention kernels across two runs (flash attention also on
-     strided views in the model's layout, and its autograd function's
-     gradients against autograd of the plain version);
+     and the bitwise determinism of the Lloyd, min-distance, RBF,
+     fused-KL-loss and flash-attention kernels across two runs (flash
+     attention also on strided views in the model's layout, and its
+     autograd function's gradients against autograd of the plain
+     version);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
@@ -32,12 +33,16 @@ Phases, in order; any failure raises and exits non-zero:
      and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
      n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
-     just before and read just after);
+     just before and read just after), and the fused KL loss launched once
+     per distill step;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
      from the shapes, and the device-only times of each with the host's
-     per-call work taken out.
+     per-call work taken out; one distill step's loss and gradient by
+     four routes in turns (fused kernel, the per-sample kernels under
+     autograd, plain, library) beside an empty kernel's launch and the
+     autograd engine's floor.
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -68,6 +73,13 @@ RBF_RTOL, RBF_ATOL = 1e-5, 1e-6
 SIGMA = 4.0                          # Selective-FD's KuLSIF bandwidth
 MAIN_LLOYD = dict(n=6000, d=50)      # one strong client's private set
 MAIN_KL = (64, 10)                   # one distill step: batch x classes
+# the fused loss: a feature-path and FedDF-student step, an lm_tokens
+# distill step and its proxy batch, a ragged grid (19 blocks of 16 rows,
+# the last part-full), a wide row, and one past 1024 classes (the row
+# re-read from memory)
+KL_LOSS_SHAPES = (MAIN_KL, (64, 32), (256, 32), (300, 10), (4096, 1000),
+                  (5, 1500))
+KL_WEIGHTS = ("masked", "none", "zero")
 MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
 MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
 # flash attention: |Δo| ≤ atol + rtol·|o| — f32 FMAs summed in another
@@ -234,6 +246,54 @@ def check_kl(n, k, seed=0):
     return errs
 
 
+def kl_weights(n, kind, seed):
+    """A distill step's per-sample weight: the teacher's validity mask
+    times a weight in [0, 1) ("masked", a third of the rows 0), none (the
+    plain mean) or all zero (no valid teacher: the max(sum w, 1) clamp)."""
+    import torch
+    if kind == "none":
+        return None
+    if kind == "zero":
+        return torch.zeros((n,), device="cuda")
+    g = torch.Generator().manual_seed(seed + 7)
+    w = torch.rand((n,), generator=g) * (torch.rand((n,), generator=g) > 0.33)
+    return w.cuda()
+
+
+def check_kl_loss(n, k, weights, seed=0):
+    """The fused loss kernel vs its plain version (the per-sample plain
+    version, the weighted mean, autograd for the student): kl, loss and
+    ds; two launches bitwise equal, and a launch without ds gives the
+    same kl and loss. Returns the max abs error of each."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops, ref
+    s, t, _ = kl_inputs(n, k, seed)
+    w = kl_weights(n, weights, seed)
+    got = ops.kd_kl_loss_cuda(s, t, w, TEMPERATURE)
+    again = ops.kd_kl_loss_cuda(s, t, w, TEMPERATURE)
+    no_ds = ops.kd_kl_loss_cuda(s, t, w, TEMPERATURE, want_ds=False)
+    s_ = s.clone().requires_grad_(True)
+    kl_r = ref.kd_kl_per_sample(s_, t, TEMPERATURE)
+    loss_r = ref.weighted_mean(kl_r, w)
+    ds_r, = torch.autograd.grad(loss_r, s_)
+    torch.cuda.synchronize()
+    label = f"kd_kl_loss n={n} K={k} weights={weights}"
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{label}: two launches differ")
+    if no_ds[2] is not None or not (torch.equal(got[0], no_ds[0])
+                                    and torch.equal(got[1], no_ds[1])):
+        raise AssertionError(f"{label}: a launch without ds differs")
+    errs = {}
+    for name, g, want in (("loss", got[0], loss_r.detach()),
+                          ("kl", got[1], kl_r.detach()), ("ds", got[2], ds_r)):
+        torch.testing.assert_close(g, want, rtol=KL_RTOL, atol=KL_ATOL)
+        errs[name] = float((g - want).abs().max())
+    log(f"  {label}: max|err| loss={errs['loss']:.3e} kl={errs['kl']:.3e} "
+        f"ds={errs['ds']:.3e} (rtol {KL_RTOL:g}, atol {KL_ATOL:g}) "
+        f"loss {float(got[0]):.6e}, deterministic=yes")
+    return errs
+
+
 def check_min_dist(t, d, k, seed=0):
     """Min-distance kernel vs plain version, at a device threshold that
     splits the rows in half and at an infinite one (the calibration's);
@@ -377,6 +437,10 @@ def check_kernels():
     kl_err = {}
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         kl_err[(n, k)] = check_kl(n, k)
+    for n, k in KL_LOSS_SHAPES:
+        for weights in KL_WEIGHTS:
+            errs = check_kl_loss(n, k, weights)
+            kl_err[(n, k, weights)] = max(errs.values())
     dist_err = {}
     # reports (strong k=1, weak k=3, iid k=10), a calibration, ragged t
     for t, d, k in (MAIN_DIST, (512, 50, 3), (512, 50, 10), (6000, 50, 1),
@@ -581,6 +645,7 @@ def launch_counts():
     from repro_torch.kernels.kulsif_rbf import ops as rbf
     return {"lloyd_step": kd.lloyd_step_cuda,
             "min_dist_and_mask": kd.min_dist_and_mask_cuda,
+            "kd_kl_loss": kl.kd_kl_loss_cuda,
             "kd_kl_fwd": kl.kd_kl_fwd_cuda,
             "kd_kl_bwd_ds": kl.kd_kl_bwd_ds_cuda,
             "kd_kl_bwd_dt": kl.kd_kl_bwd_dt_cuda,
@@ -648,9 +713,30 @@ def run_lm_full_width():
     return res
 
 
+class CountedCalls:
+    """Counts the calls of ``module.name`` while in effect: the distill
+    steps, through the loss every client and the FedDF student call."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.orig = getattr(module, name)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.orig(*args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def run_main_path():
     """Phase 6. Returns the launch counts of the whole phase."""
     import torch
+    from repro_torch.core import distill
     from repro_torch.kernels import dispatch
     mlp_runs = ([("edgefd", sc) for sc in ("strong", "weak")]
                 + [("selective-fd", sc) for sc in ("strong", "weak")]
@@ -671,15 +757,17 @@ def run_main_path():
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
-    results, per_run = {}, {}
+    results, per_run, steps = {}, {}, {}
     for label, drive in runs:
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = drive()
+        with CountedCalls(distill, "kd_kl_loss") as kl_steps:
+            res = drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+        steps[label] = kl_steps.calls
         check_finite(label, res)
         last = res.rounds[-1]
         student = ("" if last.server_student_acc is None
@@ -695,10 +783,23 @@ def run_main_path():
         results[label] = res
         per_run[label] = launches
     counts = {n: w.launches for n, w in wrappers.items()}
-    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_fwd",
-                 "kd_kl_bwd_ds", "rbf_matrix", "flash_attention"):
+    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_loss",
+                 "rbf_matrix", "flash_attention"):
         if counts[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
+    # one launch of the fused loss per distill step, in every run that
+    # distills (all but indlearn), and none of the per-sample KL kernels
+    for label, launches in per_run.items():
+        if launches["kd_kl_loss"] != steps[label]:
+            raise AssertionError(f"{label}: {launches['kd_kl_loss']} "
+                                 f"kd_kl_loss launches for {steps[label]} "
+                                 "distill steps")
+        if (steps[label] == 0) != label.startswith("indlearn"):
+            raise AssertionError(f"{label}: {steps[label]} distill steps")
+        for name in ("kd_kl_fwd", "kd_kl_bwd_ds", "kd_kl_bwd_dt"):
+            if launches[name]:
+                raise AssertionError(f"{label} launched {name} "
+                                     f"{launches[name]} times")
     for scenario in ("strong", "weak"):
         if per_run[f"edgefd {scenario}"]["min_dist_and_mask"] == 0:
             raise AssertionError(f"edgefd {scenario} never launched "
@@ -707,8 +808,8 @@ def run_main_path():
             raise AssertionError(f"selective-fd {scenario} never launched "
                                  "rbf_matrix")
     lm = per_run["lm_tokens edgefd strong"]
-    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_fwd",
-                 "kd_kl_bwd_ds", "flash_attention"):
+    for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_loss",
+                 "flash_attention"):
         if lm[name] == 0:
             raise AssertionError(f"lm_tokens edgefd never launched {name}")
     layers = lm_full_width_arch().num_layers
@@ -720,16 +821,17 @@ def run_main_path():
         raise AssertionError("a feature-path run launched flash_attention")
     # server_distill's clients distill exactly as fedmd's do; the rest of
     # its KL launches are the server student's
-    student_kl = (per_run["server_distill strong"]["kd_kl_fwd"]
-                  - per_run["fedmd strong"]["kd_kl_fwd"])
+    student_kl = (per_run["server_distill strong"]["kd_kl_loss"]
+                  - per_run["fedmd strong"]["kd_kl_loss"])
     if student_kl <= 0:
         raise AssertionError("the server_distill student never launched "
-                             "kd_kl_fwd")
+                             "kd_kl_loss")
     log(f"  launches on the main path (all {len(runs)} runs): {counts}; "
-        f"the server_distill student's kd_kl_fwd: {student_kl}; "
+        f"distill steps {sum(steps.values())}, one kd_kl_loss launch each; "
+        f"the server_distill student's kd_kl_loss: {student_kl}; "
         f"lm_tokens: {lm['flash_attention'] // layers} forwards of "
-        f"{layers} layers; kd_kl_bwd_dt is dead there (the teacher is a "
-        "constant)")
+        f"{layers} layers; the per-sample KL kernels are off the main path "
+        "(the fused loss replaces them; the teacher is a constant)")
     final = results["edgefd strong"].final_acc
     if not final > 0.7:
         raise AssertionError(f"edgefd strong final mean accuracy {final} "
@@ -748,6 +850,93 @@ def time_row(label, kern, plain, moved, ops):
         f"({b_by}); device only: kernel {fmt(device_ms(kern))} plain "
         f"{fmt(device_ms(plain))}")
     return ms, plain_ms, b_ms, b_by
+
+
+def kl_library_loss(s, t, w, T):
+    """One PyTorch call for the per-sample KL (``F.kl_div`` on two
+    log-softmaxes), then the weighted mean: the library route (timed
+    only; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.distill_kl import ref
+    kl = F.kl_div(F.log_softmax(s / T, -1), F.log_softmax(t / T, -1),
+                  reduction="none", log_target=True).sum(-1) * (T * T)
+    return ref.weighted_mean(kl, w)
+
+
+def measure_kl_loss(counts, kl_err):
+    """The fused loss alone at its shapes (masked weights), beside its
+    plain version and the library route (loss and the student's gradient
+    each); then one distill step's loss plus gradient at the main shape by
+    four routes in turns, beside an empty kernel's launch and the autograd
+    engine's floor (the gradient of a one-op graph). Returns the JSON row
+    of the main shape."""
+    import torch
+    from repro_torch.core import distill
+    from repro_torch.kernels.distill_kl import ops, ref
+    T = TEMPERATURE
+    row = None
+    for n, k in ((64, 10), (64, 32), (256, 32), (4096, 1000)):
+        s, t, _ = kl_inputs(n, k, seed=1)
+        w = kl_weights(n, "masked", seed=1)
+        s_ = s.clone().requires_grad_(True)
+        # read s, t and w once; write kl, the loss and ds. Per element:
+        # s/T and t/T at each of three passes, two maxes, four exps, and
+        # the subtractions, sums and products of the lse, KL and gradient
+        moved = 4 * (3 * n * k + 2 * n + 1)
+        flops = 28 * n * k + 4 * n
+        ms, plain_ms, b_ms, b_by = time_row(
+            f"kd_kl_loss n={n} K={k} (loss, kl and ds)",
+            lambda: ops.kd_kl_loss_cuda(s, t, w, T),
+            lambda: torch.autograd.grad(ref.kd_kl_loss(s_, t, T, w), s_),
+            moved, flops)
+
+        def library():
+            return torch.autograd.grad(kl_library_loss(s_, t, w, T), s_)
+        lib_ms = time_ms(library)
+        log(f"    library (F.kl_div, weighted mean, autograd) {lib_ms:.5f}, "
+            f"device only {fmt(device_ms(library))}; bound from "
+            f"{moved / 1e6:.4f} MB")
+        if (n, k) == MAIN_KL:
+            row = {"name": "kd_kl_loss", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
+                   "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
+                   "launches": counts["kd_kl_loss"],
+                   "max_abs_err": kl_err[MAIN_KL + ("masked",)], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+    # one distill step at the main shape: the loss as the client computes
+    # it and the student's gradient, by each route, in turns
+    s, t, _ = kl_inputs(*MAIN_KL, seed=2)
+    w = kl_weights(MAIN_KL[0], "masked", seed=2)
+    s_ = s.clone().requires_grad_(True)
+    routes = {
+        "fused": lambda: distill.kd_kl_loss(s_, t, T, w, backend="cuda"),
+        "per-sample kernels": lambda: ref.weighted_mean(
+            ops.kd_kl_per_sample(s_, t, T), w),
+        "plain": lambda: distill.kd_kl_loss(s_, t, T, w, backend="torch"),
+        "library": lambda: kl_library_loss(s_, t, w, T),
+        # the autograd engine's own floor: a one-op graph on the student
+        "autograd floor (sum)": lambda: torch.sum(s_),
+    }
+    steps = {name: (lambda f=f: torch.autograd.grad(f(), s_))
+             for name, f in routes.items()}
+
+    def noop():
+        ops.noop_cuda(s.device)
+    times = {name: [] for name in ("empty kernel", *steps)}
+    order = list(steps)
+    for turn in (order, order[::-1]):
+        times["empty kernel"].append((time_ms(noop), device_ms(noop)))
+        for name in turn:
+            times[name].append((time_ms(steps[name]),
+                                device_ms(steps[name])))
+    log(f"  one distill step's loss + gradient at {MAIN_KL}, masked "
+        "weights, two turns (forward order, then reversed; ms per call / "
+        "device only):")
+    for name, pairs in times.items():
+        log(f"    {name}: " + "; ".join(f"{a:.5f} / {fmt(b)}"
+                                         for a, b in pairs))
+    return row
 
 
 def measure_min_dist(counts, dist_err):
@@ -932,6 +1121,7 @@ def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err):
                              "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": lib_ms})
+    rows.append(measure_kl_loss(counts, kl_err))
     rows.append(measure_rbf(counts, rbf_err))
     rows.append(measure_flash(counts, attn_err))
     return rows

@@ -1,10 +1,10 @@
 """Knowledge-distillation losses (Hinton et al.; Algorithm 1 line 41).
 
 Clients distill from the server's aggregated ensemble logits over proxy
-samples. ``kd_kl_loss`` takes its per-sample KL from
-``dispatch.kd_kl_per_sample``: the fused CUDA kernels (forward and
-backward) for CUDA tensors, the plain PyTorch version for CPU tensors. A
-per-sample weight masks out proxy samples with no valid teacher.
+samples. ``kd_kl_loss`` is ``dispatch.kd_kl_loss``: for CUDA tensors one
+launch of the fused kernel for the loss and the student's gradient, for
+CPU tensors the plain PyTorch version. A per-sample weight masks out proxy
+samples with no valid teacher.
 """
 from __future__ import annotations
 
@@ -13,13 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dispatch
-
-
-def _weighted_mean(v: torch.Tensor, sample_weight) -> torch.Tensor:
-    if sample_weight is None:
-        return torch.mean(v)
-    w = sample_weight.to(torch.float32)
-    return torch.sum(v * w) / torch.clamp_min(torch.sum(w), 1.0)
+from repro_torch.kernels.distill_kl.ref import weighted_mean as _weighted_mean
 
 
 def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
@@ -29,12 +23,14 @@ def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 
     student_logits/teacher_logits: (..., K). Scaled by T² so gradient
     magnitudes match the CE loss."""
-    lead = student_logits.shape[:-1]
-    k = student_logits.shape[-1]
-    kl = dispatch.kd_kl_per_sample(
-        student_logits.reshape(-1, k), teacher_logits.reshape(-1, k),
-        temperature, backend=backend).reshape(lead)
-    return _weighted_mean(kl, sample_weight)
+    if student_logits.ndim != 2:  # a distill step's (n, K) goes as it is
+        k = student_logits.shape[-1]
+        student_logits = student_logits.reshape(-1, k)
+        teacher_logits = teacher_logits.reshape(-1, k)
+        if sample_weight is not None:
+            sample_weight = sample_weight.reshape(-1)
+    return dispatch.kd_kl_loss(student_logits, teacher_logits, temperature,
+                               sample_weight, backend=backend)
 
 
 def kd_mse_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,

@@ -43,8 +43,8 @@ from repro_torch.kernels.kulsif_rbf import ref as _rbf_ref
 
 __all__ = ["BACKENDS", "ENV_VAR", "requested_backend", "resolve",
            "kernel_backend", "pairwise_sq_dists", "lloyd_step",
-           "min_dist_and_mask", "rbf_matrix", "kd_kl_per_sample",
-           "flash_attention"]
+           "min_dist_and_mask", "rbf_matrix", "kd_kl_loss",
+           "kd_kl_per_sample", "flash_attention"]
 
 BACKENDS = ("auto", "cuda", "torch")
 ALIASES = {"pallas": "cuda", "jnp": "torch"}
@@ -137,6 +137,25 @@ def rbf_matrix(a, b, sigma, *, backend: Optional[str] = None):
         from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
         return rbf_ops.rbf_matrix(a, b, sigma)
     return _rbf_ref.rbf_matrix(a, b, sigma)
+
+
+def kd_kl_loss(student_logits, teacher_logits, temperature: float,
+               sample_weight=None, *, backend: Optional[str] = None):
+    """One distill step's temperature-KL loss: the mean of the per-sample
+    T²·KL over (n, K) logits, weighted by ``sample_weight`` (n,) when
+    given -> 0-d.
+
+    Differentiable on both backends: the kernel route is an
+    ``autograd.Function`` whose one forward launch also writes the
+    student's gradient; the plain route is ``kd_kl_per_sample``'s plain
+    version followed by the weighted mean."""
+    if resolve(backend) == "cuda":
+        from repro_torch.kernels.distill_kl import ops as kl_ops
+        return kl_ops.kd_kl_loss(student_logits, teacher_logits,
+                                 float(temperature), sample_weight)
+    from repro_torch.kernels.distill_kl import ref as kl_ref
+    return kl_ref.kd_kl_loss(student_logits, teacher_logits, temperature,
+                             sample_weight)
 
 
 def kd_kl_per_sample(student_logits, teacher_logits, temperature: float,

@@ -1,11 +1,19 @@
 """Wrappers of the temperature-KL CUDA kernels (``csrc/kd_kl.cu``).
 
-``kd_kl_per_sample`` is the public, differentiable op: for a CUDA tensor
-it runs ``KdKlFunction`` (forward kernel, backward kernels), for a CPU
-tensor the plain version (``ref.kd_kl_per_sample``) under autograd, and it
-refuses anything else. Each ``*_cuda`` wrapper checks its operands,
-allocates its output with ``torch.empty``, launches on the current stream
-and counts its launches in ``<wrapper>.launches``.
+Two public, differentiable ops; each takes its plain version
+(``ref.py``) under autograd for a CPU tensor and refuses anything that is
+neither on the CPU nor on a CUDA device:
+
+* ``kd_kl_loss``: one distill step's loss, the weighted mean of the
+  per-sample T²·KL. For a CUDA tensor it runs ``KdKlLossFunction``: one
+  launch of the fused kernel writes the loss and the student's gradient,
+  and the backward multiplies that gradient by the cotangent.
+* ``kd_kl_per_sample``: the per-sample T²·KL, kernels B3 and B4 one for
+  one (``KdKlFunction``: forward kernel, backward kernels).
+
+Each ``*_cuda`` wrapper checks its operands, allocates its outputs with
+``torch.empty``, launches on the current stream and counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -26,8 +34,12 @@ def _lib() -> ctypes.CDLL:
     lib.repro_kd_kl_fwd.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr]
     lib.repro_kd_kl_bwd_ds.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
     lib.repro_kd_kl_bwd_dt.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
+    lib.repro_kd_kl_loss.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32,
+                                     ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.repro_kd_kl_noop.argtypes = [ptr]
     for fn in (lib.repro_kd_kl_fwd, lib.repro_kd_kl_bwd_ds,
-               lib.repro_kd_kl_bwd_dt):
+               lib.repro_kd_kl_bwd_dt, lib.repro_kd_kl_loss,
+               lib.repro_kd_kl_noop):
         fn.restype = ctypes.c_int
     return lib
 
@@ -120,6 +132,143 @@ class KdKlFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dt = kd_kl_bwd_dt_cuda(student, teacher, g, ctx.temperature)
         return ds, dt, None
+
+
+# rows per block of the fused loss (LOSS_ROWS in csrc/kd_kl.cu): one
+# partial sum per block
+LOSS_ROWS = 16
+# (device index, stream handle) -> the fused loss's ticket, one int32 that
+# is zero between launches; one per stream, so launches on two streams of
+# a card never share it
+_tickets: dict = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ticket = _tickets.get(key)
+    if ticket is None:
+        ticket = _tickets[key] = torch.zeros((1,), dtype=torch.int32,
+                                             device=device)
+    return ticket
+
+
+def kd_kl_loss_cuda(student: torch.Tensor, teacher: torch.Tensor,
+                    sample_weight, temperature: float, want_ds: bool = True):
+    """The fused kernel, one launch: (n, K) f32 logits and an optional
+    (n,) f32 weight -> ``(loss, kl, ds)``: the 0-d weighted mean of
+    ``kl`` (the plain mean without a weight), the per-sample T²·KL (n,)
+    and, when ``want_ds``, the loss's gradient for the student (n, K),
+    else None. The operands must lie on the current device."""
+    require_cuda(student, "kd_kl_loss")
+    if student.ndim != 2 or student.numel() == 0:
+        raise ValueError("kd_kl_loss takes non-empty (n, K) logits, got "
+                         f"{tuple(student.shape)}")
+    n, k = student.shape
+    dev = student.device
+    check_operand(teacher, "teacher", dtype=torch.float32, shape=(n, k),
+                  device=dev)
+    check_operand(student, "student", dtype=torch.float32, shape=(n, k),
+                  device=dev)
+    if sample_weight is not None:
+        check_operand(sample_weight, "sample_weight", dtype=torch.float32,
+                      shape=(n,), device=dev)
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"kd_kl_loss: operands on {dev}, but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one allocation: ds (n·K, first, so it is aligned), kl (n), the loss,
+    # one partial sum per block
+    n_ds = n * k if want_ds else 0
+    blocks = -(-n // LOSS_ROWS)
+    buf = torch.empty((n_ds + n + 1 + blocks,), dtype=torch.float32,
+                      device=dev)
+    base = buf.data_ptr()
+    lib = _lib()
+    code = lib.repro_kd_kl_loss(
+        student.data_ptr(), teacher.data_ptr(),
+        None if sample_weight is None else sample_weight.data_ptr(), n, k,
+        float(temperature), int(want_ds), base + 4 * n_ds,
+        base + 4 * (n_ds + n), base if want_ds else None,
+        base + 4 * (n_ds + n + 1), _ticket(dev, stream).data_ptr(), stream)
+    build.check(lib, code, "kd_kl_loss")
+    kd_kl_loss_cuda.launches += 1
+    ds = buf.as_strided((n, k), (k, 1)) if want_ds else None
+    return (buf.as_strided((), (), n_ds + n),
+            buf.as_strided((n,), (1,), n_ds), ds)
+
+
+kd_kl_loss_cuda.launches = 0
+
+
+def noop_cuda(device: torch.device) -> None:
+    """An empty kernel through the same C interface: the launch floor
+    that ``chip_smoke.py`` times beside the fused loss (not counted)."""
+    lib = _lib()
+    build.check(lib, lib.repro_kd_kl_noop(
+        torch.cuda.current_stream(device).cuda_stream), "kd_kl_noop")
+
+
+class KdKlLossFunction(torch.autograd.Function):
+    """The weighted-mean T²·KL loss through the fused kernel.
+
+    The forward launches it once and keeps the student's gradient for a
+    unit cotangent, so the backward is ``ds * g``, no launch of ours. Only
+    when the teacher needs a gradient (never in federated distillation,
+    where it is the server's constant) does the backward launch the
+    per-sample dt kernel with the mean's per-sample cotangent. The weight
+    is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, student, teacher, sample_weight, temperature: float):
+        loss, _, ds = kd_kl_loss_cuda(student, teacher, sample_weight,
+                                      temperature,
+                                      want_ds=ctx.needs_input_grad[0])
+        ctx.temperature = temperature
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(ds, student, teacher, sample_weight)
+        else:
+            ctx.save_for_backward(ds)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        ds, *operands = ctx.saved_tensors
+        d_student = ds * g if ctx.needs_input_grad[0] else None
+        d_teacher = None
+        if ctx.needs_input_grad[1]:
+            student, teacher, w = operands
+            if w is None:
+                per_sample = (g / student.shape[0]).expand(student.shape[0])
+            else:
+                per_sample = w * (g / torch.clamp_min(torch.sum(w), 1.0))
+            d_teacher = kd_kl_bwd_dt_cuda(
+                student, teacher,
+                per_sample.to(torch.float32).contiguous(), ctx.temperature)
+        return d_student, d_teacher, None, None
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+def kd_kl_loss(student: torch.Tensor, teacher: torch.Tensor,
+               temperature: float, sample_weight=None) -> torch.Tensor:
+    """Differentiable loss of one distill step: the mean of the
+    per-sample T²·KL(teacher_T ∥ student_T) weighted by ``sample_weight``
+    (n,), or the plain mean without it. (n, K) logits -> 0-d.
+    ``temperature`` is a Python float (never differentiated)."""
+    if student.device.type == "cpu":
+        return ref.kd_kl_loss(student, teacher, temperature, sample_weight)
+    require_cuda(student, "kd_kl_loss")
+    if sample_weight is not None:
+        if sample_weight.requires_grad:
+            raise ValueError("kd_kl_loss: the kernel route does not "
+                             "differentiate the sample weight")
+        sample_weight = _f32(sample_weight)
+    return KdKlLossFunction.apply(_f32(student), _f32(teacher),
+                                  sample_weight, float(temperature))
 
 
 def kd_kl_per_sample(student: torch.Tensor, teacher: torch.Tensor,

@@ -17,6 +17,7 @@ import pathlib
 import pytest
 import torch
 
+from repro_torch.core import distill
 from repro_torch.core.kmeans import kmeans_fit
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.distill_kl import ops as kl_ops
@@ -66,7 +67,8 @@ def test_kd_kl_autograd_runs_the_kernels(smoke, teacher_grad):
     after = {n: w.launches for n, w in smoke.launch_counts().items()}
     # fwd and ds once, dt only when the teacher needs a gradient
     assert {n: after[n] - before[n] for n in after} == {
-        "lloyd_step": 0, "min_dist_and_mask": 0, "kd_kl_fwd": 1,
+        "lloyd_step": 0, "min_dist_and_mask": 0, "kd_kl_loss": 0,
+        "kd_kl_fwd": 1,
         "kd_kl_bwd_ds": 1, "kd_kl_bwd_dt": int(teacher_grad),
         "rbf_matrix": 0, "flash_attention": 0}
     s_r = s.clone().requires_grad_(True)
@@ -75,6 +77,65 @@ def test_kd_kl_autograd_runs_the_kernels(smoke, teacher_grad):
     torch.testing.assert_close(s_k.grad, s_r.grad, rtol=1e-5, atol=1e-6)
     if teacher_grad:
         torch.testing.assert_close(t_k.grad, t_r.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("weights", ["masked", "none", "zero"])
+@pytest.mark.parametrize("n,k", [(64, 10), (64, 32), (256, 32), (300, 10),
+                                 (4096, 1000), (5, 1500)])
+def test_kd_kl_loss_kernel_matches_plain_and_is_deterministic(smoke, n, k,
+                                                              weights):
+    smoke.check_kl_loss(n, k, weights)
+
+
+@pytest.mark.parametrize("teacher_grad", [False, True])
+def test_distill_loss_launches_the_fused_kernel_once(smoke, teacher_grad):
+    """A weighted distill step's loss and backward: one fused launch, no
+    per-sample kernel; the dt kernel once only when the teacher needs a
+    gradient, which equals the plain route's."""
+    s, t, _ = smoke.kl_inputs(64, 10, seed=3)
+    w = smoke.kl_weights(64, "masked", seed=3)
+    s_k = s.clone().requires_grad_(True)
+    t_k = t.clone().requires_grad_(teacher_grad)
+    before = {n: w_.launches for n, w_ in smoke.launch_counts().items()}
+    loss = distill.kd_kl_loss(s_k, t_k, 3.0, w)
+    mid = {n: w_.launches for n, w_ in smoke.launch_counts().items()}
+    loss.backward()
+    after = {n: w_.launches for n, w_ in smoke.launch_counts().items()}
+    assert {n: mid[n] - before[n] for n in mid if mid[n] != before[n]} == {
+        "kd_kl_loss": 1}
+    assert {n: after[n] - mid[n] for n in after if after[n] != mid[n]} == (
+        {"kd_kl_bwd_dt": 1} if teacher_grad else {})
+    s_r = s.clone().requires_grad_(True)
+    t_r = t.clone().requires_grad_(teacher_grad)
+    loss_r = distill.kd_kl_loss(s_r, t_r, 3.0, w, backend="torch")
+    loss_r.backward()
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(s_k.grad, s_r.grad, rtol=1e-5, atol=1e-6)
+    if teacher_grad:
+        torch.testing.assert_close(t_k.grad, t_r.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_loss_wrapper_refuses_what_the_kernel_does_not_take(smoke):
+    s, t, _ = smoke.kl_inputs(8, 10, seed=0)
+    w = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        kl_ops.kd_kl_loss_cuda(s, t.T.contiguous().T, w, 3.0)
+    with pytest.raises(TypeError, match="dtype"):
+        kl_ops.kd_kl_loss_cuda(s, t.double(), w, 3.0)
+    with pytest.raises(TypeError, match="dtype"):
+        kl_ops.kd_kl_loss_cuda(s, t, w.bool(), 3.0)
+    with pytest.raises(ValueError, match="shape"):
+        kl_ops.kd_kl_loss_cuda(s, t[:4], w, 3.0)
+    with pytest.raises(ValueError, match="shape"):
+        kl_ops.kd_kl_loss_cuda(s, t, w[:4], 3.0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kl_ops.kd_kl_loss_cuda(s, t.cpu(), w, 3.0)
+    with pytest.raises(ValueError, match="differentiate the sample weight"):
+        kl_ops.kd_kl_loss(s, t, 3.0, w.clone().requires_grad_(True))
+    if torch.cuda.device_count() > 1:
+        with torch.cuda.device(1):
+            with pytest.raises(ValueError, match="current device"):
+                kl_ops.kd_kl_loss_cuda(s, t, w, 3.0)
 
 
 # reports (strong, weak, iid), a calibration, a ragged t, a wide k
