@@ -46,6 +46,12 @@ Phases, in order; any failure raises and exits non-zero:
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
+
+    python3 chip_smoke.py --time-flash [--src DIR]
+
+times only B6 at the transformer path's shapes, per call and device only,
+in both layouts, from the package under DIR (default: this checkout's
+src/); run it for two trees in turns to compare them on one card.
 """
 from __future__ import annotations
 
@@ -91,7 +97,17 @@ ATTN_SHAPES = (MAIN_ATTN,
                (3, 32, 8, 300, 128),      # ragged S (two 256-blocks on TPU)
                (16, 4, 1, 16, 16),        # the reduced backbone, GQA 4
                (4, 8, 8, 40, 64),         # GQA 1, two small query tiles
-               (1, 32, 8, 4096, 128))     # one long causal sequence
+               (1, 32, 8, 4096, 128),     # one long causal sequence
+               # the short route (Sq <= 32) beyond the main path's shape
+               (16, 16, 2, 16, 128),      # qwen2.5-3b's 16/2: two row tiles
+               (4, 128, 8, 16, 128),      # llama3-405b's 128/8: four
+               (64, 32, 8, 1, 128),       # Sq = 1
+               (16, 32, 8, 32, 128),      # Sq = 32: two row and key tiles
+               (16, 32, 8, 16, 64),       # h 64 and 32 at GQA 4
+               (16, 32, 8, 16, 32))
+# the transformer path's launch shapes: a training or distill step, a
+# report's proxy batch, an eval batch (timed also in the model's layout)
+PATH_ATTN = (MAIN_ATTN, (256, 32, 8, 16, 128), (512, 32, 8, 16, 128))
 LM_ROUNDS = 3
 LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
@@ -379,6 +395,12 @@ def attn_inputs(b, n, nkv, s, h, seed):
     return q.cuda(), k.cuda(), v.cuda()
 
 
+def model_layout(t):
+    """A (B, N, S, h) view of a (B, S, N, h) copy of ``t``: what the model
+    hands the kernel (``dispatch.flash_attention``)."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def check_flash(b, n, nkv, s, h, causal=True, seed=0):
     """Flash-attention kernel vs plain version; also on strided (B, N, S,
     h) views of (B, S, N, h) tensors (the model's layout), which must give
@@ -388,8 +410,7 @@ def check_flash(b, n, nkv, s, h, causal=True, seed=0):
     q, k, v = attn_inputs(b, n, nkv, s, h, seed)
     got = ops.flash_attention_cuda(q, k, v, causal)
     again = ops.flash_attention_cuda(q, k, v, causal)
-    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
-    strided = ops.flash_attention_cuda(*views, causal)
+    strided = ops.flash_attention_cuda(*map(model_layout, (q, k, v)), causal)
     want = ref.attention_gqa(q, k, v, causal=causal)
     torch.cuda.synchronize()
     label = f"flash_attention ({b}, {n}, {s}, {h}) kv {nkv} causal={causal}"
@@ -454,8 +475,12 @@ def check_kernels():
     attn_err = {shape: check_flash(*shape) for shape in ATTN_SHAPES}
     check_flash(2, 4, 4, 20, 32, causal=False)
     check_flash(3, 32, 8, 300, 128, causal=False)
+    for shape in ATTN_SHAPES:
+        if shape[3] <= 32:                 # the short route, full attention
+            check_flash(*shape, causal=False)
     check_flash_grads(*MAIN_ATTN)
     check_flash_grads(16, 4, 1, 16, 16)
+    check_flash_grads(16, 16, 2, 16, 128)  # GQA 8
     return lloyd_err, kl_err, dist_err, rbf_err, attn_err
 
 
@@ -714,15 +739,20 @@ def run_lm_full_width():
 
 
 class CountedCalls:
-    """Counts the calls of ``module.name`` while in effect: the distill
-    steps, through the loss every client and the FedDF student call."""
+    """Counts the calls of ``module.name`` while in effect (the distill
+    steps, through the loss every client and the FedDF student call), and
+    with ``key`` the calls by ``key(*args)`` in ``by_key``."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, key=None):
         self.module, self.name, self.calls = module, name, 0
         self.orig = getattr(module, name)
+        self.key, self.by_key = key, {}
 
     def __call__(self, *args, **kwargs):
         self.calls += 1
+        if self.key is not None:
+            kk = self.key(*args)
+            self.by_key[kk] = self.by_key.get(kk, 0) + 1
         return self.orig(*args, **kwargs)
 
     def __enter__(self):
@@ -734,7 +764,8 @@ class CountedCalls:
 
 
 def run_main_path():
-    """Phase 6. Returns the launch counts of the whole phase."""
+    """Phase 6. Returns the launch counts of the whole phase and the
+    transformer run's attention launches by query batch size."""
     import torch
     from repro_torch.core import distill
     from repro_torch.kernels import dispatch
@@ -757,17 +788,21 @@ def run_main_path():
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
-    results, per_run, steps = {}, {}, {}
+    results, per_run, steps, attn_batches = {}, {}, {}, {}
     for label, drive in runs:
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with CountedCalls(distill, "kd_kl_loss") as kl_steps:
+        # attention calls by query batch size: q is (B, S, N, h)
+        with CountedCalls(distill, "kd_kl_loss") as kl_steps, \
+                CountedCalls(dispatch, "flash_attention",
+                             key=lambda q, *_: q.shape[0]) as attn:
             res = drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: w.launches - before[n] for n, w in wrappers.items()}
         steps[label] = kl_steps.calls
+        attn_batches[label] = dict(sorted(attn.by_key.items()))
         check_finite(label, res)
         last = res.rounds[-1]
         student = ("" if last.server_student_acc is None
@@ -817,6 +852,11 @@ def run_main_path():
         raise AssertionError(f"lm_tokens edgefd: {lm['flash_attention']} "
                              f"flash_attention launches, not {layers} per "
                              "forward")
+    by_batch = attn_batches["lm_tokens edgefd strong"]
+    if sum(by_batch.values()) != lm["flash_attention"]:
+        raise AssertionError(f"lm_tokens edgefd: {sum(by_batch.values())} "
+                             "attention calls for "
+                             f"{lm['flash_attention']} kernel launches")
     if any(per_run[f"{m} {sc}"]["flash_attention"] for m, sc in mlp_runs):
         raise AssertionError("a feature-path run launched flash_attention")
     # server_distill's clients distill exactly as fedmd's do; the rest of
@@ -830,13 +870,14 @@ def run_main_path():
         f"distill steps {sum(steps.values())}, one kd_kl_loss launch each; "
         f"the server_distill student's kd_kl_loss: {student_kl}; "
         f"lm_tokens: {lm['flash_attention'] // layers} forwards of "
-        f"{layers} layers; the per-sample KL kernels are off the main path "
+        f"{layers} layers, flash_attention launches by query batch size "
+        f"{by_batch}; the per-sample KL kernels are off the main path "
         "(the fused loss replaces them; the teacher is a constant)")
     final = results["edgefd strong"].final_acc
     if not final > 0.7:
         raise AssertionError(f"edgefd strong final mean accuracy {final} "
                              "<= 0.7")
-    return counts
+    return counts, by_batch
 
 
 # ----------------------------------------------------------------- phase 7
@@ -991,16 +1032,18 @@ def measure_rbf(counts, rbf_err):
     return row
 
 
-def measure_flash(counts, attn_err):
+def measure_flash(counts, attn_err, by_batch):
     """B6 at the transformer path's shapes (a training step, a report's
-    proxy batch, an eval batch) and on one long causal sequence, beside
-    the plain version and PyTorch's scaled_dot_product_attention (timed
-    only; the port never calls it)."""
+    proxy batch, an eval batch), also on the model's layout, and on one
+    long causal sequence, beside the plain version and PyTorch's
+    scaled_dot_product_attention (timed only; the port never calls it).
+    ``by_batch``: the main path's launches by query batch size, for the
+    launches x (device time - bound) sum."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     row = None
-    for b, n, nkv, s, h in (MAIN_ATTN, (256, 32, 8, 16, 128),
-                            (512, 32, 8, 16, 128), (1, 32, 8, 4096, 128)):
+    gap_ms = 0.0
+    for b, n, nkv, s, h in PATH_ATTN + ((1, 32, 8, 4096, 128),):
         q, k, v = attn_inputs(b, n, nkv, s, h, seed=1)
         # read q, k, v once (kv heads unexpanded), write o; per unmasked
         # (query, key) pair 2h ops for q·k, 2h for p·v and ~5 for scale,
@@ -1022,13 +1065,32 @@ def measure_flash(counts, attn_err):
         ms = time_ms(kern, iters, warm)
         plain_ms = time_ms(plain, iters, warm)
         lib_ms = time_ms(library, iters, warm)
+        dev_ms = device_ms(kern)
         b_ms, b_by = bound(moved, flops)
         log(f"  flash_attention ({b}, {n}, {s}, {h}) kv {nkv} causal: "
             f"kernel {ms:.5f} plain {plain_ms:.5f} library {lib_ms:.5f} "
             f"bound {b_ms:.6f} ({b_by}: {moved / 1e6:.1f} MB, "
-            f"{flops / 1e9:.3f} GFLOP); device only: kernel "
-            f"{fmt(device_ms(kern))} plain {fmt(device_ms(plain))} library "
+            f"{flops / 1e9:.3f} GFLOP); device only: kernel {fmt(dev_ms)} "
+            f"plain {fmt(device_ms(plain))} library "
             f"{fmt(device_ms(library))}")
+        if s <= 32:
+            views = [model_layout(t) for t in (q, k, v)]
+
+            def kern_model():
+                return ops.flash_attention_cuda(*views, True)
+            model_ms = time_ms(kern_model, iters, warm)
+            model_dev = device_ms(kern_model)
+            share = ", ".join(f"{lay} {b_ms / d:.3f}" for lay, d in
+                              (("(B, N, S, h)", dev_ms),
+                               ("model", model_dev)) if d is not None)
+            log(f"    model layout (views of (B, S, N, h)): kernel "
+                f"{model_ms:.5f}, device only {fmt(model_dev)}; share of "
+                f"the byte bound, device only: {share}")
+            if b in by_batch and dev_ms is not None:
+                gap = by_batch[b] * (max(dev_ms, model_dev or dev_ms) - b_ms)
+                gap_ms += gap
+                log(f"    {by_batch[b]} main-path launches at B = {b}: "
+                    f"launches x (device - bound) {gap:.4f} ms")
         if (b, n, nkv, s, h) == MAIN_ATTN:
             row = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/"
@@ -1039,10 +1101,32 @@ def measure_flash(counts, attn_err):
                    "max_abs_err": attn_err[MAIN_ATTN], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms}
+    log(f"  flash_attention: launches x (device - bound) over the timed "
+        f"batch sizes {gap_ms:.4f} ms (main-path launches by batch size "
+        f"{by_batch})")
     return row
 
 
-def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err):
+def time_flash(label):
+    """``--time-flash``: B6 at PATH_ATTN, per call and device only, on
+    (B, N, S, h) tensors and on the model layout's views."""
+    from repro_torch.kernels.flash_attention import ops
+    for b, n, nkv, s, h in PATH_ATTN:
+        q, k, v = attn_inputs(b, n, nkv, s, h, seed=1)
+        b_ms, _ = bound(4 * (2 * q.numel() + k.numel() + v.numel()), 0)
+        res = []
+        for lay, args in (("(B, N, S, h)", (q, k, v)),
+                          ("model", [model_layout(t) for t in (q, k, v)])):
+            def kern(args=args):
+                return ops.flash_attention_cuda(*args, True)
+            res.append(f"{lay} {time_ms(kern):.5f} / {fmt(device_ms(kern))}")
+        log(f"  {label}: flash_attention ({b}, {n}, {s}, {h}) kv {nkv} "
+            "causal, ms per call / device only: " + "; ".join(res)
+            + f"; bound {b_ms:.6f}")
+
+
+def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
+            attn_batches):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.distill_kl import ops as kl_ops
@@ -1123,11 +1207,18 @@ def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err):
                              "library_ms": lib_ms})
     rows.append(measure_kl_loss(counts, kl_err))
     rows.append(measure_rbf(counts, rbf_err))
-    rows.append(measure_flash(counts, attn_err))
+    rows.append(measure_flash(counts, attn_err, attn_batches))
     return rows
 
 
-def main() -> int:
+def main(argv) -> int:
+    src, flash_only = SRC, bool(argv) and argv[0] == "--time-flash"
+    if flash_only and argv[1:2] == ["--src"] and len(argv) == 3:
+        src = Path(argv[2]).resolve()
+    elif argv and not (flash_only and len(argv) == 1):
+        print("usage: chip_smoke.py [--time-flash [--src DIR]]",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1137,17 +1228,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    if flash_only:
+        log(smi)
+        time_flash(str(src))
+        return 0
     log(f"[1] {smi}")
     log(f"    python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, "
@@ -1159,14 +1254,20 @@ def main() -> int:
     log(f"[2] kernel build: {secs:.1f} s for {', '.join(build.SOURCES)}")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"    {name}: {line.strip()}")
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    log("    flash_attention short route: resident blocks an SM at h = "
+        + ", ".join(f"{h}: {fa_ops.short_route_occupancy(h)}"
+                    for h in fa_ops.HEAD_DIMS))
 
     lloyd_err, kl_err, dist_err, rbf_err, attn_err = check_kernels()
     check_kmeans_agreement()
     check_small_run()
-    counts = run_main_path()
-    rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err)
+    counts, attn_batches = run_main_path()
+    rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
+                   attn_batches)
 
     log(smi)
     print(json.dumps({"kernels": rows}))
@@ -1177,4 +1278,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -36,7 +36,7 @@ class _PendingReports(NamedTuple):
 
 class Server:
     def __init__(self, proxy: ProxyData, *, seed: int = 0,
-                 sanitize: bool = True, device="cpu"):
+                 sanitize: bool = True, device="cuda"):
         self.proxy = proxy
         self.seed = seed
         self.rng = np.random.default_rng(seed + 7)

@@ -23,7 +23,9 @@ from repro_torch.kernels.common import require_cuda
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+_STRIDES = ctypes.c_longlong * 12
 MAX_GRID_YZ = 65535             # heads and batch are grid axes y and z
+VEC = 4                         # floats in one 16-byte copy
 
 
 @functools.cache
@@ -33,7 +35,29 @@ def _lib() -> ctypes.CDLL:
     lib.repro_flash_attention.argtypes = (
         [ptr] * 4 + [i32] * 6 + [ctypes.POINTER(ctypes.c_longlong), i32, ptr])
     lib.repro_flash_attention.restype = ctypes.c_int
+    lib.repro_flash_attention_short_occupancy.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.repro_flash_attention_short_occupancy.restype = ctypes.c_int
     return lib
+
+
+def vector_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernel's 16-byte copies can read ``t`` (4-d): a 16-byte
+    aligned pointer and batch, head and sequence strides that are
+    multiples of 4 elements. (Runs on every launch: kept to a few
+    attribute reads.)"""
+    st = t.stride()
+    return t.data_ptr() % (4 * VEC) == 0 and (st[0] | st[1] | st[2]) % VEC == 0
+
+
+def short_route_occupancy(h: int) -> int:
+    """Blocks of the short route's kernel (Sq <= 32) at head width ``h``
+    that one SM of the current CUDA device holds at once."""
+    blocks = ctypes.c_int(0)
+    lib = _lib()
+    build.check(lib, lib.repro_flash_attention_short_occupancy(
+        h, ctypes.byref(blocks)), "flash_attention occupancy")
+    return blocks.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -55,6 +79,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                              f"{shape}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
+        if not vector_aligned(t):
+            raise ValueError(f"{name} must have a 16-byte aligned pointer "
+                             f"and strides that are multiples of {VEC} "
+                             f"(got strides {t.stride()})")
     if min(b, n, sq, sk) == 0:
         raise ValueError(f"flash_attention: empty operand q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
@@ -73,13 +101,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
     """Launch the kernel on q (B, N, Sq, h) and k, v (B, Nkv, Sk, h), f32
-    on one CUDA device, each with a contiguous last axis (any other
-    strides, e.g. a transposed view of the model's (B, S, N, h), are read
-    as they are). Returns o (B, N, Sq, h) f32 laid out as q."""
+    on one CUDA device, each with a contiguous last axis, a 16-byte
+    aligned pointer and strides that are multiples of 4 (any such strides,
+    e.g. a transposed view of the model's (B, S, N, h), are read as they
+    are). Returns o (B, N, Sq, h) f32 laid out as q."""
     b, n, nkv, sq, sk, h = _check(q, k, v)
     o = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
-                                         for s in t.stride()[:3]))
+    strides = _STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       *o.stride()[:3])
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.repro_flash_attention(
@@ -125,7 +154,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def operand(t):
         t = t.to(torch.float32)
-        return t if t.stride(-1) == 1 else t.contiguous()
+        if t.stride(-1) == 1 and vector_aligned(t):
+            return t
+        # a fresh copy: contiguous() would keep a misaligned pointer
+        return t.clone(memory_format=torch.contiguous_format)
 
     return FlashAttentionFunction.apply(operand(q), operand(k), operand(v),
                                         bool(causal))

@@ -155,13 +155,21 @@ def test_rbf_kernel_matches_plain_and_is_deterministic(smoke, n, m, d):
 
 # a training step and a report at granite-8b's widths, ragged S (two
 # 64-row tiles and a partial one), the reduced backbone (GQA 4), GQA 1
-# with h 64 and 32
+# with h 64 and 32; then the short route (Sq <= 32) at qwen2.5-3b's GQA 8
+# (two row tiles a group) and llama3-405b's GQA 16 (four), at Sq = 1 and
+# Sq = 32 (two row and two key tiles), and at h 64 and 32 with GQA 4
 @pytest.mark.parametrize("b,n,nkv,s,h", [(64, 32, 8, 16, 128),
                                          (256, 32, 8, 16, 128),
                                          (3, 32, 8, 300, 128),
                                          (16, 4, 1, 16, 16),
                                          (4, 8, 8, 40, 64),
-                                         (2, 4, 4, 20, 32)])
+                                         (2, 4, 4, 20, 32),
+                                         (16, 16, 2, 16, 128),
+                                         (4, 128, 8, 16, 128),
+                                         (64, 32, 8, 1, 128),
+                                         (16, 32, 8, 32, 128),
+                                         (16, 32, 8, 16, 64),
+                                         (16, 32, 8, 16, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain_and_is_deterministic(
         smoke, b, n, nkv, s, h, causal):
@@ -170,10 +178,28 @@ def test_flash_attention_kernel_matches_plain_and_is_deterministic(
 
 @pytest.mark.parametrize("b,n,nkv,s,h", [(64, 32, 8, 16, 128),
                                          (16, 4, 1, 16, 16),
-                                         (3, 32, 8, 300, 128)])
+                                         (3, 32, 8, 300, 128),
+                                         (16, 16, 2, 16, 128)])
 def test_flash_attention_function_grads_match_plain_autograd(smoke, b, n,
                                                              nkv, s, h):
     smoke.check_flash_grads(b, n, nkv, s, h)
+
+
+def test_flash_attention_refuses_misaligned_operands_the_op_copies(smoke):
+    """The kernel's 16-byte copies need aligned pointers and strides in
+    multiples of 4: the wrapper refuses anything else, and the public op
+    copies such an operand first, giving the aligned operand's bits."""
+    q, k, v = smoke.attn_inputs(2, 8, 2, 16, 32, seed=0)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    padded = torch.zeros((2, 8, 16, 34), device="cuda")
+    padded[..., :32] = q
+    want = fa_ops.flash_attention_cuda(q, k, v, True)
+    for bad in (shifted, padded[..., :32]):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa_ops.flash_attention_cuda(bad, k, v, True)
+        assert torch.equal(fa_ops.flash_attention(bad, k, v, causal=True),
+                           want)
 
 
 def test_model_attention_on_the_card_runs_the_kernel(smoke):

@@ -67,13 +67,21 @@ def _attn_inputs(b, n, nkv, s, h, seed):
 
 # ------------------------------------------------------------------- B6
 
-@pytest.mark.parametrize("s", [16, 20, 300])
-@pytest.mark.parametrize("ratio", [1, 2, 4])
+# (GQA ratio, S): S = 1 and 32 are the kernel's short route at its ends,
+# ratio 8 a group of qwen2.5-3b's size (8 query heads on one kv head).
+# Ratio 8 is not run at S = 300: each kv gradient there sums 2400 terms,
+# and fp32 reassociation between the two libraries reaches 1.2e-6 on an
+# element near zero, above GRAD_TOL's atol.
+B6_CASES = [(ratio, s) for ratio in (1, 2, 4, 8)
+            for s in (1, 16, 20, 32, 300) if (ratio, s) != (8, 300)]
+
+
+@pytest.mark.parametrize("ratio,s", B6_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas_and_oracle(causal, ratio, s):
     """The plain version against the Pallas kernel (S = 300 pads to two
     256-row blocks there) and the jnp oracle, forward and gradients."""
-    b, n, h = (1, 4, 16) if s == 300 else (2, 4, 16)
+    b, n, h = (1 if s == 300 else 2), max(4, ratio), 16
     q, k, v, g = _attn_inputs(b, n, n // ratio, s, h, seed=s + ratio)
     out_w, vjp = jax.vjp(
         lambda q_, k_, v_: ref_fa_ops.attention(q_, k_, v_, causal=causal,
