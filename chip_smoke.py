@@ -12,9 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
   3. every kernel against its plain PyTorch version on the card at the
      main path's shapes and at ragged ones, with the stated tolerances,
      and the bitwise determinism of the Lloyd, min-distance, RBF,
-     fused-KL-loss and flash-attention kernels across two runs (flash
-     attention also on strided views in the model's layout, and its
-     autograd function's gradients against autograd of the plain
+     fused-KL-loss and flash-attention kernels across two runs (the Lloyd
+     kernel also for several clients in one launch, and one launch a
+     call; flash attention also on strided views in the model's layout,
+     and its autograd function's gradients against autograd of the plain
      version);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
@@ -33,13 +34,16 @@ Phases, in order; any failure raises and exits non-zero:
      and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
      n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
-     just before and read just after), and the fused KL loss launched once
-     per distill step;
+     just before and read just after), the Lloyd kernel's launches by
+     centroid count and the RBF kernel's by shape, and the fused KL loss
+     launched once per distill step;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
      from the shapes, and the device-only times of each with the host's
-     per-call work taken out; one distill step's loss and gradient by
+     per-call work taken out (the Lloyd and RBF kernels at each of their
+     shapes, with the share of the bound and the main path's launches
+     times the gap); one distill step's loss and gradient by
      four routes in turns (fused kernel, the per-sample kernels under
      autograd, plain, library) beside an empty kernel's launch and the
      autograd engine's floor.
@@ -48,10 +52,13 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 
     python3 chip_smoke.py --time-flash [--src DIR]
+    python3 chip_smoke.py --time-kernels [--src DIR]
 
-times only B6 at the transformer path's shapes, per call and device only,
-in both layouts, from the package under DIR (default: this checkout's
-src/); run it for two trees in turns to compare them on one card.
+time only B6 at the transformer path's shapes, per call and device only,
+in both layouts, or only B1 (k = 1, 2, 3, 10, 64) and B5 (its fit's and a
+report's shapes, private sizes even and odd), from the package under DIR
+(default: this checkout's src/); run one for two trees in turns to
+compare them on one card.
 """
 from __future__ import annotations
 
@@ -88,6 +95,13 @@ KL_LOSS_SHAPES = (MAIN_KL, (64, 32), (256, 32), (300, 10), (4096, 1000),
 KL_WEIGHTS = ("masked", "none", "zero")
 MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
 MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
+# B1's centroid counts: strong (1), weak (a client's labels), iid (10), and
+# the widest instance; B5's four shapes: a KuLSIF fit's K11 and K12, a
+# report's k_ta and k_tp, each private size also odd (its rows then start
+# inside a 32-byte sector)
+LLOYD_KS = (1, 2, 3, 10, 64)
+RBF_SHAPES = ((256, 256, 50), (256, 6000, 50), (512, 256, 50), MAIN_RBF,
+              (256, 6001, 50), (512, 6001, 50))
 # flash attention: |Δo| ≤ atol + rtol·|o| — f32 FMAs summed in another
 # order than cuBLAS's, over at most 4096 keys
 ATTN_RTOL, ATTN_ATOL = 1e-5, 2e-5
@@ -170,63 +184,72 @@ def bound(bytes_moved: float, ops: float):
 
 
 # ----------------------------------------------------------------- phase 3
-def lloyd_inputs(n, d, k, seed):
+def lloyd_inputs(n, d, k, seed, c=1):
     import torch
     g = torch.Generator().manual_seed(seed)
     # clustered, off-centre rows like a client's feature set; centroids
     # near data rows but never on one
-    x = torch.randn((1, n, d), generator=g) + 3.0
+    x = torch.randn((c, n, d), generator=g) + 3.0
     pick = torch.randint(n, (k,), generator=g)
-    cents = x[:, pick] + 0.5 * torch.randn((1, k, d), generator=g)
+    cents = x[:, pick] + 0.5 * torch.randn((c, k, d), generator=g)
     return x.cuda(), cents.cuda()
 
 
-def check_lloyd(n, d, k, seed=0):
-    """Kernel vs plain version; returns the max abs error of min_d2 and
-    sums. Distances carry an error that scales with the terms the matmul
-    form cancels (x2 + c2), sums one that scales with the summed
-    magnitudes, so each tolerance is rtol·scale + atol."""
+def check_lloyd(n, d, k, seed=0, c=1):
+    """Kernel vs plain version for c clients in one launch; returns the max
+    abs error of min_d2 and sums. Distances carry an error that scales
+    with the terms the matmul form cancels (x2 + c2), sums one that scales
+    with the summed magnitudes, so each tolerance is rtol·scale + atol."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.kmeans_dist import ops, ref
-    x, cents = lloyd_inputs(n, d, k, seed)
-    a_k, m_k, s_k, c_k = ops.lloyd_step_cuda(x, cents)
-    a_r, m_r, s_r, c_r = ref.lloyd_step(x, cents)
+    x, cents = lloyd_inputs(n, d, k, seed, c)
+    before = ops.lloyd_step_cuda.launches
+    got = ops.lloyd_step_cuda(x, cents)
+    want = ref.lloyd_step(x, cents)
     again = ops.lloyd_step_cuda(x, cents)
     torch.cuda.synchronize()
-    for u, v in zip((a_k, m_k, s_k, c_k), again):
+    label = f"lloyd_step C={c} n={n} d={d} k={k}"
+    if ops.lloyd_step_cuda.launches - before != 2:
+        raise AssertionError(f"{label}: not one launch a call")
+    for u, v in zip(got, again):
         if not torch.equal(u, v):
-            raise AssertionError(f"lloyd_step n={n} k={k}: two runs differ")
-    d2 = ref.pairwise_sq_dists(x, cents)[0]                  # (n, k)
-    x2 = torch.sum(x[0] * x[0], -1)
-    c2 = torch.sum(cents[0] * cents[0], -1)
-    scale = x2 + c2[a_k[0].long()]
-    chosen = torch.gather(d2, 1, a_k[0].long()[:, None])[:, 0]
-    # an argmin may differ from the plain one only on a tie within error
-    gap = chosen - m_r[0]
-    if bool((gap > LLOYD_ATOL + LLOYD_RTOL * scale).any()):
-        raise AssertionError(f"lloyd_step n={n} k={k}: assignment is not "
-                             "an argmin within tolerance")
-    m_err = (m_k - m_r).abs()[0]
-    if bool((m_err > LLOYD_ATOL + LLOYD_RTOL * scale).any()):
-        raise AssertionError(f"lloyd_step n={n} k={k}: min_d2 off by "
-                             f"{float(m_err.max())}")
-    oh = F.one_hot(a_k[0].long(), k).float()
-    s_own = oh.T @ x[0]
-    s_mag = oh.T @ x[0].abs()
-    s_err = (s_k[0] - s_own).abs()
-    if bool((s_err > LLOYD_ATOL + LLOYD_RTOL * s_mag).any()):
-        raise AssertionError(f"lloyd_step n={n} k={k}: sums off by "
-                             f"{float(s_err.max())}")
-    if not torch.equal(c_k[0], oh.sum(0)):
-        raise AssertionError(f"lloyd_step n={n} k={k}: counts differ")
-    flips = int((a_k != a_r).sum())
-    err = max(float(m_err.max()), float(s_err.max()))
-    log(f"  lloyd_step C=1 n={n} d={d} k={k}: max|min_d2 err|="
-        f"{float(m_err.max()):.3e} max|sums err|={float(s_err.max()):.3e} "
+            raise AssertionError(f"{label}: two runs differ")
+    m_err = s_err = 0.0
+    flips = 0
+    for i in range(c):
+        a_k, m_k, s_k, c_k = (o[i] for o in got)
+        a_r, m_r = want[0][i], want[1][i]
+        xi, ci = x[i], cents[i]
+        d2 = ref.pairwise_sq_dists(xi, ci)                   # (n, k)
+        x2 = torch.sum(xi * xi, -1)
+        c2 = torch.sum(ci * ci, -1)
+        scale = x2 + c2[a_k.long()]
+        chosen = torch.gather(d2, 1, a_k.long()[:, None])[:, 0]
+        # an argmin may differ from the plain one only on a tie within error
+        if bool((chosen - m_r > LLOYD_ATOL + LLOYD_RTOL * scale).any()):
+            raise AssertionError(f"{label} client {i}: assignment is not an "
+                                 "argmin within tolerance")
+        err = (m_k - m_r).abs()
+        if bool((err > LLOYD_ATOL + LLOYD_RTOL * scale).any()):
+            raise AssertionError(f"{label} client {i}: min_d2 off by "
+                                 f"{float(err.max())}")
+        m_err = max(m_err, float(err.max()))
+        oh = F.one_hot(a_k.long(), k).float()
+        s_own = oh.T @ xi
+        s_mag = oh.T @ xi.abs()
+        err = (s_k - s_own).abs()
+        if bool((err > LLOYD_ATOL + LLOYD_RTOL * s_mag).any()):
+            raise AssertionError(f"{label} client {i}: sums off by "
+                                 f"{float(err.max())}")
+        s_err = max(s_err, float(err.max()))
+        if not torch.equal(c_k, oh.sum(0)):
+            raise AssertionError(f"{label} client {i}: counts differ")
+        flips += int((a_k != a_r).sum())
+    log(f"  {label}: max|min_d2 err|={m_err:.3e} max|sums err|={s_err:.3e} "
         f"(tol {LLOYD_ATOL:g} + {LLOYD_RTOL:g}*scale) argmin ties={flips} "
-        "deterministic=yes")
-    return err
+        "one launch, deterministic=yes")
+    return max(m_err, s_err)
 
 
 def kl_inputs(n, k, seed):
@@ -452,9 +475,14 @@ def check_flash_grads(b, n, nkv, s, h, seed=0):
 def check_kernels():
     log("[3] kernels vs plain versions on the card")
     lloyd_err = {}
-    for k in (1, 3, 10, 64):
+    for k in LLOYD_KS:
         lloyd_err[k] = check_lloyd(MAIN_LLOYD["n"], MAIN_LLOYD["d"], k)
     check_lloyd(5999, MAIN_LLOYD["d"], 3)      # ragged n
+    check_lloyd(5999, MAIN_LLOYD["d"], 64)
+    # several clients in one launch (the cohort engine's batched fit)
+    check_lloyd(MAIN_LLOYD["n"], MAIN_LLOYD["d"], 3, c=3)
+    check_lloyd(1001, MAIN_LLOYD["d"], 10, c=5)
+    check_lloyd(777, 16, 32, c=2)              # lm_tokens' flattened samples
     kl_err = {}
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         kl_err[(n, k)] = check_kl(n, k)
@@ -469,8 +497,8 @@ def check_kernels():
         dist_err[(t, d, k)] = check_min_dist(t, d, k)
     rbf_err = {}
     # learn K11, K12; report k_ta, k_tp; ragged both ways
-    for n, m, d in ((256, 256, 50), (256, 6000, 50), (512, 256, 50),
-                    MAIN_RBF, (511, 5999, 50)):
+    for n, m, d in RBF_SHAPES + ((511, 5999, 50), (256, 256, 64),
+                                 (512, 256, 7), (300, 700, 130)):
         rbf_err[(n, m, d)] = check_rbf(n, m, d)
     attn_err = {shape: check_flash(*shape) for shape in ATTN_SHAPES}
     check_flash(2, 4, 4, 20, 32, causal=False)
@@ -763,12 +791,20 @@ class CountedCalls:
         setattr(self.module, self.name, self.orig)
 
 
+def rbf_class(n, m):
+    """B5's launch shapes by class: (n, m) with m the KuLSIF aux set's 256,
+    else (n, "m%8=0") or (n, "m%8!=0") for a private set, whose rows start
+    on a 32-byte sector or inside one."""
+    return (n, m) if m == 256 else (n, "m%8=0" if m % 8 == 0 else "m%8!=0")
+
+
 def run_main_path():
-    """Phase 6. Returns the launch counts of the whole phase and the
-    transformer run's attention launches by query batch size."""
-    import torch
-    from repro_torch.core import distill
+    """Phase 6. Returns the launch counts of the whole phase, the
+    transformer run's attention launches by query batch size, B1's
+    launches by centroid count and B5's by shape class (``rbf_class``)."""
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
     mlp_runs = ([("edgefd", sc) for sc in ("strong", "weak")]
                 + [("selective-fd", sc) for sc in ("strong", "weak")]
                 + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
@@ -789,35 +825,75 @@ def run_main_path():
     for w in wrappers.values():
         w.launches = 0
     results, per_run, steps, attn_batches = {}, {}, {}, {}
-    for label, drive in runs:
-        before = {n: w.launches for n, w in wrappers.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        # attention calls by query batch size: q is (B, S, N, h)
-        with CountedCalls(distill, "kd_kl_loss") as kl_steps, \
-                CountedCalls(dispatch, "flash_attention",
-                             key=lambda q, *_: q.shape[0]) as attn:
-            res = drive()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {n: w.launches - before[n] for n, w in wrappers.items()}
-        steps[label] = kl_steps.calls
-        attn_batches[label] = dict(sorted(attn.by_key.items()))
-        check_finite(label, res)
-        last = res.rounds[-1]
-        student = ("" if last.server_student_acc is None
-                   else f", student acc {last.server_student_acc:.4f}")
-        log(f"  {label}: final acc {res.final_acc:.4f}{student}, id "
-            f"fraction {last.id_fraction:.4f}, MB up "
-            f"{last.bytes_up / 1e6:.3f}, last losses local "
-            f"{last.local_loss:.4f} distill {last.distill_loss:.4f}, wall "
-            f"{wall:.3f} s (set-up + {len(res.rounds)} rounds), phase "
-            f"seconds over {len(res.rounds)} rounds {phase_seconds(res)}")
-        log(f"  {label}: launches "
-            + str({n: v for n, v in launches.items() if v}))
-        results[label] = res
-        per_run[label] = launches
+    # B1's calls by k (centroids (k, d) or (C, k, d)), B5's by (n, m), at
+    # the public ops, which dispatch looks up at call time (each call on a
+    # CUDA tensor is one launch, checked against the launch counts below)
+    lloyd_by_k = CountedCalls(kd_ops, "lloyd_step",
+                              key=lambda x, c: c.shape[-2])
+    rbf_by_shape = CountedCalls(rbf_ops, "rbf_matrix",
+                                key=lambda a, b, s: (a.shape[0], b.shape[0]))
+    with lloyd_by_k, rbf_by_shape:
+        for label, drive in runs:
+            run_one(label, drive, wrappers, results, per_run, steps,
+                    attn_batches)
     counts = {n: w.launches for n, w in wrappers.items()}
+    by_k = dict(sorted(lloyd_by_k.by_key.items()))
+    by_shape = {}
+    for (n, m), v in rbf_by_shape.by_key.items():
+        by_shape[rbf_class(n, m)] = by_shape.get(rbf_class(n, m), 0) + v
+    if sum(by_k.values()) != counts["lloyd_step"]:
+        raise AssertionError(f"lloyd_step: {sum(by_k.values())} calls for "
+                             f"{counts['lloyd_step']} launches")
+    if sum(by_shape.values()) != counts["rbf_matrix"]:
+        raise AssertionError(f"rbf_matrix: {sum(by_shape.values())} calls "
+                             f"for {counts['rbf_matrix']} launches")
+    log(f"  lloyd_step launches by k: {by_k}; rbf_matrix launches by (n, m) "
+        f"class: {by_shape} (private sizes: "
+        + ", ".join(f"{k}: {v}" for k, v in
+                    sorted(rbf_by_shape.by_key.items()) if k[1] != 256)
+        + ")")
+    return finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
+                            attn_batches) + (by_k, by_shape)
+
+
+def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
+    """One run of phase 6, its launches counted into per_run[label]."""
+    import torch
+    from repro_torch.core import distill
+    from repro_torch.kernels import dispatch
+    before = {n: w.launches for n, w in wrappers.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # attention calls by query batch size: q is (B, S, N, h)
+    with CountedCalls(distill, "kd_kl_loss") as kl_steps, \
+            CountedCalls(dispatch, "flash_attention",
+                         key=lambda q, *_: q.shape[0]) as attn:
+        res = drive()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+    steps[label] = kl_steps.calls
+    attn_batches[label] = dict(sorted(attn.by_key.items()))
+    check_finite(label, res)
+    last = res.rounds[-1]
+    student = ("" if last.server_student_acc is None
+               else f", student acc {last.server_student_acc:.4f}")
+    log(f"  {label}: final acc {res.final_acc:.4f}{student}, id "
+        f"fraction {last.id_fraction:.4f}, MB up "
+        f"{last.bytes_up / 1e6:.3f}, last losses local "
+        f"{last.local_loss:.4f} distill {last.distill_loss:.4f}, wall "
+        f"{wall:.3f} s (set-up + {len(res.rounds)} rounds), phase "
+        f"seconds over {len(res.rounds)} rounds {phase_seconds(res)}")
+    log(f"  {label}: launches "
+        + str({n: v for n, v in launches.items() if v}))
+    results[label] = res
+    per_run[label] = launches
+
+
+def finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
+                     attn_batches):
+    """Phase 6's checks over all runs; returns (counts, the transformer
+    run's attention launches by query batch size)."""
     for name in ("lloyd_step", "min_dist_and_mask", "kd_kl_loss",
                  "rbf_matrix", "flash_attention"):
         if counts[name] == 0:
@@ -883,14 +959,16 @@ def run_main_path():
 # ----------------------------------------------------------------- phase 7
 def time_row(label, kern, plain, moved, ops):
     """Time a kernel and its plain version (per call, and device only) and
-    log them beside the bound; returns (ms, plain ms, bound ms, bound_by)."""
+    log them beside the bound; returns (ms, plain ms, bound ms, bound_by,
+    the kernel's device-only ms or None)."""
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     b_ms, b_by = bound(moved, ops)
+    dev = device_ms(kern)
     log(f"  {label}: kernel {ms:.5f} plain {plain_ms:.5f} bound {b_ms:.6f} "
-        f"({b_by}); device only: kernel {fmt(device_ms(kern))} plain "
+        f"({b_by}); device only: kernel {fmt(dev)} plain "
         f"{fmt(device_ms(plain))}")
-    return ms, plain_ms, b_ms, b_by
+    return ms, plain_ms, b_ms, b_by, dev
 
 
 def kl_library_loss(s, t, w, T):
@@ -925,7 +1003,7 @@ def measure_kl_loss(counts, kl_err):
         # the subtractions, sums and products of the lse, KL and gradient
         moved = 4 * (3 * n * k + 2 * n + 1)
         flops = 28 * n * k + 4 * n
-        ms, plain_ms, b_ms, b_by = time_row(
+        ms, plain_ms, b_ms, b_by, _ = time_row(
             f"kd_kl_loss n={n} K={k} (loss, kl and ds)",
             lambda: ops.kd_kl_loss_cuda(s, t, w, T),
             lambda: torch.autograd.grad(ref.kd_kl_loss(s_, t, T, w), s_),
@@ -991,7 +1069,7 @@ def measure_min_dist(counts, dist_err):
         # and a one-byte mask; the matmul form, the min, sqrt and compare
         moved = 4 * (t * d + k * d + 1) + 5 * t
         flops = 2 * t * k * d + 2 * t * d + 2 * k * d + 4 * t * k + 2 * t
-        ms, plain_ms, b_ms, b_by = time_row(
+        ms, plain_ms, b_ms, b_by, _ = time_row(
             f"min_dist_and_mask t={t} d={d} k={k}",
             lambda: ops.min_dist_and_mask_cuda(x, cents, thr),
             lambda: ref.min_dist_and_mask(x, cents, thr), moved, flops)
@@ -1006,21 +1084,43 @@ def measure_min_dist(counts, dist_err):
     return row
 
 
-def measure_rbf(counts, rbf_err):
+def rbf_cost(n, m, d):
+    """B5's bytes (a and b read once, the Gram matrix written) and ops
+    (the cross term's multiply-adds, both squared norms, and 5 per output:
+    combine, clamp, scale, exp)."""
+    return (4 * (n * d + m * d + n * m),
+            2 * n * m * d + 2 * (n + m) * d + 5 * n * m)
+
+
+def lloyd_cost(n, d, k):
+    """B1's bytes (x and the centroids read once; assignments, min d², sums
+    and counts written) and ops (the matmul-form distances, the argmin, the
+    sums)."""
+    return (4 * (n * d + k * d) + 4 * (2 * n + k * d + k),
+            2 * n * k * d + 3 * n * d + 2 * k * d + 3 * n * k)
+
+
+def measure_rbf(counts, rbf_err, by_shape):
+    """B5 at each of its shapes: per call and device only, its plain
+    version, the bound, the share of the bound, and the main path's
+    launches of that shape class times (device - bound)."""
     from repro_torch.kernels.kulsif_rbf import ops, ref
     row = None
-    for n, m, d in ((256, 256, 50), (256, 6000, 50), (512, 256, 50),
-                    MAIN_RBF):
+    gap_ms = 0.0
+    for n, m, d in RBF_SHAPES:
         a, b = rbf_inputs(n, m, d, seed=1)
-        # read a and b once, write the Gram matrix; the cross term's
-        # multiply-adds, both squared norms, and 5 ops per output (combine,
-        # clamp, scale, exp)
-        moved = 4 * (n * d + m * d + n * m)
-        flops = 2 * n * m * d + 2 * (n + m) * d + 5 * n * m
-        ms, plain_ms, b_ms, b_by = time_row(
+        moved, flops = rbf_cost(n, m, d)
+        ms, plain_ms, b_ms, b_by, dev = time_row(
             f"rbf_matrix n={n} m={m} d={d}",
             lambda: ops.rbf_matrix_cuda(a, b, SIGMA),
             lambda: ref.rbf_matrix(a, b, SIGMA), moved, flops)
+        launches = by_shape.get(rbf_class(n, m), 0)
+        if dev is not None:
+            gap = launches * (dev - b_ms)
+            gap_ms += gap
+            log(f"    share of the bound {b_ms / dev:.3f}; main-path "
+                f"launches of class {rbf_class(n, m)}: {launches}, "
+                f"x (device - bound) {gap:.4f} ms")
         if (n, m, d) == MAIN_RBF:
             row = {"name": "rbf_matrix", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/rbf_matrix.cu",
@@ -1029,7 +1129,66 @@ def measure_rbf(counts, rbf_err):
                    "max_abs_err": rbf_err[MAIN_RBF], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": None}
+    log(f"  rbf_matrix: launches x (device - bound) over its shape classes "
+        f"{gap_ms:.4f} ms (launches by class {by_shape})")
     return row
+
+
+def measure_lloyd(counts, lloyd_err, by_k):
+    """B1 at each centroid count, C = 1, n = 6000, d = 50 (a strong
+    client's private set): as ``measure_rbf``, by k."""
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
+    row = None
+    gap_ms = 0.0
+    for k in LLOYD_KS:
+        x, cents = lloyd_inputs(n, d, k, seed=1)
+        moved, flops = lloyd_cost(n, d, k)
+        ms, plain_ms, b_ms, b_by, dev = time_row(
+            f"lloyd_step C=1 n={n} d={d} k={k}",
+            lambda: ops.lloyd_step_cuda(x, cents),
+            lambda: ref.lloyd_step(x, cents), moved, flops)
+        if dev is not None:
+            gap = by_k.get(k, 0) * (dev - b_ms)
+            gap_ms += gap
+            log(f"    share of the bound {b_ms / dev:.4f}; main-path "
+                f"launches at k={k}: {by_k.get(k, 0)}, x (device - bound) "
+                f"{gap:.4f} ms")
+        if k == 1:   # the strong scenario's shape heads the JSON line
+            row = {"name": "lloyd_step", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/lloyd_step.cu",
+                   "replaces": "src/repro/kernels/kmeans_dist/kernel.py:113",
+                   "launches": counts["lloyd_step"],
+                   "max_abs_err": lloyd_err[1], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    log(f"  lloyd_step: launches x (device - bound) over the timed k "
+        f"{gap_ms:.4f} ms (launches by k {by_k})")
+    return row
+
+
+def time_kernels(label):
+    """``--time-kernels``: B1 at each k and B5 at each shape, per call and
+    device only, from the package on sys.path."""
+    from repro_torch.kernels.kmeans_dist import ops as kd
+    from repro_torch.kernels.kulsif_rbf import ops as rbf
+    n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
+    for k in LLOYD_KS:
+        x, cents = lloyd_inputs(n, d, k, seed=1)
+
+        def kern():
+            return kd.lloyd_step_cuda(x, cents)
+        log(f"  {label}: lloyd_step C=1 n={n} d={d} k={k}, ms per call / "
+            f"device only: {time_ms(kern):.5f} / {fmt(device_ms(kern))}; "
+            f"bound {bound(*lloyd_cost(n, d, k))[0]:.6f}")
+    for n, m, d in RBF_SHAPES:
+        a, b = rbf_inputs(n, m, d, seed=1)
+
+        def kern():
+            return rbf.rbf_matrix_cuda(a, b, SIGMA)
+        log(f"  {label}: rbf_matrix n={n} m={m} d={d}, ms per call / "
+            f"device only: {time_ms(kern):.5f} / {fmt(device_ms(kern))}; "
+            f"bound {bound(*rbf_cost(n, m, d))[0]:.6f}")
 
 
 def measure_flash(counts, attn_err, by_batch):
@@ -1126,34 +1285,13 @@ def time_flash(label):
 
 
 def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
-            attn_batches):
+            attn_batches, by_k, by_shape):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.distill_kl import ops as kl_ops
     from repro_torch.kernels.distill_kl import ref as kl_ref
-    from repro_torch.kernels.kmeans_dist import ops as kd_ops
-    from repro_torch.kernels.kmeans_dist import ref as kd_ref
     log("[7] timings (CUDA events, ms per call)")
-    rows = []
-    n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
-    for k in (1, 3, 10, 64):
-        x, cents = lloyd_inputs(n, d, k, seed=1)
-        moved = 4 * (n * d + k * d) + 4 * (2 * n + k * d + k)
-        ops = 2 * n * k * d + 3 * n * d + 2 * k * d + 3 * n * k
-        ms, plain, b_ms, b_by = time_row(
-            f"lloyd_step C=1 n={n} d={d} k={k}",
-            lambda: kd_ops.lloyd_step_cuda(x, cents),
-            lambda: kd_ref.lloyd_step(x, cents), moved, ops)
-        if k == 1:   # the strong scenario's shape heads the JSON line
-            rows.append({"name": "lloyd_step", "route": "cuda",
-                         "source": "src/repro_torch/kernels/csrc/"
-                                   "lloyd_step.cu",
-                         "replaces": "src/repro/kernels/kmeans_dist/"
-                                     "kernel.py:113",
-                         "launches": counts["lloyd_step"],
-                         "max_abs_err": lloyd_err[1], "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": None})
+    rows = [measure_lloyd(counts, lloyd_err, by_k)]
     rows.append(measure_min_dist(counts, dist_err))
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         s, t, g = kl_inputs(n, k, seed=1)
@@ -1206,18 +1344,19 @@ def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": lib_ms})
     rows.append(measure_kl_loss(counts, kl_err))
-    rows.append(measure_rbf(counts, rbf_err))
+    rows.append(measure_rbf(counts, rbf_err, by_shape))
     rows.append(measure_flash(counts, attn_err, attn_batches))
     return rows
 
 
 def main(argv) -> int:
-    src, flash_only = SRC, bool(argv) and argv[0] == "--time-flash"
-    if flash_only and argv[1:2] == ["--src"] and len(argv) == 3:
+    timers = {"--time-flash": time_flash, "--time-kernels": time_kernels}
+    src, timer = SRC, timers.get(argv[0]) if argv else None
+    if timer and argv[1:2] == ["--src"] and len(argv) == 3:
         src = Path(argv[2]).resolve()
-    elif argv and not (flash_only and len(argv) == 1):
-        print("usage: chip_smoke.py [--time-flash [--src DIR]]",
-              file=sys.stderr)
+    elif argv and not (timer and len(argv) == 1):
+        print("usage: chip_smoke.py [--time-flash | --time-kernels "
+              "[--src DIR]]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1239,9 +1378,9 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    if flash_only:
+    if timer:
         log(smi)
-        time_flash(str(src))
+        timer(str(src))
         return 0
     log(f"[1] {smi}")
     log(f"    python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1265,9 +1404,9 @@ def main(argv) -> int:
     lloyd_err, kl_err, dist_err, rbf_err, attn_err = check_kernels()
     check_kmeans_agreement()
     check_small_run()
-    counts, attn_batches = run_main_path()
+    counts, attn_batches, by_k, by_shape = run_main_path()
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
-                   attn_batches)
+                   attn_batches, by_k, by_shape)
 
     log(smi)
     print(json.dumps({"kernels": rows}))

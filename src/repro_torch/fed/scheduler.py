@@ -29,8 +29,11 @@ import torch
 
 from repro_torch.core.protocol import RoundLog
 from repro_torch.data.synthetic import sample_tensor
+from repro_torch.fed.faults import validate_fault_config
 
 ROUND_MODES = ("sync", "overlap")
+# the reference's simulated arrival processes (repro.fed.clock)
+ARRIVAL_PROCESSES = ("static", "poisson", "bursty")
 # the five phase names, in intra-round dependency order
 PHASE_ORDER = ("local_train", "report", "aggregate", "distill", "eval")
 
@@ -56,6 +59,57 @@ def resolve_round_mode(mode: Optional[str]) -> str:
         raise ValueError(f"unknown round_mode {mode!r}; known: auto, "
                          + ", ".join(ROUND_MODES))
     return mode
+
+
+def validate_config(cfg) -> None:
+    """Fail fast on an inconsistent scheduler config (FedConfig-like):
+    ``repro.fed.scheduler.validate_config``, knob for knob, so the port
+    refuses what the reference refuses even where it has not ported the
+    knob's feature yet."""
+    resolve_round_mode(cfg.round_mode)
+    if cfg.max_inflight < 1:
+        raise ValueError(
+            f"max_inflight must be >= 1 (1 = lockstep), got "
+            f"{cfg.max_inflight!r}")
+    if cfg.straggler_factor < 1.0:
+        raise ValueError(
+            f"straggler_factor must be >= 1.0 (1.0 = homogeneous fleet), "
+            f"got {cfg.straggler_factor!r}")
+    f = cfg.participation_fraction
+    if not 0.0 < f <= 1.0:
+        raise ValueError(
+            f"participation_fraction must be in (0, 1], got {f!r}")
+    if cfg.arrival_process not in ARRIVAL_PROCESSES:
+        raise ValueError(
+            f"unknown arrival_process {cfg.arrival_process!r}; known: "
+            + ", ".join(ARRIVAL_PROCESSES))
+    if cfg.arrival_spread < 0.0:
+        raise ValueError(
+            f"arrival_spread must be >= 0, got {cfg.arrival_spread!r}")
+    if cfg.arrival_bursts < 1:
+        raise ValueError(
+            f"arrival_bursts must be >= 1, got {cfg.arrival_bursts!r}")
+    for knob in ("churn_prob", "dropout_prob"):
+        v = getattr(cfg, knob)
+        if not 0.0 <= v < 1.0:
+            raise ValueError(f"{knob} must be in [0, 1), got {v!r}")
+    if cfg.max_pending_reports < 0:
+        raise ValueError(
+            f"max_pending_reports must be >= 0 (0 = unbounded), got "
+            f"{cfg.max_pending_reports!r}")
+    validate_fault_config(cfg.fault_mode, cfg.fault_prob, cfg.byzantine_frac,
+                          cfg.fault_start, cfg.fault_duration)
+    if cfg.watchdog_max_rollbacks < 0:
+        raise ValueError(
+            f"watchdog_max_rollbacks must be >= 0, got "
+            f"{cfg.watchdog_max_rollbacks!r}")
+    if cfg.watchdog_acc_drop <= 0.0:
+        raise ValueError(
+            f"watchdog_acc_drop must be > 0, got {cfg.watchdog_acc_drop!r}")
+    if cfg.watchdog_loss_factor <= 1.0:
+        raise ValueError(
+            f"watchdog_loss_factor must be > 1, got "
+            f"{cfg.watchdog_loss_factor!r}")
 
 
 class _RoundState:

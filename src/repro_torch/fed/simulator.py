@@ -24,8 +24,10 @@ live reference run.
 Only the ported slice runs: every method of Table III on feature-mode
 datasets and on ``lm_tokens``, the shared MLP zoo, the loop engine with
 sync rounds and full participation, and the flat server with the mean
-aggregate. ``check_slice`` refuses everything else with
-``NotImplementedError`` naming the ROADMAP item that brings it.
+aggregate. ``run`` first refuses a malformed config with ``ValueError``,
+as the reference's does (``participation.validate_config``, then
+``scheduler.validate_config``); ``check_slice`` then refuses everything
+else with ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.core.protocol import ExperimentResult, run_experiment
 from repro_torch.data.partition import partition
 from repro_torch.data.proxy import build_proxy
 from repro_torch.data.synthetic import Dataset, check_dataset, make_dataset
+from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
 from repro_torch.fed.scheduler import resolve_round_mode
 from repro_torch.fed.server import Server
@@ -214,8 +217,11 @@ def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         n_train: int = 5000, n_test: int = 1000, device="cuda",
         transformer_cfg: Optional[ArchConfig] = None,
         progress=None) -> ExperimentResult:
-    # fail fast on a config outside the slice, a bad backend or a missing
-    # device, before any client is built
+    # fail fast on a bad participation/scheduler config (the reference's
+    # checks, in its order), a config outside the slice, a bad backend or a
+    # missing device, before any client is built
+    participation.validate_config(cfg)
+    scheduler.validate_config(cfg)
     check_slice(cfg, dataset_name)
     dispatch.resolve(cfg.kernel_backend)
     device = resolve_device(device)

@@ -5,134 +5,353 @@
 // (body _kernel): a (n, d) and b (m, d) f32 -> (n, m) f32, matmul-form
 // squared distances, clamped at 0, then the exponential.
 //
-// What bounds it on an H100: on the Selective-FD path (d = 50, n = 512
-// proxy rows, m ~ 6000 private rows) it does 2*n*m*d ~ 307 MFLOP of fp32
-// multiply-adds and writes an n*m*4 ~ 12 MB output, so the fp32 CUDA-core
-// rate and the output's bytes bound it about equally (a few microseconds).
-// The cross term stays on the CUDA cores in IEEE fp32, not on the tensor
-// cores: TF32 would shift the ratio enough to flip the filter's threshold
-// test against the reference.
+// What bounds it on an H100. The bound is the cross term's 2*n*m*d
+// multiply-adds at the fp32 CUDA-core rate (4.6 us at n = 512, m = 6000,
+// d = 50); writing the n*m*4 = 12.3 MB output takes 3.7 us. What the card
+// actually spends it on is L2 traffic and phases that do not overlap:
+// every block reads its a and b rows from L2 (64 x 128 tiles re-read the
+// inputs to 14.4 MB), runs its cross term, then stores, all blocks of a
+// wave in the same phase at once.
 //
-// Design. The TPU kernel takes (256 x 256) output tiles with the whole
-// feature width resident in VMEM. Here a block of 256 threads owns a
-// (64 x 64) output tile, each thread a 4 x 4 register sub-tile strided by
-// 16 rows and 16 columns. The features are staged through shared memory in
-// chunks of 32 (d = 50 takes two), transposed so that the inner loop reads
-// without bank conflicts; rows past n or m and features past d load as
-// zeros, so the ragged edges need no padding copy and are masked at the
-// store. The same chunks give each row's squared norm (a2, b2), summed in
-// feature order by one thread per row. No atomics, so two runs give the
-// same bits.
+// Design.
+//  * The cross term runs on the tensor cores as 3xTF32: each operand is
+//    split into a tf32 high part and a tf32 remainder, and hi*lo + lo*hi +
+//    hi*hi (mma.sync m16n8k8, fp32 accumulators) keeps about fp32's
+//    precision, inside the tolerances that hold the filter's threshold
+//    test (plain TF32 would not). The three products of every accumulator
+//    are issued pass by pass, so the compiler interleaves them.
+//  * Tiles by shape: 128 x 96 (8 warps of 32 x 48), which re-reads the
+//    inputs less than 64 x 128 (11.2 MB at the main shape), where 64 x 128
+//    tiles would give every SM one; else 32 x 64 (4 warps of 16 x 32), so
+//    the (256, 256) and (512, 256) matrices still spread over the card.
+//  * Loads: every row of both tiles by 8-byte cp.async copies, all in
+//    flight at once, row-major with a pitch of 4 (mod 8) floats, so each
+//    fragment load of 8 rows x 4 features hits 32 banks. (16-byte copies
+//    of the 200-byte rows need a pitch of 2 (mod 4), whose conflicts cost
+//    more; a feature-major layout needs transposing stores that cost more.)
+//  * Norms: from the fragments the mma loads anyway, by the warps of the
+//    tile's first row and column, each row's four lanes added in a fixed
+//    butterfly; no separate pass.
+//  * Epilogue: one scale -log2(e)/(2 sigma^2) a launch, ex2.approx (2
+//    ulp), 8-byte stores of the mma's column pairs. The wrapper pads the
+//    output's rows to a multiple of 8 floats, so every row starts a
+//    32-byte sector and no sector is written in two pieces (two warps
+//    writing one sector in pieces made unpadded odd-m rows much slower).
+//  * Rows past n or m are masked at the store (no padding copy); widths
+//    beyond 64 take several stages. No atomics: two runs give the same
+//    bits.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int BM = 64;                    // output rows per block
-constexpr int BN = 64;                    // output columns per block
-constexpr int BK = 32;                    // features staged per step
-constexpr int TY = 16;                    // thread rows
-constexpr int TX = 16;                    // thread columns
-constexpr int RM = BM / TY;               // rows per thread
-constexpr int RN = BN / TX;               // columns per thread
-constexpr int THREADS = TY * TX;
+constexpr int KC = 64;          // features resident in one stage
+constexpr int MAX_DEVICES = 64;
+constexpr int WARP = 32;
 
-__global__ void __launch_bounds__(THREADS)
-rbf_matrix_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  int n, int m, int d, float denom, float* __restrict__ out) {
-  __shared__ float s_a[BK][BM + 1];       // feature-major chunk of a-rows
-  __shared__ float s_b[BK][BN + 1];       // feature-major chunk of b-rows
-  __shared__ float s_a2[BM];
-  __shared__ float s_b2[BN];
+// Row pitch (floats) of a staged tile w features wide: the features
+// rounded up to the mma's k of 8, plus 4, so pitch = 4 (mod 8) and the
+// fragment loads of 8 rows x 4 features hit 32 different banks.
+__host__ __device__ __forceinline__ int row_pitch(int w) {
+  return (w + 7) / 8 * 8 + 4;
+}
+
+// Copy rows x [k0, k0 + w) of a row-major (., d) matrix, from src (its
+// row r0, column k0), into dst (row pitch P) by asynchronous copies of 8
+// bytes (4 where d or w is odd), all in flight at once; the features
+// [w, w rounded up to 8) are zeroed for the last k-step. (A row of d = 50
+// floats is 8-byte but not 16-byte aligned; 16-byte copies would need a
+// pitch of 2 (mod 4), whose bank conflicts cost more than they save.)
+template <int THREADS>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ src,
+                                          int rows, int d, int w, int P,
+                                          float* __restrict__ dst) {
+  const int tid = threadIdx.x;
+  const bool pair = d % 2 == 0 && w % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(src) & 7) == 0;
+  const int unit = pair ? 2 : 1;
+  const int h = w / unit;  // copies a row
+  const float inv_h = 1.f / static_cast<float>(h);
+  for (int idx = tid; idx < rows * h; idx += THREADS) {
+    // idx / h, exact in f32 for the idx < 2^16 a tile holds
+    const int r = static_cast<int>((static_cast<float>(idx) + 0.5f) * inv_h);
+    const int c = (idx - r * h) * unit;
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + r * P + c));
+    const float* g = src + static_cast<size_t>(r) * d + c;
+    if (pair)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                   "l"(g));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                   "l"(g));
+  }
+  const int pad = (w + 7) / 8 * 8 - w;
+  for (int idx = tid; idx < rows * pad; idx += THREADS) {
+    const int r = idx / pad;
+    dst[r * P + w + idx - r * pad] = 0.f;
+  }
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both tf32: the 3xTF32 split (hi*hi + hi*lo + lo*hi keeps
+// about fp32's precision; lo*lo is below it)
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  // not volatile: the compiler may interleave independent accumulators
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A block owns a (BM x BN) output tile; each of its warps a (WM x WN)
+// part of it, MT x NT mma tiles of 16 x 8.
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
+    rbf_matrix_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, int n, int m, int d,
+                      float neg_scale, float* __restrict__ out, int ldo) {
+  constexpr int WX = BN / WN;                  // warps along the columns
+  constexpr int THREADS = (BM / WM) * WX * WARP;
+  constexpr int MT = WM / 16;
+  constexpr int NT = WN / 8;
+  extern __shared__ float4 smem4[];
+  const int P = row_pitch(min(d, KC));
+  float* s_a = reinterpret_cast<float*>(smem4);  // (BM, P) rows of a
+  float* s_b = s_a + BM * P;                      // (BN, P) rows of b
+  float* s_a2 = s_b + BN * P;                     // (BM,)
+  float* s_b2 = s_a2 + BM;                        // (BN,)
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int lane = tid % WARP;
+  const int warp = tid / WARP;
+  const int g = lane / 4;              // the mma's row (or column) group
+  const int t = lane % 4;              // and its thread in the group
+  const int wm = (warp / WX) * WM;     // this warp's rows in the tile
+  const int wn = (warp % WX) * WN;     // and columns
+  // the warps of the first column own the a rows' norms, those of the
+  // first row the b rows'
+  const bool a_norms = warp % WX == 0;
+  const bool b_norms = warp / WX == 0;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
+  const int rows_a = min(BM, n - row0);
+  const int rows_b = min(BN, m - col0);
 
-  float acc[RM][RN];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;  // threads < BM: a2 of one row; < BM + BN: b2 of one
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // squared norms in fp32 from the fragments' values: a rows g and g + 8
+  // of each m-tile, b row g of each n-tile, this lane's features t + 4u
+  float na[MT][2];
+  float nb[NT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) na[i][0] = na[i][1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) nb[j] = 0.f;
 
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // coalesced: consecutive threads read consecutive features of a row
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int r = idx / BK;
-      const int kk = idx - r * BK;
-      const int gr = row0 + r;
-      const int gk = k0 + kk;
-      s_a[kk][r] = (gr < n && gk < d) ? a[static_cast<size_t>(gr) * d + gk]
-                                      : 0.f;
+  // the cross term a.b on the tensor cores, 3xTF32, over features
+  // [kk0, kk1) of the staged rows
+  auto mma_steps = [&](int kk0, int kk1) {
+    for (int kk = kk0; kk < kk1; kk += 8) {
+      unsigned ah[MT][4];
+      unsigned al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* ar = s_a + (wm + 16 * i + g) * P + kk + t;
+        const float v[4] = {ar[0], ar[8 * P], ar[4], ar[8 * P + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(v[e], ah[i][e], al[i][e]);
+        if (a_norms) {
+          na[i][0] = fmaf(v[0], v[0], na[i][0]);
+          na[i][0] = fmaf(v[2], v[2], na[i][0]);
+          na[i][1] = fmaf(v[1], v[1], na[i][1]);
+          na[i][1] = fmaf(v[3], v[3], na[i][1]);
+        }
+      }
+      unsigned bh[NT][2];
+      unsigned bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* br = s_b + (wn + 8 * j + g) * P + kk + t;
+        const float v0 = br[0];
+        const float v1 = br[4];
+        split(v0, bh[j][0], bl[j][0]);
+        split(v1, bh[j][1], bl[j][1]);
+        if (b_norms) {
+          nb[j] = fmaf(v0, v0, nb[j]);
+          nb[j] = fmaf(v1, v1, nb[j]);
+        }
+      }
+      // the small terms first, each pass over every accumulator
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
     }
-    for (int idx = tid; idx < BN * BK; idx += THREADS) {
-      const int c = idx / BK;
-      const int kk = idx - c * BK;
-      const int gc = col0 + c;
-      const int gk = k0 + kk;
-      s_b[kk][c] = (gc < m && gk < d) ? b[static_cast<size_t>(gc) * d + gk]
-                                      : 0.f;
-    }
+  };
+
+  for (int k0 = 0; k0 < d; k0 += KC) {
+    const int w = min(KC, d - k0);
+    if (k0 != 0) __syncthreads();  // the last stage is consumed
+    copy_tile<THREADS>(a + static_cast<size_t>(row0) * d + k0, rows_a, d, w,
+                       P, s_a);
+    copy_tile<THREADS>(b + static_cast<size_t>(col0) * d + k0, rows_b, d, w,
+                       P, s_b);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    if (tid < BM) {
-      for (int kk = 0; kk < BK; ++kk) norm += s_a[kk][tid] * s_a[kk][tid];
-    } else if (tid < BM + BN) {
-      const int c = tid - BM;
-      for (int kk = 0; kk < BK; ++kk) norm += s_b[kk][c] * s_b[kk][c];
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[RM];
-      float bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = s_a[kk][ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = s_b[kk][tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    mma_steps(0, (w + 7) / 8 * 8);
   }
-  if (tid < BM) {
-    s_a2[tid] = norm;
-  } else if (tid < BM + BN) {
-    s_b2[tid - BM] = norm;
+  // each row's norm: its four lanes' sums (features t + 4u), added in a
+  // fixed butterfly
+  if (a_norms) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = na[i][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) s_a2[wm + 16 * i + g + 8 * h] = v;
+      }
+  }
+  if (b_norms) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v = nb[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) s_b2[wn + 8 * j + g] = v;
+    }
   }
   __syncthreads();
 
+  // c[0], c[1]: row g, columns 2t and 2t + 1; c[2], c[3]: row g + 8. The
+  // wrapper pads the rows (ldo) to whole 32-byte sectors, so each pair goes
+  // as one 8-byte store and no sector is written in two pieces.
+  const bool pairs = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty + TY * i;
-    if (row0 + r >= n) continue;
-    float* orow = out + static_cast<size_t>(row0 + r) * m;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int c = tx + TX * j;
-      if (col0 + c >= m) continue;
-      const float d2 = fmaxf(s_a2[r] - 2.f * acc[i][j] + s_b2[c], 0.f);
-      orow[col0 + c] = expf(-d2 / denom);
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + 16 * i + g + 8 * h;
+      if (r >= rows_a) continue;
+      const float a2 = s_a2[r];
+      float* orow = out + static_cast<size_t>(row0 + r) * ldo + col0;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = wn + 8 * j + 2 * t;
+        if (c >= rows_b) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d2 =
+              fmaxf(a2 - 2.f * acc[i][j][2 * h + e] + s_b2[c + e], 0.f);
+          // 2^x to 2 ulp; results below 2^-126 (under the tolerance's
+          // absolute term) flush to 0
+          asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(v[e]) : "f"(d2 * neg_scale));
+        }
+        if (pairs && c + 1 < rows_b) {
+          *reinterpret_cast<float2*>(orow + c) = make_float2(v[0], v[1]);
+        } else {
+          orow[c] = v[0];
+          if (c + 1 < rows_b) orow[c + 1] = v[1];
+        }
+      }
     }
+}
+
+int sm_count(int dev) {
+  static int sms[MAX_DEVICES] = {};
+  if (dev < 0 || dev >= MAX_DEVICES) return 132;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return sms[dev];
+}
+
+template <int BM, int BN, int WM, int WN>
+cudaError_t launch(const float* a, const float* b, int n, int m, int d,
+                   float neg_scale, float* out, int ldo, int dev,
+                   cudaStream_t s) {
+  constexpr int THREADS = (BM / WM) * (BN / WN) * WARP;
+  static bool attr_set[MAX_DEVICES] = {};
+  auto bytes = [](int dc) {
+    return static_cast<int>(((BM + BN) * row_pitch(dc) + BM + BN) *
+                            sizeof(float));
+  };
+  if (dev < 0 || dev >= MAX_DEVICES || !attr_set[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rbf_matrix_kernel<BM, BN, WM, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes(KC));
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < MAX_DEVICES) attr_set[dev] = true;
   }
+  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
+  rbf_matrix_kernel<BM, BN, WM, WN>
+      <<<grid, THREADS, bytes(d < KC ? d : KC), s>>>(a, b, n, m, d,
+                                                    neg_scale, out, ldo);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// a (n, d), b (m, d) f32 row-major; out (n, m) f32. denom = 2 sigma^2,
-// rounded to f32 by the caller as PyTorch rounds the plain version's
-// scalar.
+// a (n, d), b (m, d) f32 row-major; out (n, m) f32 with row pitch ldo >= m
+// floats (a multiple of 8 puts every row on a 32-byte sector). denom =
+// 2 sigma^2, rounded to f32 by the caller as PyTorch rounds the plain
+// version's scalar.
 int repro_rbf_matrix(const void* a, const void* b, int n, int m, int d,
-                     float denom, void* out, void* stream) {
-  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-  rbf_matrix_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), n, m, d,
-      denom, static_cast<float*>(out));
-  return cudaGetLastError();
+                     float denom, void* out, int ldo, void* stream) {
+  if (n < 1 || m < 1 || d < 1 || ldo < m) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  // exp(-d2 / denom) = exp2(d2 * (-log2(e) / denom)): one scale a launch
+  const float neg_scale =
+      static_cast<float>(-1.4426950408889634 / static_cast<double>(denom));
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 128 x 96 tiles (8 warps of 32 x 48) where 64 x 128 ones would give at
+  // least one an SM, else 32 x 64 (4 warps of 16 x 32)
+  const long long big_tiles =
+      static_cast<long long>((m + 127) / 128) * ((n + 63) / 64);
+  if (big_tiles >= sm_count(dev))
+    return launch<128, 96, 32, 48>(af, bf, n, m, d, neg_scale, o, ldo, dev,
+                                   s);
+  return launch<32, 64, 16, 32>(af, bf, n, m, d, neg_scale, o, ldo, dev, s);
 }
 
 const char* repro_error_string(int code) {

@@ -16,7 +16,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import cdiv, check_operand, require_cuda
+from repro_torch.kernels.common import check_operand, require_cuda
 from repro_torch.kernels.kmeans_dist import ref
 
 # shared memory one block may use on Hopper (227 KB opt-in)
@@ -30,11 +30,28 @@ def _lib() -> ctypes.CDLL:
                                      + [ctypes.c_int] * 4
                                      + [ctypes.c_void_p] * 7)
     lib.repro_lloyd_step.restype = ctypes.c_int
-    lib.repro_lloyd_tile.argtypes = []
-    lib.repro_lloyd_tile.restype = ctypes.c_int
-    lib.repro_lloyd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.repro_lloyd_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_lloyd_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.repro_lloyd_scratch_floats.restype = ctypes.c_longlong
+    for limit in (lib.repro_lloyd_max_d, lib.repro_lloyd_max_k):
+        limit.argtypes = []
+        limit.restype = ctypes.c_int
     return lib
+
+
+# (device index, stream handle) -> the Lloyd kernel's tickets, one int32
+# per client, zero between launches; one set per stream, so launches on
+# two streams of a card never share them
+_tickets: dict = {}
+
+
+def _lloyd_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    tickets = _tickets.get(key)
+    if tickets is None or len(tickets) < n:
+        tickets = _tickets[key] = torch.zeros((max(n, 4096),),
+                                              dtype=torch.int32,
+                                              device=device)
+    return tickets
 
 
 @functools.cache
@@ -67,25 +84,26 @@ def lloyd_step_cuda(x: torch.Tensor, centroids: torch.Tensor):
         raise ValueError(f"lloyd_step: empty operand x {tuple(x.shape)}, "
                          f"centroids {tuple(centroids.shape)}")
     lib = _lib()
-    smem = lib.repro_lloyd_smem_bytes(d, k)
-    if smem > MAX_SHARED_BYTES:
+    if d > lib.repro_lloyd_max_d() or k > lib.repro_lloyd_max_k():
         raise ValueError(
-            f"lloyd_step: {k} centroids of width {d} and a row tile need "
-            f"{smem} bytes of shared memory, more than {MAX_SHARED_BYTES}")
-    tiles = cdiv(n, lib.repro_lloyd_tile())
+            f"lloyd_step: the kernel takes at most {lib.repro_lloyd_max_k()} "
+            f"centroids of width at most {lib.repro_lloyd_max_d()}, got "
+            f"{k} of width {d}")
     f32 = dict(dtype=torch.float32, device=dev)
     assign = torch.empty((c, n), dtype=torch.int32, device=dev)
     min_d2 = torch.empty((c, n), **f32)
     sums = torch.empty((c, k, d), **f32)
     counts = torch.empty((c, k), **f32)
-    part_sums = torch.empty((c, tiles, k, d), **f32)
-    part_counts = torch.empty((c, tiles, k), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # each block's sums and counts, for the last block's sum
+        partials = torch.empty((lib.repro_lloyd_scratch_floats(c, n, d, k),),
+                               **f32)
+        tickets = _lloyd_tickets(dev, stream, c)
         code = lib.repro_lloyd_step(
             x.data_ptr(), centroids.data_ptr(), c, n, d, k,
             assign.data_ptr(), min_d2.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
+            counts.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
             stream)
     build.check(lib, code, "lloyd_step")
     lloyd_step_cuda.launches += 1
@@ -101,7 +119,7 @@ def lloyd_step(x: torch.Tensor, centroids: torch.Tensor):
     ``x``: (n, d) or (C, n, d); ``centroids``: (k, d) or (C, k, d). Returns
     ``(assign i32, min_d2 f32, sums f32, counts f32)`` with matching leading
     axes. The kernel computes the matmul-form distances, the argmin and the
-    per-centroid sums/counts in one launch pair, without materialising the
+    per-centroid sums/counts in one launch, without materialising the
     (n, k) one-hot."""
     if x.device.type == "cpu":
         return ref.lloyd_step(x, centroids)

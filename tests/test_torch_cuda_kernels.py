@@ -46,9 +46,19 @@ def smoke():
 
 
 @pytest.mark.parametrize("n,k", [(6000, 1), (6000, 3), (6000, 10),
-                                 (6000, 64), (5999, 3)])
+                                 (6000, 12), (6000, 64), (5999, 3)])
 def test_lloyd_kernel_matches_plain_and_is_deterministic(smoke, n, k):
     smoke.check_lloyd(n, 50, k)
+
+
+# several clients in one launch (the cohort engine's batched fit), and the
+# widest centroid count at a ragged n, alone and batched; d = 16 is
+# lm_tokens' flattened samples
+@pytest.mark.parametrize("n,d,k,c", [(6000, 50, 3, 3), (1001, 50, 10, 5),
+                                     (5999, 50, 64, 1), (5999, 50, 64, 2),
+                                     (777, 16, 32, 2)])
+def test_lloyd_kernel_batches_clients_in_one_launch(smoke, n, d, k, c):
+    smoke.check_lloyd(n, d, k, c=c)
 
 
 @pytest.mark.parametrize("n,k", [(64, 10), (512, 10), (4096, 1000)])
@@ -145,10 +155,17 @@ def test_min_dist_kernel_matches_plain_and_is_deterministic(smoke, t, k):
     smoke.check_min_dist(t, 50, k)
 
 
-# learn K11 and K12, report k_ta and k_tp, ragged both ways, a narrow d
+# learn K11 and K12, report k_ta and k_tp, ragged both ways, a narrow d;
+# the small shapes also at the widest single stage and a narrow odd width;
+# private sets of odd size (rows starting inside a 32-byte sector); a
+# width past one stage
 @pytest.mark.parametrize("n,m,d", [(256, 256, 50), (256, 6000, 50),
                                    (512, 256, 50), (512, 6000, 50),
-                                   (511, 5999, 50), (70, 33, 7)])
+                                   (511, 5999, 50), (70, 33, 7),
+                                   (256, 256, 64), (256, 256, 7),
+                                   (512, 256, 64), (512, 256, 7),
+                                   (256, 6001, 50), (512, 6001, 50),
+                                   (300, 700, 130)])
 def test_rbf_kernel_matches_plain_and_is_deterministic(smoke, n, m, d):
     smoke.check_rbf(n, m, d)
 
@@ -277,7 +294,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(smoke):
         kd_ops.lloyd_step_cuda(x.transpose(1, 2).contiguous()
                                .transpose(1, 2), cents)
     big = torch.zeros((1, 1024, 64), device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="at most 64 centroids"):
         kd_ops.lloyd_step_cuda(torch.zeros((1, 10, 64), device="cuda"), big)
     s, t, _ = smoke.kl_inputs(8, 10, seed=0)
     with pytest.raises(ValueError, match="shape"):

@@ -5,7 +5,9 @@ records.
 Inputs come from numpy with a seed. The B6 plain version runs against the
 reference's Pallas kernel in interpret mode (as the JAX tests run it on
 the CPU) and its jnp oracle, forward within atol 1e-5 and gradients (the
-reference's through its ``custom_vjp``) within rtol 1e-4, atol 1e-6. The
+reference's through its ``custom_vjp``) within rtol 1e-4, atol 1e-6; at
+GQA 8, S = 300 the gradients within 4 times the reference's own error
+against a float64 oracle. The
 layers and the backbone, loaded with the reference's weights
 (``load_jax_params``), hold to rtol 1e-5, atol 1e-5 against the
 reference's ``forward`` under its jnp and its Pallas-interpret attention:
@@ -69,11 +71,33 @@ def _attn_inputs(b, n, nkv, s, h, seed):
 
 # (GQA ratio, S): S = 1 and 32 are the kernel's short route at its ends,
 # ratio 8 a group of qwen2.5-3b's size (8 query heads on one kv head).
-# Ratio 8 is not run at S = 300: each kv gradient there sums 2400 terms,
-# and fp32 reassociation between the two libraries reaches 1.2e-6 on an
-# element near zero, above GRAD_TOL's atol.
 B6_CASES = [(ratio, s) for ratio in (1, 2, 4, 8)
-            for s in (1, 16, 20, 32, 300) if (ratio, s) != (8, 300)]
+            for s in (1, 16, 20, 32, 300)]
+# At ratio 8, S = 300 each kv gradient sums 2400 terms, and the two
+# libraries' fp32 sums part by up to 3.1e-6 on elements near zero, above
+# GRAD_TOL's atol. There both packages' gradients are held to a float64
+# oracle instead, and the port's largest error to at most GRAD_ERR_FACTOR
+# times the reference's own (measured: up to 2.5 times, dk).
+WIDE_SUMS = {(8, 300)}
+GRAD_ERR_FACTOR = 4.0
+
+
+def _grads_float64(q, k, v, g, ratio, causal):
+    """Gradients of the attention (kv expanded by ``ratio``) in float64,
+    folded back onto the unexpanded kv heads."""
+    kk, vv = (np.repeat(a, ratio, axis=1) for a in (k, v))
+    qd, kd, vd = (torch.from_numpy(a).double().requires_grad_(True)
+                  for a in (q, kk, vv))
+    b, n, s, h = q.shape
+    logits = qd @ kd.transpose(-1, -2) / np.sqrt(h)
+    if causal:
+        logits = logits.masked_fill(
+            torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    (torch.softmax(logits, -1) @ vd).backward(torch.from_numpy(g).double())
+
+    def fold(t):
+        return t.reshape(b, n // ratio, ratio, s, h).sum(2).numpy()
+    return qd.grad.numpy(), fold(kd.grad), fold(vd.grad)
 
 
 @pytest.mark.parametrize("ratio,s", B6_CASES)
@@ -99,8 +123,19 @@ def test_flash_attention_plain_matches_pallas_and_oracle(causal, ratio, s):
                                rtol=0, atol=FWD_ATOL)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(oracle),
                                rtol=0, atol=FWD_ATOL)
-    for got, want in zip((qt.grad, kt.grad, vt.grad), grads_w):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    if (ratio, s) in WIDE_SUMS:
+        oracle64 = _grads_float64(q, k, v, g, ratio, causal)
+        for name, got, want, exact in zip("qkv", (qt.grad, kt.grad, vt.grad),
+                                          grads_w, oracle64):
+            err = np.abs(got.numpy() - exact).max()
+            ref_err = np.abs(np.asarray(want) - exact).max()
+            assert err <= GRAD_ERR_FACTOR * ref_err, (
+                f"d{name}: port off the float64 oracle by {err:.3e}, the "
+                f"reference by {ref_err:.3e}")
+    else:
+        for got, want in zip((qt.grad, kt.grad, vt.grad), grads_w):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **GRAD_TOL)
     # the expanded-kv oracle of the port is the reference's, op for op
     np.testing.assert_allclose(
         fa_ref.attention(qt.detach(), torch.from_numpy(kk),
