@@ -13,10 +13,16 @@ Phases, in order; any failure raises and exits non-zero:
      main path's shapes and at ragged ones, with the stated tolerances,
      and the bitwise determinism of the Lloyd, min-distance, RBF,
      fused-KL-loss and flash-attention kernels across two runs (the Lloyd
-     kernel also for several clients in one launch, and one launch a
-     call; flash attention also on strided views in the model's layout,
-     and its autograd function's gradients against autograd of the plain
-     version);
+     kernel also for several clients in one launch, one launch a call,
+     and on its wide route at flattened image widths, 784 and 3072, two
+     a call; the
+     min-distance kernel also at lm_tokens' and the image widths, and with
+     a threshold passed as a float; the Lloyd, min-distance and RBF
+     kernels on inputs with a NaN row, a ±inf row and a -inf row, or a
+     NaN centroid, with NaN and ±inf where the plain version has them and
+     equal masks and argmins; flash attention also on strided views in
+     the model's layout, and its autograd function's gradients against
+     autograd of the plain version);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
@@ -35,15 +41,18 @@ Phases, in order; any failure raises and exits non-zero:
      n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
      just before and read just after), the Lloyd kernel's launches by
-     centroid count and the RBF kernel's by shape, and the fused KL loss
+     centroid count, the min-distance kernel's by class (calibration or
+     report, d, k) and the RBF kernel's by shape, and the fused KL loss
      launched once per distill step;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
      from the shapes, and the device-only times of each with the host's
-     per-call work taken out (the Lloyd and RBF kernels at each of their
-     shapes, with the share of the bound and the main path's launches
-     times the gap); one distill step's loss and gradient by
+     per-call work taken out (the Lloyd, min-distance and RBF kernels at
+     each of their shapes, the Lloyd kernel's wide route too, with the
+     share of the bound and the main path's launches times the gap, the
+     min-distance kernel beside an empty kernel's launch); one distill
+     step's loss and gradient by
      four routes in turns (fused kernel, the per-sample kernels under
      autograd, plain, library) beside an empty kernel's launch and the
      autograd engine's floor.
@@ -55,10 +64,11 @@ non-zero and prints no result.
     python3 chip_smoke.py --time-kernels [--src DIR]
 
 time only B6 at the transformer path's shapes, per call and device only,
-in both layouts, or only B1 (k = 1, 2, 3, 10, 64) and B5 (its fit's and a
-report's shapes, private sizes even and odd), from the package under DIR
-(default: this checkout's src/); run one for two trees in turns to
-compare them on one card.
+in both layouts, or only B1 (k = 1, 2, 3, 10, 64, and its wide route at
+d = 784 and 3072), B2 (every main-path class and the image widths) and
+B5 (its fit's and a report's shapes, private sizes even and odd), beside
+an empty kernel, from the package under DIR (default: this checkout's
+src/); run one for two trees in turns to compare them on one card.
 """
 from __future__ import annotations
 
@@ -94,6 +104,12 @@ KL_LOSS_SHAPES = (MAIN_KL, (64, 32), (256, 32), (300, 10), (4096, 1000),
                   (5, 1500))
 KL_WEIGHTS = ("masked", "none", "zero")
 MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
+# B2's shapes: feature-path reports (strong, weak) and calibrations over a
+# client's private set; lm_tokens' report and calibration; flattened
+# images (784 and 3072 wide, 10 centroids: the wide route)
+DIST_SHAPES = (MAIN_DIST, (512, 50, 3), (6000, 50, 1), (6000, 50, 3),
+               (256, 16, 1), (600, 16, 1), (512, 784, 10), (512, 3072, 10))
+WIDE_DS = (784, 3072)                # mnist_like / cifar_like, flattened
 MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
 # B1's centroid counts: strong (1), weak (a client's labels), iid (10), and
 # the widest instance; B5's four shapes: a KuLSIF fit's K11 and K12, a
@@ -153,6 +169,14 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def per_call_readings(fn, n: int = 9) -> str:
+    """``n`` readings of ``time_ms`` (a call's host work moves from reading
+    to reading with the host's load), sorted, and their median."""
+    ms = sorted(time_ms(fn) for _ in range(n))
+    return (f"{n} readings, ms: " + " ".join(f"{v:.5f}" for v in ms)
+            + f"; median {ms[n // 2]:.5f}")
+
+
 def device_ms(fn, iters: int = 50):
     """Mean device ms per call with the host's per-call overhead taken out:
     a sleep kernel holds the stream while ``iters`` calls queue behind it,
@@ -210,8 +234,11 @@ def check_lloyd(n, d, k, seed=0, c=1):
     again = ops.lloyd_step_cuda(x, cents)
     torch.cuda.synchronize()
     label = f"lloyd_step C={c} n={n} d={d} k={k}"
-    if ops.lloyd_step_cuda.launches - before != 2:
-        raise AssertionError(f"{label}: not one launch a call")
+    # one count a launch: one a call, two on the wide route (assignments,
+    # then sums)
+    if ops.lloyd_step_cuda.launches - before != 2 * ops.lloyd_launches(d):
+        raise AssertionError(f"{label}: not {ops.lloyd_launches(d)} "
+                             "launches a call")
     for u, v in zip(got, again):
         if not torch.equal(u, v):
             raise AssertionError(f"{label}: two runs differ")
@@ -248,7 +275,7 @@ def check_lloyd(n, d, k, seed=0, c=1):
         flips += int((a_k != a_r).sum())
     log(f"  {label}: max|min_d2 err|={m_err:.3e} max|sums err|={s_err:.3e} "
         f"(tol {LLOYD_ATOL:g} + {LLOYD_RTOL:g}*scale) argmin ties={flips} "
-        "one launch, deterministic=yes")
+        f"launches a call {ops.lloyd_launches(d)}, deterministic=yes")
     return max(m_err, s_err)
 
 
@@ -335,7 +362,8 @@ def check_kl_loss(n, k, weights, seed=0):
 
 def check_min_dist(t, d, k, seed=0):
     """Min-distance kernel vs plain version, at a device threshold that
-    splits the rows in half and at an infinite one (the calibration's);
+    splits the rows in half, the same threshold passed as a float, and an
+    infinite one as a device scalar and as a float (the calibration's);
     returns the max abs error of the distances."""
     import torch
     from repro_torch.kernels.kmeans_dist import ops, ref
@@ -345,15 +373,22 @@ def check_min_dist(t, d, k, seed=0):
     want_m = want_d <= thr
     got_d, got_m = ops.min_dist_and_mask_cuda(x, cents, thr)
     again = ops.min_dist_and_mask_cuda(x, cents, thr)
+    by_value = ops.min_dist_and_mask_cuda(x, cents, float(thr))
     inf_m = ops.min_dist_and_mask_cuda(
         x, cents, torch.full((1,), float("inf"), device="cuda"))[1]
+    inf_value = ops.min_dist_and_mask(x, cents, float("inf"))
     torch.cuda.synchronize()
+    label = f"min_dist_and_mask t={t} d={d} k={k}"
     if not (torch.equal(got_d, again[0]) and torch.equal(got_m, again[1])):
-        raise AssertionError(f"min_dist_and_mask t={t} k={k}: two runs "
-                             "differ")
-    if not bool(inf_m.all()):
-        raise AssertionError(f"min_dist_and_mask t={t} k={k}: an infinite "
-                             "threshold left rows out")
+        raise AssertionError(f"{label}: two runs differ")
+    if not (torch.equal(got_d, by_value[0])
+            and torch.equal(got_m, by_value[1])
+            and torch.equal(got_d, inf_value[0])):
+        raise AssertionError(f"{label}: a threshold passed as a float "
+                             "gives other bits")
+    if not (bool(inf_m.all()) and bool(inf_value[1].all())):
+        raise AssertionError(f"{label}: an infinite threshold left rows "
+                             "out")
     scale = torch.sum(x * x, -1) + torch.amax(torch.sum(cents * cents, -1))
     tol2 = DIST_ATOL + DIST_RTOL * scale
     err2 = (got_d * got_d - want_d * want_d).abs()
@@ -365,11 +400,166 @@ def check_min_dist(t, d, k, seed=0):
         raise AssertionError(f"min_dist_and_mask t={t} k={k}: masks differ "
                              "away from the threshold")
     err = float((got_d - want_d).abs().max())
-    log(f"  min_dist_and_mask t={t} d={d} k={k}: max|dist err|={err:.3e} "
+    log(f"  {label}: max|dist err|={err:.3e} "
         f"(tol on d²: {DIST_ATOL:g} + {DIST_RTOL:g}*scale), mask flips "
         f"{int((got_m != want_m).sum())} (all within tolerance of the "
-        "threshold) deterministic=yes")
+        "threshold) deterministic=yes, float thresholds bitwise equal")
     return err
+
+
+# ---- non-finite inputs: the reference's semantics (NaN through the clamp
+# and the minimum, the argmin at the first NaN, the one-hot product's 0 * x)
+def bits(t):
+    """A float tensor's bit patterns (two NaNs compare equal here)."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_nonfinite(got, want):
+    """NaN, +inf and -inf at the same positions."""
+    import torch
+    return all(torch.equal(f(got), f(want)) for f in
+               (torch.isnan, torch.isposinf, torch.isneginf))
+
+
+def nonfinite_rows(x):
+    """Rows 1-3 of x poisoned: a NaN feature; a +inf and a -inf feature
+    (the ±inf row); one -inf feature (against centroids positive there,
+    an infinite d2, not a NaN)."""
+    x = x.clone()
+    x[1, 3] = float("nan")
+    x[2, 0], x[2, 5] = float("inf"), float("-inf")
+    x[3, 2] = float("-inf")
+    return x
+
+
+def nonfinite_inputs(n, d, k, case, seed=0):
+    """``case`` "rows": x with ``nonfinite_rows``; "centroid": centroid 1
+    (0 when k = 1) holds a NaN feature."""
+    x, cents = (v[0] for v in lloyd_inputs(n, d, k, seed))
+    if case == "rows":
+        return nonfinite_rows(x), cents
+    cents = cents.clone()
+    cents[min(1, k - 1), 4] = float("nan")
+    return x, cents
+
+
+def check_nonfinite_lloyd(n, d, k, case):
+    """The Lloyd kernel vs its plain version on non-finite inputs: NaN and
+    ±inf at the same places in min_d2 and sums, the same argmin on every
+    row whose min_d2 is not finite (finite rows: an argmin within
+    tolerance), counts of the kernel's own assignments, two runs bitwise
+    equal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    x, cents = nonfinite_inputs(n, d, k, case)
+    got = ops.lloyd_step(x, cents)
+    again = ops.lloyd_step(x, cents)
+    want = ref.lloyd_step(x, cents)
+    torch.cuda.synchronize()
+    label = f"lloyd_step non-finite {case} n={n} d={d} k={k}"
+    if not all(torch.equal(bits(u), bits(v)) for u, v in zip(got, again)):
+        raise AssertionError(f"{label}: two runs differ")
+    a_k, m_k, s_k, c_k = got
+    a_r, m_r, s_r, _ = want
+    for name, g, w in (("min_d2", m_k, m_r), ("sums", s_k, s_r)):
+        if not same_nonfinite(g, w):
+            raise AssertionError(f"{label}: {name} not finite at other "
+                                 "places than the plain version's")
+    bad = ~torch.isfinite(m_r)
+    if not torch.equal(a_k[bad], a_r[bad]):
+        raise AssertionError(f"{label}: argmins of non-finite rows differ")
+    scale = torch.sum(x * x, -1) + torch.sum(cents * cents, -1)[a_k.long()]
+    fin = ~bad & torch.isfinite(scale)
+    tol = LLOYD_ATOL + LLOYD_RTOL * scale[fin]
+    chosen = torch.gather(ref.pairwise_sq_dists(x[fin], cents), 1,
+                          a_k[fin].long()[:, None])[:, 0]
+    if bool((chosen - m_r[fin] > tol).any()):
+        raise AssertionError(f"{label}: a finite row's assignment is not an "
+                             "argmin within tolerance")
+    if bool(((m_k[fin] - m_r[fin]).abs() > tol).any()):
+        raise AssertionError(f"{label}: finite min_d2 off")
+    if not torch.equal(c_k, F.one_hot(a_k.long(), k).float().sum(0)):
+        raise AssertionError(f"{label}: counts differ")
+    log(f"  {label}: NaN/inf positions of min_d2 and sums equal, "
+        f"{int(bad.sum())} non-finite rows with equal argmins, "
+        f"{int(torch.isnan(s_r).sum())} NaN sums, deterministic=yes")
+
+
+def check_nonfinite_min_dist(t, d, k, case):
+    """The estimation kernel vs its plain version on non-finite inputs:
+    NaN and ±inf distances at the same places, equal masks on those rows
+    (NaN: never ID), at a finite device threshold and at an infinite float
+    one; two runs bitwise equal."""
+    import torch
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    x, cents = nonfinite_inputs(t, d, k, case)
+    want_d, _ = ref.min_dist_and_mask(x, cents, float("inf"))
+    fin = torch.isfinite(want_d)
+    thr = (torch.quantile(want_d[fin], 0.5) if bool(fin.any())
+           else torch.tensor(3.0, device="cuda")).reshape(1)
+    label = f"min_dist_and_mask non-finite {case} t={t} d={d} k={k}"
+    for threshold in (thr, float("inf")):
+        got_d, got_m = ops.min_dist_and_mask(x, cents, threshold)
+        again = ops.min_dist_and_mask(x, cents, threshold)
+        want_m = ref.min_dist_and_mask(x, cents, threshold)[1]
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(got_d), bits(again[0]))
+                and torch.equal(got_m, again[1])):
+            raise AssertionError(f"{label}: two runs differ")
+        if not same_nonfinite(got_d, want_d):
+            raise AssertionError(f"{label}: distances not finite at other "
+                                 "places than the plain version's")
+        if not torch.equal(got_m[~fin], want_m[~fin]):
+            raise AssertionError(f"{label}: masks of non-finite rows differ")
+        if bool(got_m[torch.isnan(got_d)].any()):
+            raise AssertionError(f"{label}: a NaN distance is ID")
+    scale = torch.sum(x * x, -1) + torch.amax(torch.sum(cents * cents, -1))
+    err2 = (got_d * got_d - want_d * want_d).abs()[fin]
+    if bool((err2 > DIST_ATOL + DIST_RTOL * scale[fin]).any()):
+        raise AssertionError(f"{label}: finite d² off by {float(err2.max())}")
+    log(f"  {label}: NaN/inf positions equal ({int(torch.isnan(want_d).sum())}"
+        f" NaN, {int(torch.isinf(want_d).sum())} inf), masks of those rows "
+        "equal at a finite and an infinite threshold, deterministic=yes")
+
+
+def check_nonfinite_rbf(n, m, d, case):
+    """The RBF Gram kernel vs its plain version on non-finite rows: NaN at
+    the same places, equal values (0 or NaN) in every row and column with
+    a non-finite feature, the rest within the RBF tolerance; "rows" poisons
+    a, "centroid" b (a NaN row and a +inf row)."""
+    import torch
+    from repro_torch.kernels.kulsif_rbf import ops, ref
+    a, b = rbf_inputs(n, m, d, seed=0)
+    if case == "rows":
+        a = nonfinite_rows(a)
+    else:
+        b = b.clone()
+        b[1, 4] = float("nan")
+        b[2, 0] = float("inf")
+    got = ops.rbf_matrix_cuda(a, b, SIGMA)
+    again = ops.rbf_matrix_cuda(a, b, SIGMA)
+    want = ref.rbf_matrix(a, b, SIGMA)
+    torch.cuda.synchronize()
+    label = f"rbf_matrix non-finite {case} n={n} m={m} d={d}"
+    if not torch.equal(bits(got), bits(again)):
+        raise AssertionError(f"{label}: two runs differ")
+    if not same_nonfinite(got, want):
+        raise AssertionError(f"{label}: NaN at other places than the plain "
+                             "version's")
+    bad = (~torch.isfinite(a).all(-1))[:, None] | (
+        ~torch.isfinite(b).all(-1))[None, :]
+    sel = bad & ~torch.isnan(want)
+    if not torch.equal(got[sel], want[sel]):
+        raise AssertionError(f"{label}: values of non-finite rows differ")
+    scale = torch.sum(a * a, -1)[:, None] + torch.sum(b * b, -1)[None, :]
+    tol = want * RBF_RTOL * scale / (2 * SIGMA * SIGMA) + RBF_ATOL
+    if bool(((got - want).abs() > tol)[~bad].any()):
+        raise AssertionError(f"{label}: finite pairs off")
+    log(f"  {label}: {int(torch.isnan(want).sum())} NaN at the plain "
+        f"version's places, {int(sel.sum())} other values of non-finite "
+        "rows equal, deterministic=yes")
 
 
 def rbf_inputs(n, m, d, seed):
@@ -490,11 +680,23 @@ def check_kernels():
         for weights in KL_WEIGHTS:
             errs = check_kl_loss(n, k, weights)
             kl_err[(n, k, weights)] = max(errs.values())
+    # flattened images (784, 3072 wide): the wide route, two launches
+    for d in WIDE_DS:
+        for k in (1, 3, 10):
+            check_lloyd(MAIN_LLOYD["n"], d, k)
     dist_err = {}
-    # reports (strong k=1, weak k=3, iid k=10), a calibration, ragged t
-    for t, d, k in (MAIN_DIST, (512, 50, 3), (512, 50, 10), (6000, 50, 1),
-                    (5999, 50, 3)):
+    # reports (strong k=1, weak k=3, iid k=10), a calibration, ragged t,
+    # lm_tokens' report and calibration, flattened images
+    for t, d, k in DIST_SHAPES + ((512, 50, 10), (5999, 50, 3), (300, 50, 64)):
         dist_err[(t, d, k)] = check_min_dist(t, d, k)
+    for case in ("rows", "centroid"):
+        for n, d, k in ((6000, 50, 3), (777, 16, 32), (1000, 784, 3)):
+            check_nonfinite_lloyd(n, d, k, case)
+        for t, d, k in ((512, 50, 3), (256, 16, 1), (300, 50, 64),
+                        (512, 784, 10)):
+            check_nonfinite_min_dist(t, d, k, case)
+        for n, m, d in ((512, 6000, 50), (256, 256, 50)):
+            check_nonfinite_rbf(n, m, d, case)
     rbf_err = {}
     # learn K11, K12; report k_ta, k_tp; ragged both ways
     for n, m, d in RBF_SHAPES + ((511, 5999, 50), (256, 256, 64),
@@ -769,18 +971,20 @@ def run_lm_full_width():
 class CountedCalls:
     """Counts the calls of ``module.name`` while in effect (the distill
     steps, through the loss every client and the FedDF student call), and
-    with ``key`` the calls by ``key(*args)`` in ``by_key``."""
+    with ``key`` the calls by ``key(*args)`` in ``by_key``, each call
+    weighing ``weight(*args)`` there (default 1: its kernels' launches)."""
 
-    def __init__(self, module, name, key=None):
+    def __init__(self, module, name, key=None, weight=None):
         self.module, self.name, self.calls = module, name, 0
         self.orig = getattr(module, name)
-        self.key, self.by_key = key, {}
+        self.key, self.weight, self.by_key = key, weight, {}
 
     def __call__(self, *args, **kwargs):
         self.calls += 1
         if self.key is not None:
             kk = self.key(*args)
-            self.by_key[kk] = self.by_key.get(kk, 0) + 1
+            w = 1 if self.weight is None else self.weight(*args)
+            self.by_key[kk] = self.by_key.get(kk, 0) + w
         return self.orig(*args, **kwargs)
 
     def __enter__(self):
@@ -789,6 +993,15 @@ class CountedCalls:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def dist_class(x, cents, threshold):
+    """B2's launch shapes by class: ("calibration", d, k) for the fit's
+    calibration over a private set (``KMeansDRE.learn`` passes the infinite
+    float threshold), ("report", d, k) for a report's proxy batch (the
+    calibrated device threshold)."""
+    kind = "calibration" if isinstance(threshold, float) else "report"
+    return (kind, x.shape[1], cents.shape[0])
 
 
 def rbf_class(n, m):
@@ -801,7 +1014,8 @@ def rbf_class(n, m):
 def run_main_path():
     """Phase 6. Returns the launch counts of the whole phase, the
     transformer run's attention launches by query batch size, B1's
-    launches by centroid count and B5's by shape class (``rbf_class``)."""
+    launches by centroid count, B5's by shape class (``rbf_class``) and
+    B2's by class (``dist_class``)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.kmeans_dist import ops as kd_ops
     from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
@@ -826,13 +1040,23 @@ def run_main_path():
         w.launches = 0
     results, per_run, steps, attn_batches = {}, {}, {}, {}
     # B1's calls by k (centroids (k, d) or (C, k, d)), B5's by (n, m), at
-    # the public ops, which dispatch looks up at call time (each call on a
-    # CUDA tensor is one launch, checked against the launch counts below)
-    lloyd_by_k = CountedCalls(kd_ops, "lloyd_step",
-                              key=lambda x, c: c.shape[-2])
+    # the public ops, which dispatch looks up at call time (B1's calls
+    # weighed by their launches, each B5 call on a CUDA tensor one launch;
+    # checked against the launch counts below)
+    lloyd_by_k = CountedCalls(
+        kd_ops, "lloyd_step", key=lambda x, c: c.shape[-2],
+        weight=lambda x, c: kd_ops.lloyd_launches(x.shape[-1]))
     rbf_by_shape = CountedCalls(rbf_ops, "rbf_matrix",
                                 key=lambda a, b, s: (a.shape[0], b.shape[0]))
-    with lloyd_by_k, rbf_by_shape:
+    rows_by_class = {}   # B2's row counts t by class: (least, most)
+
+    def dist_key(x, cents, threshold):
+        kk = dist_class(x, cents, threshold)
+        lo, hi = rows_by_class.get(kk, (x.shape[0], x.shape[0]))
+        rows_by_class[kk] = (min(lo, x.shape[0]), max(hi, x.shape[0]))
+        return kk
+    dist_by_class = CountedCalls(kd_ops, "min_dist_and_mask", key=dist_key)
+    with lloyd_by_k, rbf_by_shape, dist_by_class:
         for label, drive in runs:
             run_one(label, drive, wrappers, results, per_run, steps,
                     attn_batches)
@@ -842,18 +1066,26 @@ def run_main_path():
     for (n, m), v in rbf_by_shape.by_key.items():
         by_shape[rbf_class(n, m)] = by_shape.get(rbf_class(n, m), 0) + v
     if sum(by_k.values()) != counts["lloyd_step"]:
-        raise AssertionError(f"lloyd_step: {sum(by_k.values())} calls for "
-                             f"{counts['lloyd_step']} launches")
+        raise AssertionError(f"lloyd_step: {sum(by_k.values())} launches "
+                             f"by k for {counts['lloyd_step']} counted")
     if sum(by_shape.values()) != counts["rbf_matrix"]:
         raise AssertionError(f"rbf_matrix: {sum(by_shape.values())} calls "
                              f"for {counts['rbf_matrix']} launches")
+    by_class = dict(sorted(dist_by_class.by_key.items()))
+    if sum(by_class.values()) != counts["min_dist_and_mask"]:
+        raise AssertionError(f"min_dist_and_mask: {sum(by_class.values())} "
+                             f"calls for {counts['min_dist_and_mask']} "
+                             "launches")
+    log("  min_dist_and_mask launches by (class, d, k): "
+        + ", ".join(f"{kk}: {v} (t {rows_by_class[kk][0]}.."
+                    f"{rows_by_class[kk][1]})" for kk, v in by_class.items()))
     log(f"  lloyd_step launches by k: {by_k}; rbf_matrix launches by (n, m) "
         f"class: {by_shape} (private sizes: "
         + ", ".join(f"{k}: {v}" for k, v in
                     sorted(rbf_by_shape.by_key.items()) if k[1] != 256)
         + ")")
     return finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
-                            attn_batches) + (by_k, by_shape)
+                            attn_batches) + (by_k, by_shape, by_class)
 
 
 def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
@@ -1058,22 +1290,79 @@ def measure_kl_loss(counts, kl_err):
     return row
 
 
-def measure_min_dist(counts, dist_err):
+def dist_cost(t, d, k):
+    """B2's bytes (x, the centroids and the threshold read once; f32
+    distances and a one-byte mask written) and ops (the matmul form, the
+    min, sqrt and compare)."""
+    return (4 * (t * d + k * d + 1) + 5 * t,
+            2 * t * k * d + 2 * t * d + 2 * k * d + 4 * t * k + 2 * t)
+
+
+# B2's timed shapes -> their main-path class (dist_class): the feature
+# path's and lm_tokens' reports and calibrations; the wide shapes have none
+DIST_CLASSES = {(512, 50, 1): ("report", 50, 1),
+                (512, 50, 3): ("report", 50, 3),
+                (6000, 50, 1): ("calibration", 50, 1),
+                (6000, 50, 3): ("calibration", 50, 3),
+                (256, 16, 1): ("report", 16, 1),
+                (600, 16, 1): ("calibration", 16, 1)}
+
+
+def dist_threshold(t, d, k):
+    """The threshold a shape's class passes: a calibration the infinite
+    float, a report (and a wide shape) a device scalar."""
     import torch
+    cls = DIST_CLASSES.get((t, d, k))
+    if cls is not None and cls[0] == "calibration":
+        return float("inf")
+    return torch.full((1,), 3.0, device="cuda")
+
+
+def empty_kernel_ms():
+    """An empty kernel's launch, per call and device only (the floor a
+    latency-bound kernel is held to)."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops
+
+    def noop():
+        ops.noop_cuda(torch.device("cuda", torch.cuda.current_device()))
+    return time_ms(noop), device_ms(noop)
+
+
+def measure_min_dist(counts, dist_err, by_class):
+    """B2 at each class of the main path and at the wide shapes, with the
+    threshold its class passes: per call and device only, its plain
+    version, the bound, the share of the bound, the device time over an
+    empty kernel's, and the main path's launches of the class times
+    (device - bound)."""
     from repro_torch.kernels.kmeans_dist import ops, ref
     row = None
-    for t, d, k in (MAIN_DIST, (512, 50, 3), (512, 50, 10), (6000, 50, 1)):
+    gap_ms = 0.0
+    empty_ms, empty_dev = empty_kernel_ms()
+    log(f"  empty kernel: {empty_ms:.5f} per call, device only "
+        f"{fmt(empty_dev)}")
+    for t, d, k in DIST_SHAPES:
         x, cents = (v[0] for v in lloyd_inputs(t, d, k, seed=1))
-        thr = torch.full((1,), 3.0, device="cuda")
-        # read x, centroids and the threshold once, write f32 distances
-        # and a one-byte mask; the matmul form, the min, sqrt and compare
-        moved = 4 * (t * d + k * d + 1) + 5 * t
-        flops = 2 * t * k * d + 2 * t * d + 2 * k * d + 4 * t * k + 2 * t
-        ms, plain_ms, b_ms, b_by, _ = time_row(
-            f"min_dist_and_mask t={t} d={d} k={k}",
+        thr = dist_threshold(t, d, k)
+        moved, flops = dist_cost(t, d, k)
+        ms, plain_ms, b_ms, b_by, dev = time_row(
+            f"min_dist_and_mask t={t} d={d} k={k} (threshold "
+            f"{'float' if isinstance(thr, float) else 'on the device'})",
             lambda: ops.min_dist_and_mask_cuda(x, cents, thr),
             lambda: ref.min_dist_and_mask(x, cents, thr), moved, flops)
+        cls = DIST_CLASSES.get((t, d, k))
+        launches = by_class.get(cls, 0)
+        if dev is not None:
+            gap = launches * (dev - b_ms)
+            gap_ms += gap
+            over = ("" if empty_dev is None
+                    else f", device - empty kernel {dev - empty_dev:.5f}")
+            log(f"    share of the bound {b_ms / dev:.4f}{over}; main-path "
+                f"launches of class {cls}: {launches}, x (device - bound) "
+                f"{gap:.4f} ms")
         if (t, d, k) == MAIN_DIST:
+            log("    per call: " + per_call_readings(
+                lambda: ops.min_dist_and_mask_cuda(x, cents, thr)))
             row = {"name": "min_dist_and_mask", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/kmeans_dist.cu",
                    "replaces": "src/repro/kernels/kmeans_dist/kernel.py:48",
@@ -1081,6 +1370,8 @@ def measure_min_dist(counts, dist_err):
                    "max_abs_err": dist_err[MAIN_DIST], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": None}
+    log(f"  min_dist_and_mask: launches x (device - bound) over its classes "
+        f"{gap_ms:.4f} ms (launches by class {by_class})")
     return row
 
 
@@ -1164,31 +1455,66 @@ def measure_lloyd(counts, lloyd_err, by_k):
                    "library_ms": None}
     log(f"  lloyd_step: launches x (device - bound) over the timed k "
         f"{gap_ms:.4f} ms (launches by k {by_k})")
+    for d in WIDE_DS:   # the wide route (two launches), no main-path calls
+        x, cents = lloyd_inputs(n, d, 10, seed=1)
+        _, _, b_ms, _, dev = time_row(
+            f"lloyd_step C=1 n={n} d={d} k=10 (wide route)",
+            lambda: ops.lloyd_step_cuda(x, cents),
+            lambda: ref.lloyd_step(x, cents), *lloyd_cost(n, d, 10))
+        if dev is not None:
+            log(f"    share of the bound {b_ms / dev:.4f}")
     return row
 
 
 def time_kernels(label):
-    """``--time-kernels``: B1 at each k and B5 at each shape, per call and
-    device only, from the package on sys.path."""
+    """``--time-kernels``: B1 at each k and on its wide route, B2 at each of
+    its shapes (a device threshold, which every tree's wrapper takes; at
+    the main shape several per-call readings), B5 at each shape and an
+    empty kernel, per call and device only, from the package under
+    ``label``. Only another tree than this checkout's may refuse B1's
+    wide route (an older one, without it)."""
+    import torch
     from repro_torch.kernels.kmeans_dist import ops as kd
     from repro_torch.kernels.kulsif_rbf import ops as rbf
+    empty_ms, empty_dev = empty_kernel_ms()
+    log(f"  {label}: empty kernel, ms per call / device only: "
+        f"{empty_ms:.5f} / {fmt(empty_dev)}")
     n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
-    for k in LLOYD_KS:
-        x, cents = lloyd_inputs(n, d, k, seed=1)
+    for dd, k in [(d, k) for k in LLOYD_KS] + [(w, 10) for w in WIDE_DS]:
+        x, cents = lloyd_inputs(n, dd, k, seed=1)
 
         def kern():
             return kd.lloyd_step_cuda(x, cents)
-        log(f"  {label}: lloyd_step C=1 n={n} d={d} k={k}, ms per call / "
-            f"device only: {time_ms(kern):.5f} / {fmt(device_ms(kern))}; "
-            f"bound {bound(*lloyd_cost(n, d, k))[0]:.6f}")
-    for n, m, d in RBF_SHAPES:
-        a, b = rbf_inputs(n, m, d, seed=1)
+        head = f"  {label}: lloyd_step C=1 n={n} d={dd} k={k}"
+        try:
+            kern()
+        except ValueError as e:   # a tree without the wide route
+            if Path(label) == SRC:
+                raise
+            log(f"{head}: refused ({e})")
+            continue
+        log(f"{head}, ms per call / device only: {time_ms(kern):.5f} / "
+            f"{fmt(device_ms(kern))}; bound {bound(*lloyd_cost(n, dd, k))[0]:.6f}")
+    thr = torch.full((1,), 3.0, device="cuda")
+    for t, dd, k in DIST_SHAPES:
+        x, cents = (v[0] for v in lloyd_inputs(t, dd, k, seed=1))
+
+        def kern():
+            return kd.min_dist_and_mask_cuda(x, cents, thr)
+        log(f"  {label}: min_dist_and_mask t={t} d={dd} k={k}, ms per call "
+            f"/ device only: {time_ms(kern):.5f} / {fmt(device_ms(kern))}; "
+            f"bound {bound(*dist_cost(t, dd, k))[0]:.6f}")
+        if (t, dd, k) == MAIN_DIST:
+            log(f"  {label}: min_dist_and_mask t={t} d={dd} k={k}, per call: "
+                + per_call_readings(kern))
+    for n, m, dd in RBF_SHAPES:
+        a, b = rbf_inputs(n, m, dd, seed=1)
 
         def kern():
             return rbf.rbf_matrix_cuda(a, b, SIGMA)
-        log(f"  {label}: rbf_matrix n={n} m={m} d={d}, ms per call / "
+        log(f"  {label}: rbf_matrix n={n} m={m} d={dd}, ms per call / "
             f"device only: {time_ms(kern):.5f} / {fmt(device_ms(kern))}; "
-            f"bound {bound(*rbf_cost(n, m, d))[0]:.6f}")
+            f"bound {bound(*rbf_cost(n, m, dd))[0]:.6f}")
 
 
 def measure_flash(counts, attn_err, by_batch):
@@ -1285,14 +1611,14 @@ def time_flash(label):
 
 
 def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
-            attn_batches, by_k, by_shape):
+            attn_batches, by_k, by_shape, by_class):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.distill_kl import ops as kl_ops
     from repro_torch.kernels.distill_kl import ref as kl_ref
     log("[7] timings (CUDA events, ms per call)")
     rows = [measure_lloyd(counts, lloyd_err, by_k)]
-    rows.append(measure_min_dist(counts, dist_err))
+    rows.append(measure_min_dist(counts, dist_err, by_class))
     for n, k in ((64, 10), (512, 10), (4096, 1000)):
         s, t, g = kl_inputs(n, k, seed=1)
         T = TEMPERATURE
@@ -1404,9 +1730,9 @@ def main(argv) -> int:
     lloyd_err, kl_err, dist_err, rbf_err, attn_err = check_kernels()
     check_kmeans_agreement()
     check_small_run()
-    counts, attn_batches, by_k, by_shape = run_main_path()
+    counts, attn_batches, by_k, by_shape, by_class = run_main_path()
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
-                   attn_batches, by_k, by_shape)
+                   attn_batches, by_k, by_shape, by_class)
 
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,10 @@ Each source compiles on first use into a shared library of its own with a
 plain C interface (``nvcc -shared``, no PyTorch headers, so a build takes
 seconds). Libraries go to ``kernels/_build/`` beside this file, which
 ``.gitignore`` lists, or to ``$REPRO_TORCH_BUILD_DIR``. A library's file
-name carries a hash of its source and the flags: an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one nvcc
+name carries a hash of its source, of every header under ``csrc/`` that
+the source includes (``#include "..."``, followed through the headers'
+own includes), and of the flags: an edited source or header is rebuilt
+and a stale library is never loaded. ``build_all`` starts one nvcc
 per source, all at once, and renames each finished library into place, so
 two processes building at once never load a half-written file.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,10 +57,27 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes,
+    directly or through another header, in the order first reached."""
+    files = [CSRC / f"{name}.cu"]
+    for path in files:          # grows as headers are found
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.is_file() and header not in files:
+                files.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

@@ -37,17 +37,38 @@
 //    order. All in IEEE fp32 in the reference's form max(x2 - 2 x.c + c2,
 //    0). Rows >= n are masked inside the kernel (no padding copy); the
 //    wrapper allocates every output and the scratch.
-//  * Limits: d <= 64 and k <= 64 (every caller: d = 50 features or 16
-//    tokens, k <= 32 centroids); the launcher returns cudaErrorInvalidValue
-//    beyond them.
+//  * Non-finite values as in the reference (kmeans_rows.cuh): a NaN d2
+//    stays NaN through the clamp and the minimum, and the argmin is the
+//    first NaN's index. The reference sums by a one-hot product, which adds
+//    0 * x to every centroid a row is not assigned to: a NaN or infinite
+//    feature makes that feature's sums NaN for every other centroid, here
+//    too (poison_others, in a pass of its own after a block's sums, only
+//    where a row had one; the wide route's sums pass notes the centroids
+//    of such rows as it goes).
+//  * The narrow route above takes d <= 64 and k <= 64 (the feature and
+//    token paths: d = 50 or 16, k <= 32), in one launch.
+//  * The wide route, 64 < d <= 4096 and k <= 64 (flattened images: 784 or
+//    3072 wide), in two launches: the assignment pass is the estimation
+//    step's distance code (kmeans_rows.cuh, lanes over features, centroid
+//    features staged in shared memory), which writes assign and min_d2;
+//    then a block per (32-feature slice, row group, client) walks its rows
+//    in 8 contiguous segments, a warp each, adding each row's slice into
+//    its centroid's sums in shared memory, rows in order; the segments'
+//    sums are added in segment order, and the groups' by the last block to
+//    finish, told by an integer ticket. No float atomics on either route:
+//    two launches on the same inputs give the same bits.
+//  * The launcher returns cudaErrorInvalidValue beyond d = 4096 or k = 64.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "kmeans_rows.cuh"
+
 namespace {
 
 constexpr int WARP = 32;
-constexpr int MAX_D = 64;
+constexpr int MAX_D = 64;              // the narrow route's widest row
+constexpr int WIDE_MAX_D = 4096;
 constexpr int MAX_K = 64;
 constexpr int STAGE_ROWS = 128;         // rows of x in shared memory at once
 // partials the last block may sum: the split path is latency-bound, so
@@ -92,6 +113,30 @@ __host__ __device__ __forceinline__ int smem_floats(int d, int k, int kp,
     f += (warps / GROUPS) * STAGE_ROWS * (kp + 1) + STAGE_ROWS;
   // the last block's runs reuse the stage: one float4 a thread
   return f > 4 * warps * WARP ? f : 4 * warps * WARP;
+}
+
+using kmeans_rows::clamp0;
+using kmeans_rows::take_min;
+
+// (od, oj) comes before (bd, bj) in the reference's argmin order: a NaN
+// first (the lower index of two), else the smaller d2, the lower index on
+// a tie
+__device__ __forceinline__ bool first_min(float od, int oj, float bd,
+                                          int bj) {
+  const bool o_nan = od != od;
+  const bool b_nan = bd != bd;
+  if (o_nan || b_nan) return o_nan && (!b_nan || oj < bj);
+  return od < bd || (od == bd && oj < bj);
+}
+
+// Feature i (value v) of a row assigned to centroid bj, in a slab of (k, d)
+// sums: the reference's one-hot product adds 0 * v to every other
+// centroid's sum, nothing for a finite v, a NaN for an infinite or NaN one.
+__device__ __forceinline__ void poison_others(float* slab, int bj, int k,
+                                              int d, int i, float v) {
+  if (!isfinite(v))
+    for (int j = 0; j < k; ++j)
+      if (j != bj) slab[j * d + i] += 0.f * v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -176,6 +221,7 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
   float* s_c2 = s_ct + d * KP;                    // (KP,)
   float* s_slab = s_x + slab_offset(d, KP);       // (WARPS, pitch)
   __shared__ bool is_last;
+  __shared__ int s_nonfinite;  // a row of the block had a non-finite x2
 
   const int client = blockIdx.y;
   const int blocks = gridDim.x;
@@ -212,6 +258,7 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
     }
   }
   for (int idx = tid; idx < WARPS * op; idx += THREADS) s_slab[idx] = 0.f;
+  if (tid == 0) s_nonfinite = 0;
   for (int j = warp; j < KP; j += WARPS) {
     float v = 0.f;
     if (j < k)
@@ -281,7 +328,7 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
 #pragma unroll
         for (int sl = 0; sl < SLICES; ++sl)
           xx += s_part[(sl * STAGE_ROWS + r) * (KP + 1)];
-        float bd = 0.f;
+        float bd = kmeans_rows::INF;
         int bj = 0;
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
@@ -290,15 +337,12 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
 #pragma unroll
           for (int sl = 0; sl < SLICES; ++sl)
             c += s_part[(sl * STAGE_ROWS + r) * (KP + 1) + 1 + j];
-          const float d2 = fmaxf(xx - 2.f * c + s_c2[j], 0.f);
-          if (j == 0 || d2 < bd) {  // strict: the first index wins ties
-            bd = d2;
-            bj = j;
-          }
+          take_min(clamp0(xx - 2.f * c + s_c2[j]), j, bd, bj);
         }
         assign[out0 + s0 + r] = bj;
         min_d2[out0 + s0 + r] = bd;
         s_assign[r] = bj;
+        if (!isfinite(xx)) s_nonfinite = 1;  // a non-finite feature
       }
       __syncthreads();
       // each row into its centroid's sums, a warp a row, lanes over
@@ -329,6 +373,14 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
           if (i < d) slab[bj * d + i] += xv[u];
         }
         if (lane == 0) slab[kd + bj] += 1.f;
+      }
+      // a stage with a non-finite feature (the flag stays up for the
+      // block's later stages, which then check again): the one-hot
+      // product's 0 * x for the other centroids
+      if (s_nonfinite) {
+        for (int rr = warp; rr < rows; rr += WARPS)
+          for (int i = lane; i < d; i += WARP)
+            poison_others(slab, s_assign[rr], k, d, i, s_x[rr * d + i]);
       }
     } else {
       // Lanes over centroids (KP / 32 each), a warp RW rows at once over
@@ -368,9 +420,11 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
           for (int u = 0; u < KPL; ++u) {
             const int j = lane + WARP * u;
             const float d2 =
-                j < k ? fmaxf(x2[q] - 2.f * cross[q][u] + s_c2[j], 0.f)
+                j < k ? clamp0(x2[q] - 2.f * cross[q][u] + s_c2[j])
                       : __int_as_float(0x7f800000);
-            if (u == 0 || d2 < bd) {  // strict: the first index wins ties
+            // this lane's centroids in index order: the first NaN, else
+            // the first index of the minimum
+            if (u == 0 || (bd == bd && (d2 < bd || d2 != d2))) {
               bd = d2;
               bj = j;
             }
@@ -379,7 +433,7 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
           for (int off = 1; off < WARP; off <<= 1) {
             const float od = __shfl_xor_sync(FULL, bd, off);
             const int oj = __shfl_xor_sync(FULL, bj, off);
-            if (od < bd || (od == bd && oj < bj)) {
+            if (first_min(od, oj, bd, bj)) {
               bd = od;
               bj = oj;
             }
@@ -392,9 +446,14 @@ __global__ void __launch_bounds__(warps_for<KP>() * WARP, 1)
             slab[kd + bj] += 1.f;
           }
           // the row into its centroid's sums: lanes over features, rows
-          // in order, each warp into its own slab
+          // in order, each warp into its own slab (and, for a non-finite
+          // feature, the one-hot product's 0 * x into the others')
           for (int i = lane; i < d; i += WARP)
             slab[bj * d + i] += s_x[r * d + i];
+          if (!isfinite(x2[q])) {  // the same for the whole warp
+            for (int i = lane; i < d; i += WARP)
+              poison_others(slab, bj, k, d, i, s_x[r * d + i]);
+          }
         }
       }
     }
@@ -520,28 +579,212 @@ cudaError_t launch(const float* x, const float* cents, int C, int n, int d,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide route
+constexpr int S_WARPS = 8;   // row segments of a sums block, a warp each
+constexpr int S_BATCH = 32;  // rows a warp loads at once
+constexpr int S_PITCH = WARP + 1;  // a centroid's 32 feature sums, its count
+constexpr int S_MIN_ROWS = 256;    // fewest rows a sums block takes
+
+// The assignment pass's epilogue.
+struct AssignOut {
+  int* assign;
+  float* min_d2;
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void operator()(size_t row, float best,
+                                             int bj) const {
+    assign[row] = bj;
+    min_d2[row] = best;
+  }
+};
+
+// Row groups the sums pass cuts a client's rows into: enough blocks of
+// (slice, group) for about two an SM, none under S_MIN_ROWS rows.
+int sum_groups(int C, int n, int d) {
+  const int slices = (d + WARP - 1) / WARP;
+  const int want = (2 * sm_count() + slices * C - 1) / (slices * C);
+  const int most = (n + S_MIN_ROWS - 1) / S_MIN_ROWS;
+  return max(1, min(want, most));
+}
+
+// The sums pass: a block per (32-feature slice, row group, client), a lane
+// per feature. Warp w walks its segment of the group's rows in order, 32
+// rows' features and assignments loaded at once, adding each row into its
+// centroid's sums in the warp's own (k, 33) slab, counting rows in
+// registers; the slabs are added in warp order. With one group, that is
+// the output; else each group's block writes it to scratch, and the last
+// block of the (slice, client) to finish, told by an integer ticket, adds
+// the groups in order and resets the ticket. The slice-0 blocks write the
+// counts.
+__global__ void __launch_bounds__(S_WARPS * WARP)
+    wide_sums_kernel(const float* __restrict__ x,
+                     const int* __restrict__ assign, int n, int d, int k,
+                     float* __restrict__ sums, float* __restrict__ counts,
+                     float* __restrict__ partials,
+                     unsigned* __restrict__ tickets) {
+  extern __shared__ float4 smem4[];
+  float* all = reinterpret_cast<float*>(smem4);  // (S_WARPS, k, S_PITCH)
+  __shared__ bool is_last;
+  const int slice = blockIdx.x;
+  const int group = blockIdx.y;
+  const int groups = gridDim.y;
+  const int client = blockIdx.z;
+  const int lane = threadIdx.x % WARP;
+  const int warp = threadIdx.x / WARP;
+  const int f = slice * WARP + lane;
+  const bool has_f = f < d;
+  const int kp = k * S_PITCH;
+  const float* xc = x + static_cast<size_t>(client) * n * d;
+  const int* ac = assign + static_cast<size_t>(client) * n;
+  float* slab = all + warp * kp;
+  for (int i = lane; i < kp; i += WARP) slab[i] = 0.f;
+  __syncwarp();
+  const int per_group = (n + groups - 1) / groups;
+  const int g_begin = min(n, group * per_group);
+  const int g_end = min(n, g_begin + per_group);
+  const int seg = (g_end - g_begin + S_WARPS - 1) / S_WARPS;
+  const int r_begin = min(g_end, g_begin + warp * seg);
+  const int r_end = min(g_end, r_begin + seg);
+  // Without a branch a row: the first centroid whose row has a non-finite
+  // value at this feature, and whether one of another centroid followed
+  // (the one-hot product's 0 * x then makes every other sum NaN, below);
+  // the rows of centroids lane and lane + 32, counted in registers.
+  int bad_a = -1;
+  bool bad_other = false;
+  float cnt0 = 0.f, cnt1 = 0.f;
+  for (int b = r_begin; b < r_end; b += S_BATCH) {
+    const int a_l = b + lane < r_end ? __ldg(ac + b + lane) : 0;
+    float v[S_BATCH];
+#pragma unroll
+    for (int u = 0; u < S_BATCH; ++u)
+      v[u] = (has_f && b + u < r_end)
+                 ? __ldg(xc + static_cast<size_t>(b + u) * d + f)
+                 : 0.f;
+    // all 32 loads issued before the first row's update (not sunk to it)
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < S_BATCH; ++u) {
+      if (b + u >= r_end) break;  // the same for the whole warp
+      const int a = __shfl_sync(FULL, a_l, u);
+      slab[a * S_PITCH + lane] += v[u];
+      const bool bad = !isfinite(v[u]);
+      bad_other |= bad && bad_a >= 0 && bad_a != a;
+      bad_a = bad && bad_a < 0 ? a : bad_a;
+      cnt0 += a == lane ? 1.f : 0.f;
+      cnt1 += a == lane + WARP ? 1.f : 0.f;
+    }
+  }
+  if (bad_a >= 0) {
+    for (int j = 0; j < k; ++j)
+      if (bad_other || j != bad_a) slab[j * S_PITCH + lane] += __int_as_float(0x7fffffff);
+  }
+  if (lane < k) slab[lane * S_PITCH + WARP] = cnt0;
+  if (lane + WARP < k) slab[(lane + WARP) * S_PITCH + WARP] = cnt1;
+  __syncthreads();
+  auto put = [&](int idx, float v) {
+    const int j = idx / S_PITCH;
+    const int c = idx - j * S_PITCH;
+    if (c < WARP) {
+      const int fc = slice * WARP + c;
+      if (fc < d) sums[(static_cast<size_t>(client) * k + j) * d + fc] = v;
+    } else if (slice == 0) {
+      counts[static_cast<size_t>(client) * k + j] = v;
+    }
+  };
+  const int cell = client * gridDim.x + slice;   // this (slice, client)
+  float* part = partials + static_cast<size_t>(cell) * groups * kp;
+  for (int idx = threadIdx.x; idx < kp; idx += S_WARPS * WARP) {
+    float v = 0.f;
+    for (int w = 0; w < S_WARPS; ++w) v += all[w * kp + idx];
+    if (groups == 1) put(idx, v);
+    else part[static_cast<size_t>(group) * kp + idx] = v;
+  }
+  if (groups == 1) return;
+  __threadfence();  // the partials are visible before the ticket is taken
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(tickets + cell, 1u) == static_cast<unsigned>(groups - 1);
+  __syncthreads();
+  if (!is_last) return;
+  if (threadIdx.x == 0) tickets[cell] = 0u;
+  for (int idx = threadIdx.x; idx < kp; idx += S_WARPS * WARP) {
+    float v = 0.f;
+    for (int g = 0; g < groups; ++g)
+      v += __ldcg(part + static_cast<size_t>(g) * kp + idx);
+    put(idx, v);
+  }
+}
+
+cudaError_t launch_wide(const float* x, const float* cents, int C, int n,
+                        int d, int k, int* assign, float* min_d2,
+                        float* sums, float* counts, float* partials,
+                        unsigned* tickets, cudaStream_t s) {
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(
+        wide_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S_WARPS * MAX_K * S_PITCH * sizeof(float)));
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < MAX_DEVICES) attr_set[dev] = true;
+  }
+  const dim3 grid(kmeans_rows::wide_blocks(n), C);
+  const AssignOut out{assign, min_d2};
+  if (k <= 4)
+    kmeans_rows::wide_rows_kernel<4, AssignOut>
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+  else if (k <= 12)
+    kmeans_rows::wide_rows_kernel<12, AssignOut>
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+  else
+    kmeans_rows::wide_rows_kernel<16, AssignOut>
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wide_sums_kernel<<<dim3((d + WARP - 1) / WARP, sum_groups(C, n, d), C),
+                     S_WARPS * WARP, S_WARPS * k * S_PITCH * sizeof(float),
+                     s>>>(x, assign, n, d, k, sums, counts, partials,
+                          tickets);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int repro_lloyd_max_d() { return MAX_D; }
+int repro_lloyd_max_d() { return WIDE_MAX_D; }
 int repro_lloyd_max_k() { return MAX_K; }
-// Floats of scratch a launch needs on the current device: every block's
-// sums and counts, (C, blocks, pitch), pitch = k*d + k rounded up to 4.
+// Kernels a call launches: one on the narrow route, two (assignments, then
+// sums) on the wide route.
+int repro_lloyd_launches(int d) { return d > MAX_D ? 2 : 1; }
+// Tickets a launch needs: one a client on the narrow route, one a (32-
+// feature slice, client) on the wide route.
+int repro_lloyd_tickets(int C, int d) {
+  return d > MAX_D ? C * ((d + WARP - 1) / WARP) : C;
+}
+// Floats of scratch a launch needs on the current device: on the narrow
+// route every block's sums and counts, (C, blocks, pitch), pitch = k*d + k
+// rounded up to 4; on the wide route every row group's sums and counts of
+// every slice, (C, slices, groups, k, 33).
 long long repro_lloyd_scratch_floats(int C, int n, int d, int k) {
+  if (d > MAX_D)
+    return static_cast<long long>(C) * ((d + WARP - 1) / WARP) *
+           sum_groups(C, n, d) * k * S_PITCH;
   const int rpb = rows_per_block(C, n, d, k);
   return static_cast<long long>(C) * ((n + rpb - 1) / rpb) * pitch(d, k);
 }
 
 // x (C, n, d), cents (C, k, d) f32; assign (C, n) i32, min_d2 (C, n),
 // sums (C, k, d), counts (C, k) f32; partials: repro_lloyd_scratch_floats
-// f32 of scratch, 16-byte aligned; tickets (C,) u32, zero between
-// launches on one stream (the last block of each client resets its own).
+// f32 of scratch, 16-byte aligned; tickets: repro_lloyd_tickets u32, zero
+// between launches on one stream (the last block to finish resets its
+// own).
 int repro_lloyd_step(const void* x, const void* cents, int C, int n, int d,
                      int k, void* assign, void* min_d2, void* sums,
                      void* counts, void* partials, void* tickets,
                      void* stream) {
-  if (C < 1 || n < 1 || d < 1 || d > MAX_D || k < 1 || k > MAX_K)
+  if (C < 1 || n < 1 || d < 1 || d > WIDE_MAX_D || k < 1 || k > MAX_K)
     return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* cf = static_cast<const float*>(cents);
@@ -552,6 +795,8 @@ int repro_lloyd_step(const void* x, const void* cents, int C, int n, int d,
   float* p = static_cast<float*>(partials);
   unsigned* t = static_cast<unsigned*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > MAX_D)
+    return launch_wide(xf, cf, C, n, d, k, a, m, su, co, p, t, s);
 #define REPRO_LLOYD(KP) launch<KP>(xf, cf, C, n, d, k, a, m, su, co, p, t, s)
   if (k <= 1) return REPRO_LLOYD(1);
   if (k <= 2) return REPRO_LLOYD(2);

@@ -37,6 +37,13 @@
 //    output's rows to a multiple of 8 floats, so every row starts a
 //    32-byte sector and no sector is written in two pieces (two warps
 //    writing one sector in pieces made unpadded odd-m rows much slower).
+//  * Non-finite values as in the reference. With both squared norms
+//    finite a pair's d2 is finite, and fmaxf's clamp is the reference's. A
+//    thread with a pair whose norm is not finite redoes those pairs after
+//    its stores: the cross term in plain
+//    fp32 (3xTF32 would split an inf into inf + NaN, and an infinite d2,
+//    whose kernel value is 0, would come out NaN), a clamp that keeps a
+//    NaN (fmaxf returns the 0), and the exponent of a NaN a NaN.
 //  * Rows past n or m are masked at the store (no padding copy); widths
 //    beyond 64 take several stages. No atomics: two runs give the same
 //    bits.
@@ -107,6 +114,21 @@ __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// max(v, 0) that keeps a NaN, as jnp.maximum does (one instruction)
+__device__ __forceinline__ float clamp0(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// a.b over d features in plain fp32, in feature order
+__device__ __forceinline__ float plain_dot(const float* __restrict__ a,
+                                        const float* __restrict__ b, int d) {
+  float s = 0.f;
+  for (int i = 0; i < d; ++i) s = fmaf(__ldg(a + i), __ldg(b + i), s);
+  return s;
+}
+
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   // not volatile: the compiler may interleave independent accumulators
@@ -114,6 +136,44 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A thread whose pairs include a row with a squared norm that is not
+// finite (an inf or NaN feature) redoes those pairs, rows r_base + 16 i +
+// 8 h and columns c_base + 8 j + e of the tile, in plain fp32 (3xTF32
+// splits an inf into inf + NaN; the reference's matmul has +-inf or NaN
+// there), with the clamp that keeps a NaN and the exponent of a NaN a NaN,
+// over the values it stored.
+template <int MT, int NT>
+__device__ __forceinline__ void redo_nonfinite(
+    const float* __restrict__ a, const float* __restrict__ b, int d,
+    const float* s_a2, const float* s_b2, int r_base, int c_base, int rows_a,
+    int rows_b, int row0, int col0, float neg_scale, float* out, int ldo) {
+#pragma unroll 1
+  for (int i = 0; i < MT; ++i)
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_base + 16 * i + 8 * h;
+      if (r >= rows_a) continue;
+      const float a2 = s_a2[r];
+#pragma unroll 1
+      for (int j = 0; j < NT; ++j)
+#pragma unroll 1
+        for (int e = 0; e < 2; ++e) {
+          const int c = c_base + 8 * j + e;
+          if (c >= rows_b) continue;
+          const float b2 = s_b2[c];
+          if (isfinite(a2) && isfinite(b2)) continue;
+          const float cross =
+              plain_dot(a + static_cast<size_t>(row0 + r) * d,
+                        b + static_cast<size_t>(col0 + c) * d, d);
+          float v;
+          asm("ex2.approx.ftz.f32 %0, %1;\n"
+              : "=f"(v)
+              : "f"(clamp0(a2 - 2.f * cross + b2) * neg_scale));
+          out[static_cast<size_t>(row0 + r) * ldo + col0 + c] = v;
+        }
+    }
 }
 
 // A block owns a (BM x BN) output tile; each of its warps a (WM x WN)
@@ -258,6 +318,7 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
   // wrapper pads the rows (ldo) to whole 32-byte sectors, so each pair goes
   // as one 8-byte store and no sector is written in two pieces.
   const bool pairs = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  bool finite = true;  // every squared norm of this thread's pairs
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -265,6 +326,7 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
       const int r = wm + 16 * i + g + 8 * h;
       if (r >= rows_a) continue;
       const float a2 = s_a2[r];
+      finite = finite && isfinite(a2);
       float* orow = out + static_cast<size_t>(row0 + r) * ldo + col0;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -273,8 +335,11 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float d2 =
-              fmaxf(a2 - 2.f * acc[i][j][2 * h + e] + s_b2[c + e], 0.f);
+          // with both norms finite the d2 is finite: fmaxf's clamp is the
+          // reference's (the pairs of a non-finite row are redone below)
+          const float b2 = s_b2[c + e];
+          finite = finite && (c + e >= rows_b || isfinite(b2));
+          const float d2 = fmaxf(a2 - 2.f * acc[i][j][2 * h + e] + b2, 0.f);
           // 2^x to 2 ulp; results below 2^-126 (under the tolerance's
           // absolute term) flush to 0
           asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(v[e]) : "f"(d2 * neg_scale));
@@ -287,6 +352,9 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
         }
       }
     }
+  if (!finite)
+    redo_nonfinite<MT, NT>(a, b, d, s_a2, s_b2, wm + g, wn + 2 * t, rows_a,
+                           rows_b, row0, col0, neg_scale, out, ldo);
 }
 
 int sm_count(int dev) {

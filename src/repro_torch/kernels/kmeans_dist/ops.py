@@ -6,7 +6,8 @@
 for a CUDA tensor, the plain version (``ref``) for a CPU tensor, and an
 error for anything else. Each ``*_cuda`` wrapper checks its operands,
 allocates its outputs (and scratch) with ``torch.empty``, launches on the
-current stream and counts its launches in ``<wrapper>.launches``.
+current stream and counts its launches in ``<wrapper>.launches`` (the Lloyd
+step's wide route launches two kernels a call: ``lloyd_launches``).
 """
 from __future__ import annotations
 
@@ -32,15 +33,20 @@ def _lib() -> ctypes.CDLL:
     lib.repro_lloyd_step.restype = ctypes.c_int
     lib.repro_lloyd_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.repro_lloyd_scratch_floats.restype = ctypes.c_longlong
+    lib.repro_lloyd_tickets.argtypes = [ctypes.c_int] * 2
+    lib.repro_lloyd_tickets.restype = ctypes.c_int
     for limit in (lib.repro_lloyd_max_d, lib.repro_lloyd_max_k):
         limit.argtypes = []
         limit.restype = ctypes.c_int
+    lib.repro_lloyd_launches.argtypes = [ctypes.c_int]
+    lib.repro_lloyd_launches.restype = ctypes.c_int
     return lib
 
 
 # (device index, stream handle) -> the Lloyd kernel's tickets, one int32
-# per client, zero between launches; one set per stream, so launches on
-# two streams of a card never share them
+# per client (per feature slice and client on the wide route), zero between
+# launches; one set per stream, so launches on two streams of a card never
+# share them
 _tickets: dict = {}
 
 
@@ -58,12 +64,24 @@ def _lloyd_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def _dist_lib() -> ctypes.CDLL:
     lib = build.load("kmeans_dist")
     lib.repro_min_dist_mask.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_float]
                                         + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p] * 3)
     lib.repro_min_dist_mask.restype = ctypes.c_int
     lib.repro_min_dist_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.repro_min_dist_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dist_smem(d: int, k: int) -> int:
+    """Dynamic shared memory the estimation kernel needs for (d, k)."""
+    return _dist_lib().repro_min_dist_smem_bytes(d, k)
+
+
+def lloyd_launches(d: int) -> int:
+    """Kernels one ``lloyd_step_cuda`` call launches for rows of width d."""
+    return _lib().repro_lloyd_launches(d)
 
 
 def lloyd_step_cuda(x: torch.Tensor, centroids: torch.Tensor):
@@ -99,14 +117,14 @@ def lloyd_step_cuda(x: torch.Tensor, centroids: torch.Tensor):
         # each block's sums and counts, for the last block's sum
         partials = torch.empty((lib.repro_lloyd_scratch_floats(c, n, d, k),),
                                **f32)
-        tickets = _lloyd_tickets(dev, stream, c)
+        tickets = _lloyd_tickets(dev, stream, lib.repro_lloyd_tickets(c, d))
         code = lib.repro_lloyd_step(
             x.data_ptr(), centroids.data_ptr(), c, n, d, k,
             assign.data_ptr(), min_d2.data_ptr(), sums.data_ptr(),
             counts.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
             stream)
     build.check(lib, code, "lloyd_step")
-    lloyd_step_cuda.launches += 1
+    lloyd_step_cuda.launches += lib.repro_lloyd_launches(d)
     return assign, min_d2, sums, counts
 
 
@@ -119,8 +137,9 @@ def lloyd_step(x: torch.Tensor, centroids: torch.Tensor):
     ``x``: (n, d) or (C, n, d); ``centroids``: (k, d) or (C, k, d). Returns
     ``(assign i32, min_d2 f32, sums f32, counts f32)`` with matching leading
     axes. The kernel computes the matmul-form distances, the argmin and the
-    per-centroid sums/counts in one launch, without materialising the
-    (n, k) one-hot."""
+    per-centroid sums/counts without materialising the (n, k) one-hot: in
+    one launch for d <= 64, in two (assignments, then sums) for wider rows,
+    up to 4096 (flattened images)."""
     if x.device.type == "cpu":
         return ref.lloyd_step(x, centroids)
     require_cuda(x, "lloyd_step")
@@ -132,12 +151,12 @@ def lloyd_step(x: torch.Tensor, centroids: torch.Tensor):
 
 
 def min_dist_and_mask_cuda(x: torch.Tensor, centroids: torch.Tensor,
-                           threshold: torch.Tensor):
+                           threshold):
     """Launch the estimation kernel on x (t, d) and centroids (k, d), both
-    f32 and contiguous, with ``threshold`` a one-element f32 tensor, all on
-    one CUDA device (the kernel reads the threshold there, so a calibrated
-    threshold costs no host read). Returns (dist (t,) f32, mask (t,)
-    bool)."""
+    f32, contiguous and on the current CUDA device. ``threshold`` is a
+    Python float, passed with the launch, or a one-element f32 tensor on
+    that device, which the kernel reads there (a calibrated threshold costs
+    no host read). Returns (dist (t,) f32, mask (t,) bool)."""
     require_cuda(x, "min_dist_and_mask")
     if x.ndim != 2 or centroids.ndim != 2:
         raise ValueError("min_dist_and_mask_cuda takes x (t, d) and "
@@ -145,28 +164,49 @@ def min_dist_and_mask_cuda(x: torch.Tensor, centroids: torch.Tensor,
     t, d = x.shape
     k = centroids.shape[0]
     dev = x.device
-    check_operand(x, "x", dtype=torch.float32, shape=(t, d), device=dev)
-    check_operand(centroids, "centroids", dtype=torch.float32, shape=(k, d),
-                  device=dev)
-    check_operand(threshold, "threshold", dtype=torch.float32, shape=(1,),
-                  device=dev)
+    f32 = torch.float32
+    is_tensor = isinstance(threshold, torch.Tensor)
+    # the common case in a few attribute reads (this wrapper's host work is
+    # most of a call); anything else is checked operand by operand
+    if not (x.dtype is f32 and centroids.dtype is f32 and x.is_contiguous()
+            and centroids.is_contiguous() and centroids.device == dev
+            and centroids.shape[1] == d
+            and (not is_tensor or (threshold.dtype is f32
+                                   and threshold.device == dev
+                                   and threshold.shape == (1,)))):
+        check_operand(x, "x", dtype=f32, shape=(t, d), device=dev)
+        check_operand(centroids, "centroids", dtype=f32, shape=(k, d),
+                      device=dev)
+        if is_tensor:
+            check_operand(threshold, "threshold", dtype=f32, shape=(1,),
+                          device=dev)
+    if is_tensor:
+        thr_ptr, thr_value = threshold.data_ptr(), 0.0
+    else:
+        thr_ptr, thr_value = None, float(threshold)
     if min(t, d, k) == 0:
         raise ValueError(f"min_dist_and_mask: empty operand x "
                          f"{tuple(x.shape)}, centroids "
                          f"{tuple(centroids.shape)}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"min_dist_and_mask: operands on {dev}, but the "
+                         f"current device is cuda:{torch.cuda.current_device()}")
     lib = _dist_lib()
-    smem = lib.repro_min_dist_smem_bytes(d, k)
+    smem = _dist_smem(d, k)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"min_dist_and_mask: {k} centroids of width {d} need {smem} "
             f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
-    dist = torch.empty((t,), dtype=torch.float32, device=dev)
-    mask = torch.empty((t,), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = lib.repro_min_dist_mask(
-            x.data_ptr(), centroids.data_ptr(), threshold.data_ptr(), t, d, k,
-            dist.data_ptr(), mask.data_ptr(), stream)
+    # one allocation: the distances (t f32), then the mask (t bytes)
+    buf = torch.empty((t + (t + 3) // 4,), dtype=torch.float32, device=dev)
+    dist = buf[:t]
+    mask = buf.view(torch.bool)[4 * t:5 * t]
+    # the raw handle of the current stream (torch.cuda.current_stream
+    # builds a Stream object, several microseconds a call)
+    code = lib.repro_min_dist_mask(
+        x.data_ptr(), centroids.data_ptr(), thr_ptr, thr_value, t, d, k,
+        dist.data_ptr(), mask.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     build.check(lib, code, "min_dist_and_mask")
     min_dist_and_mask_cuda.launches += 1
     return dist, mask
@@ -180,14 +220,16 @@ def min_dist_and_mask(x: torch.Tensor, centroids: torch.Tensor, threshold):
     a float or a one-element tensor -> (distance of each row to its nearest
     centroid (t,) f32, ID mask distance <= threshold (t,) bool).
 
-    On a CUDA tensor the threshold goes to the kernel as a device scalar: a
-    tensor already there is passed as it is, a float is copied up (no host
-    read either way)."""
+    On a CUDA tensor a threshold tensor on that device is read there by the
+    kernel (no host read); a float, or a tensor on the CPU, goes with the
+    launch as a value (no copy to the device)."""
     if x.device.type == "cpu":
         return ref.min_dist_and_mask(x, centroids, threshold)
     require_cuda(x, "min_dist_and_mask")
-    thr = torch.as_tensor(threshold, dtype=torch.float32,
-                          device=x.device).reshape(1)
+    if isinstance(threshold, torch.Tensor) and threshold.device == x.device:
+        thr = threshold.to(torch.float32).reshape(1)
+    else:
+        thr = float(threshold)
     return min_dist_and_mask_cuda(x.to(torch.float32).contiguous(),
                                   centroids.to(torch.float32).contiguous(),
                                   thr)

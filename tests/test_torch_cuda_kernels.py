@@ -61,6 +61,38 @@ def test_lloyd_kernel_batches_clients_in_one_launch(smoke, n, d, k, c):
     smoke.check_lloyd(n, d, k, c=c)
 
 
+# flattened images (mnist_like 784, cifar_like 3072 wide): the wide route
+@pytest.mark.parametrize("k", [1, 3, 10])
+@pytest.mark.parametrize("d", [784, 3072])
+def test_lloyd_kernel_wide_route_matches_plain(smoke, d, k):
+    smoke.check_lloyd(6000, d, k)
+
+
+def test_lloyd_kernel_wide_route_batches_clients(smoke):
+    smoke.check_lloyd(1001, 784, 10, c=3)
+
+
+# the narrow route (split and lanes-over-centroids paths) and the wide one
+@pytest.mark.parametrize("case", ["rows", "centroid"])
+@pytest.mark.parametrize("n,d,k", [(6000, 50, 3), (777, 16, 32),
+                                   (1000, 784, 3)])
+def test_lloyd_kernel_nonfinite_matches_plain(smoke, n, d, k, case):
+    smoke.check_nonfinite_lloyd(n, d, k, case)
+
+
+@pytest.mark.parametrize("case", ["rows", "centroid"])
+@pytest.mark.parametrize("t,d,k", [(512, 50, 3), (256, 16, 1), (300, 50, 64),
+                                   (512, 784, 10)])
+def test_min_dist_kernel_nonfinite_matches_plain(smoke, t, d, k, case):
+    smoke.check_nonfinite_min_dist(t, d, k, case)
+
+
+@pytest.mark.parametrize("case", ["rows", "centroid"])
+@pytest.mark.parametrize("n,m,d", [(512, 6000, 50), (256, 256, 50)])
+def test_rbf_kernel_nonfinite_matches_plain(smoke, n, m, d, case):
+    smoke.check_nonfinite_rbf(n, m, d, case)
+
+
 @pytest.mark.parametrize("n,k", [(64, 10), (512, 10), (4096, 1000)])
 def test_kd_kl_kernels_match_plain(smoke, n, k):
     smoke.check_kl(n, k)
@@ -153,6 +185,15 @@ def test_fused_loss_wrapper_refuses_what_the_kernel_does_not_take(smoke):
                                  (5999, 3), (300, 64)])
 def test_min_dist_kernel_matches_plain_and_is_deterministic(smoke, t, k):
     smoke.check_min_dist(t, 50, k)
+
+
+# lm_tokens' report and calibration, flattened images (the wide route), an
+# odd narrow width and a width just past the narrow route
+@pytest.mark.parametrize("t,d,k", [(256, 16, 1), (600, 16, 1), (512, 784, 10),
+                                   (512, 3072, 10), (300, 7, 3),
+                                   (300, 100, 20)])
+def test_min_dist_kernel_at_other_widths(smoke, t, d, k):
+    smoke.check_min_dist(t, d, k)
 
 
 # learn K11 and K12, report k_ta and k_tp, ragged both ways, a narrow d;
@@ -268,6 +309,29 @@ def test_kmeans_dre_filter_on_the_card_reads_its_threshold_there(smoke):
     assert torch.equal(id_gpu.cpu()[~near], id_cpu[~near])
 
 
+def test_kmeans_dre_on_flattened_images_matches_the_cpu(smoke):
+    """KMeans-DRE with 10 centroids on 784-wide rows (a flattened
+    mnist_like client): the fit goes through the Lloyd kernel's wide route
+    and the calibration through the estimation kernel's; centroids and
+    threshold agree with the CPU's plain route."""
+    from repro_torch.core.dre import KMeansDRE
+    g = torch.Generator().manual_seed(9)
+    centers = torch.randn((10, 784), generator=g) * 2
+    x_cpu = (centers[torch.arange(2000) % 10]
+             + torch.randn((2000, 784), generator=g))
+    init = x_cpu[:10] + 0.5
+    before = (kd_ops.lloyd_step_cuda.launches,
+              kd_ops.min_dist_and_mask_cuda.launches)
+    gpu = KMeansDRE(num_centroids=10).learn(x_cpu.cuda(), init=init.cuda())
+    cpu = KMeansDRE(num_centroids=10).learn(x_cpu, init=init)
+    assert kd_ops.lloyd_step_cuda.launches > before[0]
+    assert kd_ops.min_dist_and_mask_cuda.launches == before[1] + 1
+    torch.testing.assert_close(gpu.centroids.cpu(), cpu.centroids,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gpu.threshold.cpu(), cpu.threshold,
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_kmeans_fit_on_the_card_matches_the_cpu(smoke):
     # three separated blobs: a well-posed fit, so float differences between
     # the devices cannot steer the two runs to different local optima
@@ -296,6 +360,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(smoke):
     big = torch.zeros((1, 1024, 64), device="cuda")
     with pytest.raises(ValueError, match="at most 64 centroids"):
         kd_ops.lloyd_step_cuda(torch.zeros((1, 10, 64), device="cuda"), big)
+    with pytest.raises(ValueError, match="width at most 4096"):
+        kd_ops.lloyd_step_cuda(torch.zeros((1, 10, 4097), device="cuda"),
+                               torch.zeros((1, 3, 4097), device="cuda"))
     s, t, _ = smoke.kl_inputs(8, 10, seed=0)
     with pytest.raises(ValueError, match="shape"):
         kl_ops.kd_kl_fwd_cuda(s, t[:4], 3.0)
