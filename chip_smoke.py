@@ -15,9 +15,10 @@ Phases, in order; any failure raises and exits non-zero:
      fused-KL-loss and flash-attention kernels across two runs (the Lloyd
      kernel also for several clients in one launch, one launch a call,
      and on its wide route at flattened image widths, 784 and 3072, two
-     a call; the
-     min-distance kernel also at lm_tokens' and the image widths, and with
-     a threshold passed as a float; the Lloyd, min-distance and RBF
+     a call; the min-distance kernel also at lm_tokens' and the image
+     widths, and with a threshold passed as a float; the RBF kernel also
+     at the image path's four KuLSIF shapes, 784 and 3072 wide, on
+     pixel-like rows; the Lloyd, min-distance and RBF
      kernels on inputs with a NaN row, a ±inf row and a -inf row, or a
      NaN centroid, with NaN and ±inf where the plain version has them and
      equal masks and argmins; flash attention also on strided views in
@@ -27,30 +28,39 @@ Phases, in order; any failure raises and exits non-zero:
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
      weak runs): n_iter, assignments, centroids, DRE thresholds, reported;
-  5. small fed_train runs (edgefd and selective-fd) on the card against
-     the same runs on the CPU (which takes the plain versions), and a small
+  5. small fed_train runs (edgefd and selective-fd on features, edgefd on
+     mnist_like and cifar_like images, cuDNN's TF32 turned on first to
+     check that the entry point pins fp32) on the card against the same
+     runs on the CPU (which takes the plain versions), and a small
      lm_tokens edgefd run (the reduced granite backbone) on the card
      against the CPU from the same initial weights;
   6. the main path: fed_train, 10 clients with MNIST's split sizes
      (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
      of their own (fedmd, feded, dsfl, fkd, pls, indlearn, server_distill),
-     strong — then the transformer scenario at granite-8b's widths
+     strong — the image path at the same sizes with the Tables I/II CNN
+     zoo (mnist_like edgefd strong and weak and selective-fd strong,
+     cifar_like with n_train 50000 edgefd and selective-fd strong), each
+     run's peak device memory, a non-finite loss passing only where the
+     same phase rerun in float64 leaves float32's range too (a
+     divergence) — then the transformer scenario at
+     granite-8b's widths
      (d_model 4096, 32/8 heads of 128, d_ff 14336; depth cut to 2 layers
      and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
      n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
      just before and read just after), the Lloyd kernel's launches by
-     centroid count, the min-distance kernel's by class (calibration or
-     report, d, k) and the RBF kernel's by shape, and the fused KL loss
-     launched once per distill step;
+     (d, k) and by route, the min-distance kernel's by class (calibration
+     or report, d, k) and the RBF kernel's by shape and width, and the
+     fused KL loss launched once per distill step;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
      from the shapes, and the device-only times of each with the host's
      per-call work taken out (the Lloyd, min-distance and RBF kernels at
-     each of their shapes, the Lloyd kernel's wide route too, with the
-     share of the bound and the main path's launches times the gap, the
+     each of their shapes, the image path's among them and the Lloyd
+     kernel's wide route too, with the share of the bound and the main
+     path's launches times the gap, the
      min-distance kernel beside an empty kernel's launch); one distill
      step's loss and gradient by
      four routes in turns (fused kernel, the per-sample kernels under
@@ -65,13 +75,15 @@ non-zero and prints no result.
 
 time only B6 at the transformer path's shapes, per call and device only,
 in both layouts, or only B1 (k = 1, 2, 3, 10, 64, and its wide route at
-d = 784 and 3072), B2 (every main-path class and the image widths) and
-B5 (its fit's and a report's shapes, private sizes even and odd), beside
-an empty kernel, from the package under DIR (default: this checkout's
-src/); run one for two trees in turns to compare them on one card.
+the image path's shapes), B2 (every main-path class and the image widths)
+and B5 (its fit's and a report's shapes, private sizes even and odd, and
+at the image widths), beside an empty kernel, from the package under DIR
+(default: this checkout's src/); run one for two trees in turns to compare
+them on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -104,20 +116,35 @@ KL_LOSS_SHAPES = (MAIN_KL, (64, 32), (256, 32), (300, 10), (4096, 1000),
                   (5, 1500))
 KL_WEIGHTS = ("masked", "none", "zero")
 MAIN_DIST = (512, 50, 1)             # one strong client's report: t, d, k
-# B2's shapes: feature-path reports (strong, weak) and calibrations over a
-# client's private set; lm_tokens' report and calibration; flattened
-# images (784 and 3072 wide, 10 centroids: the wide route)
-DIST_SHAPES = (MAIN_DIST, (512, 50, 3), (6000, 50, 1), (6000, 50, 3),
-               (256, 16, 1), (600, 16, 1), (512, 784, 10), (512, 3072, 10))
 WIDE_DS = (784, 3072)                # mnist_like / cifar_like, flattened
+# a client's private set on the image path: MNIST's 60000 and CIFAR-10's
+# 50000 training images over 10 clients
+IMAGE_N = {784: 6000, 3072: 5000}
+# B2's shapes: feature-path reports (strong, weak) and calibrations over a
+# client's private set; lm_tokens' report and calibration; the image
+# path's (mnist_like strong and weak, cifar_like strong); flattened images
+# at 10 centroids (the iid scenario)
+DIST_SHAPES = (MAIN_DIST, (512, 50, 3), (6000, 50, 1), (6000, 50, 3),
+               (256, 16, 1), (600, 16, 1), (512, 784, 1), (512, 784, 3),
+               (6000, 784, 1), (6000, 784, 3), (512, 3072, 1),
+               (5000, 3072, 1), (512, 784, 10), (512, 3072, 10))
 MAIN_RBF = (512, 6000, 50)           # k_tp of one report: proxy x private
 # B1's centroid counts: strong (1), weak (a client's labels), iid (10), and
 # the widest instance; B5's four shapes: a KuLSIF fit's K11 and K12, a
 # report's k_ta and k_tp, each private size also odd (its rows then start
 # inside a 32-byte sector)
 LLOYD_KS = (1, 2, 3, 10, 64)
+# B1's wide route (two launches) on the image path: a client's private set
+# at the strong and weak scenarios' centroid counts, and 10 (iid)
+LLOYD_WIDE = ((6000, 784, 1), (6000, 784, 3), (5000, 3072, 1),
+              (6000, 784, 10), (6000, 3072, 10))
 RBF_SHAPES = ((256, 256, 50), (256, 6000, 50), (512, 256, 50), MAIN_RBF,
               (256, 6001, 50), (512, 6001, 50))
+# the four KuLSIF shapes on flattened images (Selective-FD's fit and
+# report), the private sets odd-sized as most of the image path's are
+RBF_IMAGE_SHAPES = tuple((n, m, d) for d in WIDE_DS
+                         for n, m in ((256, 256), (256, IMAGE_N[d] + 1),
+                                      (512, 256), (512, IMAGE_N[d] + 1)))
 # flash attention: |Δo| ≤ atol + rtol·|o| — f32 FMAs summed in another
 # order than cuBLAS's, over at most 4096 keys
 ATTN_RTOL, ATTN_ATOL = 1e-5, 2e-5
@@ -142,6 +169,13 @@ LM_ROUNDS = 3
 LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
                            "indlearn", "server_distill")
+# the image path at the paper's split sizes: (dataset, method, scenario,
+# n_train), 10 clients, n_test 10000, 3 rounds, proxy batch 512
+IMAGE_RUNS = (("mnist_like", "edgefd", "strong", "60000"),
+              ("mnist_like", "edgefd", "weak", "60000"),
+              ("mnist_like", "selective-fd", "strong", "60000"),
+              ("cifar_like", "edgefd", "strong", "50000"),
+              ("cifar_like", "selective-fd", "strong", "50000"))
 
 
 def log(msg: str) -> None:
@@ -565,12 +599,17 @@ def check_nonfinite_rbf(n, m, d, case):
 def rbf_inputs(n, m, d, seed):
     import torch
     g = torch.Generator().manual_seed(seed)
-    # feature-like rows (the main path's features have std ~2): proxy rows
-    # a, private rows b, half of a near rows of b
+    # feature-like rows (the main path's features have std ~2), or
+    # pixel-like ones in (-1, 1) at the image widths: proxy rows a, private
+    # rows b, half of a near rows of b
+    pixels = d in WIDE_DS
     b = torch.randn((m, d), generator=g) * 2.0 + 0.5
     a = torch.randn((n, d), generator=g) * 2.0 + 0.5
     near = torch.randint(m, (n // 2,), generator=g)
-    a[: n // 2] = b[near] + 0.3 * torch.randn((n // 2, d), generator=g)
+    noise = 0.05 if pixels else 0.3
+    if pixels:
+        b, a = torch.tanh(b / 2), torch.tanh(a / 2)
+    a[: n // 2] = b[near] + noise * torch.randn((n // 2, d), generator=g)
     return a.cuda(), b.cuda()
 
 
@@ -681,9 +720,8 @@ def check_kernels():
             errs = check_kl_loss(n, k, weights)
             kl_err[(n, k, weights)] = max(errs.values())
     # flattened images (784, 3072 wide): the wide route, two launches
-    for d in WIDE_DS:
-        for k in (1, 3, 10):
-            check_lloyd(MAIN_LLOYD["n"], d, k)
+    for n, d, k in LLOYD_WIDE:
+        check_lloyd(n, d, k)
     dist_err = {}
     # reports (strong k=1, weak k=3, iid k=10), a calibration, ragged t,
     # lm_tokens' report and calibration, flattened images
@@ -699,8 +737,9 @@ def check_kernels():
             check_nonfinite_rbf(n, m, d, case)
     rbf_err = {}
     # learn K11, K12; report k_ta, k_tp; ragged both ways
-    for n, m, d in RBF_SHAPES + ((511, 5999, 50), (256, 256, 64),
-                                 (512, 256, 7), (300, 700, 130)):
+    for n, m, d in RBF_SHAPES + RBF_IMAGE_SHAPES + (
+            (511, 5999, 50), (256, 256, 64), (512, 256, 7), (300, 700, 130),
+            (512, 6000, 784)):
         rbf_err[(n, m, d)] = check_rbf(n, m, d)
     attn_err = {shape: check_flash(*shape) for shape in ATTN_SHAPES}
     check_flash(2, 4, 4, 20, 32, causal=False)
@@ -862,19 +901,41 @@ def check_small_run():
     """The port on the card (kernels) against the port on the CPU (plain
     versions), same seed, small size: float32 matmuls differ between the
     two devices, so losses hold to rtol 1e-3 and accuracies to a sample.
-    The transformer clients draw their weights on their device, so the
-    card's lm_tokens run loads the CPU run's initial weights."""
+    The MLP and CNN clients draw their weights on the CPU, so both devices
+    start from the same ones, and the CNNs' convolutions run in fp32 on
+    both (fed_train pins cuDNN's TF32 off; the smoke turns it on before
+    each card run to check that). The transformer clients draw their
+    weights on their device, so the card's lm_tokens run loads the CPU
+    run's initial weights."""
     from repro_torch.common.types import FedConfig
     from repro_torch.core.protocol import run_experiment
     from repro_torch.fed.simulator import build_experiment
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    import torch
     log("[5] small fed_train: card vs CPU")
-    for method in ("edgefd", "selective-fd"):
-        base = ["--method", method, "--scenario", "weak", "--clients", "4",
-                "--rounds", "2", "--n-train", "800", "--n-test", "200"]
+    for method, scenario, dataset in (("edgefd", "weak", "mnist_feat"),
+                                      ("selective-fd", "weak", "mnist_feat"),
+                                      ("edgefd", "strong", "mnist_like"),
+                                      ("edgefd", "strong", "cifar_like")):
+        base = ["--method", method, "--scenario", scenario, "--dataset",
+                dataset, "--clients", "4", "--rounds", "2", "--n-train",
+                "800", "--n-test", "200"]
+        # the entry point must turn cuDNN's TF32 off again
+        torch.backends.cudnn.allow_tf32 = True
         gpu = fed_train(base + ["--device", "cuda"])
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("fed_train left cuDNN's TF32 on")
         cpu = fed_train(base + ["--device", "cpu"])
-        compare_runs(method, gpu, cpu, 200)
+        compare_runs(f"{method} {scenario} {dataset}", gpu, cpu, 200)
+        if dataset.endswith("_like"):
+            # reported, not asserted: cuDNN's backward may sum in an order
+            # that changes from run to run
+            again = fed_train(base + ["--device", "cuda"])
+            same = [(p.local_loss, p.distill_loss, p.accs)
+                    == (q.local_loss, q.distill_loss, q.accs)
+                    for p, q in zip(gpu.rounds, again.rounds)]
+            log(f"  {method} {scenario} {dataset}: a second card run's "
+                f"round logs bitwise equal to the first's, by round: {same}")
     cfg = FedConfig(method="edgefd", scenario="weak", num_clients=4,
                     rounds=2, proxy_batch=64, batch_size=16, seed=0)
     sizes = dict(n_train=800, n_test=200)
@@ -908,15 +969,143 @@ def launch_counts():
             "flash_attention": fa.flash_attention_cuda}
 
 
-def check_finite(label, res):
+def finite(v):
+    return v == v and abs(v) < float("inf")
+
+
+def check_finite(label, res, diverged=None):
+    """Every round's accuracies, ID fraction and losses finite. A
+    non-finite loss passes only in a run whose first non-finite step loss
+    ``DivergenceWatch.check`` showed to be a divergence (``diverged``):
+    the same phase from the same state leaves float32's range in float64
+    too."""
     for r in res.rounds:
-        vals = (r.mean_acc, r.local_loss, r.distill_loss,
-                r.server_distill_loss, r.id_fraction)
+        vals = (r.mean_acc, r.id_fraction)
         if r.server_student_acc is not None:
             vals += (r.server_student_acc,)
-        if not all(v == v and abs(v) < float("inf") for v in vals):
+        loss = (r.local_loss, r.distill_loss, r.server_distill_loss)
+        if not all(map(finite, vals + (() if diverged else loss))):
             raise AssertionError(f"{label} round {r.round}: non-finite "
-                                 f"metrics {vals}")
+                                 f"metrics {vals + loss}")
+        if not all(map(finite, loss)):
+            log(f"  {label} round {r.round}: non-finite losses (local, "
+                f"distill, server distill) {loss}, after the divergence "
+                f"in {diverged}")
+
+
+class DivergenceWatch:
+    """While in effect, saves each learner's state (parameters, momentum,
+    batch-order stream) at the start of every local-training and
+    distillation phase, and keeps the phase of the first step whose loss
+    is not finite. ``check`` runs that phase again in float64 from the
+    saved state: a divergence under plain SGD leaves float32's range
+    there too (PERF.md §6), a fault of the float32 path does not."""
+
+    def __init__(self):
+        self.cur, self.first = None, None
+
+    def __enter__(self):
+        from repro_torch.fed.client import Client, Learner
+        self.orig = (Client.local_train, Learner.distill, Learner._step)
+        local, distill, step = self.orig
+        watch = self
+
+        def save(learner, phase, inputs, epochs, bs):
+            # the loop engine runs one phase at a time: only the running
+            # phase's start (and the first non-finite one's) stays alive
+            watch.cur = {
+                "learner": learner, "phase": phase, "inputs": inputs,
+                "epochs": epochs, "bs": bs, "steps": [],
+                "params": [p.detach().clone() for p in learner.params],
+                "mu": [m.clone() for m in learner.opt_state["mu"]],
+                "rng": learner.rng.bit_generator.state}
+
+        def local_train(self, epochs, bs):
+            save(self, "local", (self._x, self._y), epochs, bs)
+            return local(self, epochs, bs)
+
+        def distill_(self, x, teacher, weight, epochs, bs):
+            save(self, "distill", (x, teacher, weight), epochs, bs)
+            return distill(self, x, teacher, weight, epochs, bs)
+
+        def step_(self, loss):
+            v = step(self, loss)
+            s = watch.cur
+            s["steps"].append(v)
+            if watch.first is None and not finite(v):
+                watch.first, watch.first_step = s, len(s["steps"]) - 1
+            return v
+        Client.local_train, Learner.distill, Learner._step = (
+            local_train, distill_, step_)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fed.client import Client, Learner
+        Client.local_train, Learner.distill, Learner._step = self.orig
+        self.cur = None
+
+    def check(self, label):
+        """None without a non-finite step loss; else the phase's name, once
+        float64 from the same state left float32's range in it."""
+        import copy
+
+        import numpy as np
+        import torch
+        from repro_torch.fed.batching import epoch_batches
+        from repro_torch.optim.optimizers import apply_updates
+        s = self.first
+        if s is None:
+            return None
+        learner = s["learner"]
+        model = copy.deepcopy(learner.model).double().train(True)
+        params = list(model.parameters())
+        with torch.no_grad():
+            for p, v in zip(params, s["params"]):
+                p.copy_(v)
+        state = {"mu": [m.double() for m in s["mu"]], "step": 0}
+        rng = np.random.default_rng()
+        rng.bit_generator.state = s["rng"]
+        x = s["inputs"][0]
+        T = learner.temperature
+        top, losses = 0.0, []
+        for _ in range(s["epochs"]):
+            for idx in epoch_batches(rng.permutation(len(x)), s["bs"]):
+                idx = torch.as_tensor(np.asarray(idx), device=x.device)
+                z = model(x[idx].double())
+                if s["phase"] == "local":
+                    logp = torch.log_softmax(z, -1)
+                    loss = -torch.mean(torch.take_along_dim(
+                        logp, s["inputs"][1][idx, None], -1))
+                else:
+                    t, w = (v[idx].double() for v in s["inputs"][1:])
+                    if learner.distill_loss == "mse":
+                        per = torch.mean(torch.square(z - t), -1)
+                    else:
+                        sp = torch.log_softmax(z / T, -1)
+                        tl = torch.log_softmax(t / T, -1)
+                        per = torch.sum(torch.exp(tl) * (tl - sp), -1) * T * T
+                    loss = torch.sum(per * w) / torch.clamp_min(w.sum(), 1.0)
+                grads = torch.autograd.grad(loss, params)
+                upd, state = learner.opt.update(grads, state, params)
+                apply_updates(params, upd)
+                top = max(top, max(float(p.detach().abs().max())
+                                   for p in params))
+                losses.append(float(loss.detach()))
+        who = getattr(learner, "cid", "the server student")
+        where = f"client {who}'s {s['phase']} phase, step {self.first_step}"
+        f32_max = float(np.finfo(np.float32).max)
+        log(f"  {label}: first non-finite step loss in {where}; float32 "
+            "step losses " + " ".join(f"{v:.6g}" for v in s["steps"])
+            + "; the phase again in float64 from the saved state: step "
+            "losses " + " ".join(f"{v:.6g}" for v in losses)
+            + f", largest |parameter| {top:.6g}")
+        if not (max(map(abs, losses)) > f32_max or top > f32_max
+                or not all(map(finite, losses + [top]))):
+            raise AssertionError(f"{label}: a non-finite loss in {where} "
+                                 "that float64 from the same state keeps "
+                                 "inside float32's range: a fault, not a "
+                                 "divergence")
+        return where
 
 
 def phase_seconds(res):
@@ -1004,32 +1193,49 @@ def dist_class(x, cents, threshold):
     return (kind, x.shape[1], cents.shape[0])
 
 
-def rbf_class(n, m):
-    """B5's launch shapes by class: (n, m) with m the KuLSIF aux set's 256,
-    else (n, "m%8=0") or (n, "m%8!=0") for a private set, whose rows start
-    on a 32-byte sector or inside one."""
-    return (n, m) if m == 256 else (n, "m%8=0" if m % 8 == 0 else "m%8!=0")
+def rbf_class(n, m, d):
+    """B5's launch shapes by class: (n, m, d) with m the KuLSIF aux set's
+    256, else (n, "m%8=0", d) or (n, "m%8!=0", d) for a private set, whose
+    rows start on a 32-byte sector or inside one."""
+    return (n, m if m == 256 else "m%8=0" if m % 8 == 0 else "m%8!=0", d)
+
+
+def lloyd_by_route(by_dk):
+    """B1's launches by (d, k) summed by (route, k): narrow for d <= 64
+    (one launch a call), wide beyond (two)."""
+    out = {}
+    for (d, k), v in by_dk.items():
+        key = ("narrow" if d <= 64 else "wide", k)
+        out[key] = out.get(key, 0) + v
+    return dict(sorted(out.items()))
 
 
 def run_main_path():
     """Phase 6. Returns the launch counts of the whole phase, the
     transformer run's attention launches by query batch size, B1's
-    launches by centroid count, B5's by shape class (``rbf_class``) and
-    B2's by class (``dist_class``)."""
+    launches by (d, k), B5's by shape class (``rbf_class``) and B2's by
+    class (``dist_class``)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.kmeans_dist import ops as kd_ops
     from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
     mlp_runs = ([("edgefd", sc) for sc in ("strong", "weak")]
                 + [("selective-fd", sc) for sc in ("strong", "weak")]
                 + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
+    common = ["--clients", "10", "--rounds", "3", "--n-test", "10000",
+              "--proxy-batch", "512", "--device", "cuda"]
     runs = [(f"{m} {sc}", lambda m=m, sc=sc: fed_train(
-        ["--method", m, "--scenario", sc, "--clients", "10", "--rounds",
-         "3", "--n-train", "60000", "--n-test", "10000", "--proxy-batch",
-         "512", "--device", "cuda"])) for m, sc in mlp_runs]
+        ["--method", m, "--scenario", sc, "--n-train", "60000"] + common))
+        for m, sc in mlp_runs]
+    runs += [(f"{ds} {m} {sc}", lambda ds=ds, m=m, sc=sc, n=n: fed_train(
+        ["--method", m, "--scenario", sc, "--dataset", ds, "--n-train", n]
+        + common)) for ds, m, sc, n in IMAGE_RUNS]
     runs.append(("lm_tokens edgefd strong", run_lm_full_width))
     log("[6] main path: fed_train, 10 clients, n_train 60000, n_test 10000, "
         "3 rounds, proxy batch 512: "
         + ", ".join(f"{m} {sc}" for m, sc in mlp_runs)
+        + "; the image path (the Tables I/II CNN zoo) at the same sizes "
+        "(cifar_like n_train 50000): "
+        + ", ".join(f"{ds} {m} {sc}" for ds, m, sc, _ in IMAGE_RUNS)
         + f"; then lm_tokens edgefd strong at granite-8b's widths, 10 "
         f"clients, n_train 6000, n_test 1000, {LM_ROUNDS} rounds, batch 64, "
         "proxy batch 256")
@@ -1039,15 +1245,16 @@ def run_main_path():
     for w in wrappers.values():
         w.launches = 0
     results, per_run, steps, attn_batches = {}, {}, {}, {}
-    # B1's calls by k (centroids (k, d) or (C, k, d)), B5's by (n, m), at
-    # the public ops, which dispatch looks up at call time (B1's calls
-    # weighed by their launches, each B5 call on a CUDA tensor one launch;
-    # checked against the launch counts below)
+    # B1's calls by (d, k) (centroids (k, d) or (C, k, d)), B5's by (n, m,
+    # d), at the public ops, which dispatch looks up at call time (B1's
+    # calls weighed by their launches, each B5 call on a CUDA tensor one
+    # launch; checked against the launch counts below)
     lloyd_by_k = CountedCalls(
-        kd_ops, "lloyd_step", key=lambda x, c: c.shape[-2],
+        kd_ops, "lloyd_step", key=lambda x, c: (x.shape[-1], c.shape[-2]),
         weight=lambda x, c: kd_ops.lloyd_launches(x.shape[-1]))
-    rbf_by_shape = CountedCalls(rbf_ops, "rbf_matrix",
-                                key=lambda a, b, s: (a.shape[0], b.shape[0]))
+    rbf_by_shape = CountedCalls(
+        rbf_ops, "rbf_matrix",
+        key=lambda a, b, s: (a.shape[0], b.shape[0], a.shape[1]))
     rows_by_class = {}   # B2's row counts t by class: (least, most)
 
     def dist_key(x, cents, threshold):
@@ -1063,11 +1270,13 @@ def run_main_path():
     counts = {n: w.launches for n, w in wrappers.items()}
     by_k = dict(sorted(lloyd_by_k.by_key.items()))
     by_shape = {}
-    for (n, m), v in rbf_by_shape.by_key.items():
-        by_shape[rbf_class(n, m)] = by_shape.get(rbf_class(n, m), 0) + v
+    for (n, m, d), v in rbf_by_shape.by_key.items():
+        cls = rbf_class(n, m, d)
+        by_shape[cls] = by_shape.get(cls, 0) + v
     if sum(by_k.values()) != counts["lloyd_step"]:
         raise AssertionError(f"lloyd_step: {sum(by_k.values())} launches "
-                             f"by k for {counts['lloyd_step']} counted")
+                             f"by (d, k) for {counts['lloyd_step']} "
+                             "counted")
     if sum(by_shape.values()) != counts["rbf_matrix"]:
         raise AssertionError(f"rbf_matrix: {sum(by_shape.values())} calls "
                              f"for {counts['rbf_matrix']} launches")
@@ -1076,11 +1285,20 @@ def run_main_path():
         raise AssertionError(f"min_dist_and_mask: {sum(by_class.values())} "
                              f"calls for {counts['min_dist_and_mask']} "
                              "launches")
+    for what, hits in (
+            ("lloyd_step's wide route", [dk for dk in by_k if dk[0] > 64]),
+            ("min_dist_and_mask at image widths",
+             [c for c in by_class if c[1] in WIDE_DS]),
+            ("rbf_matrix at image widths",
+             [c for c in by_shape if c[2] in WIDE_DS])):
+        if not hits:
+            raise AssertionError(f"the image path never launched {what}")
     log("  min_dist_and_mask launches by (class, d, k): "
         + ", ".join(f"{kk}: {v} (t {rows_by_class[kk][0]}.."
                     f"{rows_by_class[kk][1]})" for kk, v in by_class.items()))
-    log(f"  lloyd_step launches by k: {by_k}; rbf_matrix launches by (n, m) "
-        f"class: {by_shape} (private sizes: "
+    log(f"  lloyd_step launches by (d, k): {by_k}, by (route, k): "
+        f"{lloyd_by_route(by_k)}; rbf_matrix launches by (n, m, d) class: "
+        f"{by_shape} (private sizes: "
         + ", ".join(f"{k}: {v}" for k, v in
                     sorted(rbf_by_shape.by_key.items()) if k[1] != 256)
         + ")")
@@ -1095,18 +1313,24 @@ def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
     from repro_torch.kernels import dispatch
     before = {n: w.launches for n, w in wrappers.items()}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # attention calls by query batch size: q is (B, S, N, h)
+    # an image run's phases are saved as they start (a few MB a client),
+    # so that a non-finite loss can be held to float64 after the run
+    watch = DivergenceWatch() if "_like" in label else None
     with CountedCalls(distill, "kd_kl_loss") as kl_steps, \
             CountedCalls(dispatch, "flash_attention",
-                         key=lambda q, *_: q.shape[0]) as attn:
+                         key=lambda q, *_: q.shape[0]) as attn, \
+            watch or contextlib.nullcontext():
         res = drive()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {n: w.launches - before[n] for n, w in wrappers.items()}
     steps[label] = kl_steps.calls
     attn_batches[label] = dict(sorted(attn.by_key.items()))
-    check_finite(label, res)
+    check_finite(label, res, watch.check(label) if watch else None)
     last = res.rounds[-1]
     student = ("" if last.server_student_acc is None
                else f", student acc {last.server_student_acc:.4f}")
@@ -1115,7 +1339,8 @@ def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
         f"{last.bytes_up / 1e6:.3f}, last losses local "
         f"{last.local_loss:.4f} distill {last.distill_loss:.4f}, wall "
         f"{wall:.3f} s (set-up + {len(res.rounds)} rounds), phase "
-        f"seconds over {len(res.rounds)} rounds {phase_seconds(res)}")
+        f"seconds over {len(res.rounds)} rounds {phase_seconds(res)}, peak "
+        f"device memory {peak / 2**30:.3f} GiB")
     log(f"  {label}: launches "
         + str({n: v for n, v in launches.items() if v}))
     results[label] = res
@@ -1167,6 +1392,18 @@ def finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
                              f"{lm['flash_attention']} kernel launches")
     if any(per_run[f"{m} {sc}"]["flash_attention"] for m, sc in mlp_runs):
         raise AssertionError("a feature-path run launched flash_attention")
+    # the image path: the KMeans-DRE fit on the Lloyd kernel's wide route
+    # and its estimation step at image widths, KuLSIF's Gram matrices at
+    # image widths
+    for ds, m, sc, _ in IMAGE_RUNS:
+        launches = per_run[f"{ds} {m} {sc}"]
+        need = (("lloyd_step", "min_dist_and_mask") if m == "edgefd"
+                else ("rbf_matrix",))
+        for name in need:
+            if launches[name] == 0:
+                raise AssertionError(f"{ds} {m} {sc} never launched {name}")
+        if launches["flash_attention"]:
+            raise AssertionError(f"{ds} {m} {sc} launched flash_attention")
     # server_distill's clients distill exactly as fedmd's do; the rest of
     # its KL launches are the server student's
     student_kl = (per_run["server_distill strong"]["kd_kl_loss"]
@@ -1181,6 +1418,10 @@ def finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
         f"{layers} layers, flash_attention launches by query batch size "
         f"{by_batch}; the per-sample KL kernels are off the main path "
         "(the fused loss replaces them; the teacher is a constant)")
+    for ds, m, sc, _ in IMAGE_RUNS:
+        log(f"  {ds} {m} {sc}: final accuracy "
+            f"{results[f'{ds} {m} {sc}'].final_acc:.4f} (printed, not "
+            "limited)")
     final = results["edgefd strong"].final_acc
     if not final > 0.7:
         raise AssertionError(f"edgefd strong final mean accuracy {final} "
@@ -1298,14 +1539,21 @@ def dist_cost(t, d, k):
             2 * t * k * d + 2 * t * d + 2 * k * d + 4 * t * k + 2 * t)
 
 
-# B2's timed shapes -> their main-path class (dist_class): the feature
-# path's and lm_tokens' reports and calibrations; the wide shapes have none
+# B2's timed shapes -> their main-path class (dist_class): the feature,
+# image and lm_tokens paths' reports and calibrations; the shapes at 10
+# centroids (iid) have none
 DIST_CLASSES = {(512, 50, 1): ("report", 50, 1),
                 (512, 50, 3): ("report", 50, 3),
                 (6000, 50, 1): ("calibration", 50, 1),
                 (6000, 50, 3): ("calibration", 50, 3),
                 (256, 16, 1): ("report", 16, 1),
-                (600, 16, 1): ("calibration", 16, 1)}
+                (600, 16, 1): ("calibration", 16, 1),
+                (512, 784, 1): ("report", 784, 1),
+                (512, 784, 3): ("report", 784, 3),
+                (6000, 784, 1): ("calibration", 784, 1),
+                (6000, 784, 3): ("calibration", 784, 3),
+                (512, 3072, 1): ("report", 3072, 1),
+                (5000, 3072, 1): ("calibration", 3072, 1)}
 
 
 def dist_threshold(t, d, k):
@@ -1398,19 +1646,19 @@ def measure_rbf(counts, rbf_err, by_shape):
     from repro_torch.kernels.kulsif_rbf import ops, ref
     row = None
     gap_ms = 0.0
-    for n, m, d in RBF_SHAPES:
+    for n, m, d in RBF_SHAPES + RBF_IMAGE_SHAPES:
         a, b = rbf_inputs(n, m, d, seed=1)
         moved, flops = rbf_cost(n, m, d)
         ms, plain_ms, b_ms, b_by, dev = time_row(
             f"rbf_matrix n={n} m={m} d={d}",
             lambda: ops.rbf_matrix_cuda(a, b, SIGMA),
             lambda: ref.rbf_matrix(a, b, SIGMA), moved, flops)
-        launches = by_shape.get(rbf_class(n, m), 0)
+        launches = by_shape.get(rbf_class(n, m, d), 0)
         if dev is not None:
             gap = launches * (dev - b_ms)
             gap_ms += gap
             log(f"    share of the bound {b_ms / dev:.3f}; main-path "
-                f"launches of class {rbf_class(n, m)}: {launches}, "
+                f"launches of class {rbf_class(n, m, d)}: {launches}, "
                 f"x (device - bound) {gap:.4f} ms")
         if (n, m, d) == MAIN_RBF:
             row = {"name": "rbf_matrix", "route": "cuda",
@@ -1425,11 +1673,16 @@ def measure_rbf(counts, rbf_err, by_shape):
     return row
 
 
-def measure_lloyd(counts, lloyd_err, by_k):
+def measure_lloyd(counts, lloyd_err, by_dk):
     """B1 at each centroid count, C = 1, n = 6000, d = 50 (a strong
-    client's private set): as ``measure_rbf``, by k."""
+    client's private set), and on its wide route at the image path's
+    shapes: as ``measure_rbf``, by (route, k) on the narrow route (the
+    main path's launches at d <= 64) and by (d, k) on the wide one (two
+    launches a call)."""
     from repro_torch.kernels.kmeans_dist import ops, ref
     n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
+    by_k = {k: v for (route, k), v in lloyd_by_route(by_dk).items()
+            if route == "narrow"}
     row = None
     gap_ms = 0.0
     for k in LLOYD_KS:
@@ -1454,15 +1707,23 @@ def measure_lloyd(counts, lloyd_err, by_k):
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": None}
     log(f"  lloyd_step: launches x (device - bound) over the timed k "
-        f"{gap_ms:.4f} ms (launches by k {by_k})")
-    for d in WIDE_DS:   # the wide route (two launches), no main-path calls
-        x, cents = lloyd_inputs(n, d, 10, seed=1)
+        f"{gap_ms:.4f} ms (narrow launches by k {by_k})")
+    gap_ms = 0.0
+    for n, d, k in LLOYD_WIDE:   # two launches a call
+        x, cents = lloyd_inputs(n, d, k, seed=1)
         _, _, b_ms, _, dev = time_row(
-            f"lloyd_step C=1 n={n} d={d} k=10 (wide route)",
+            f"lloyd_step C=1 n={n} d={d} k={k} (wide route)",
             lambda: ops.lloyd_step_cuda(x, cents),
-            lambda: ref.lloyd_step(x, cents), *lloyd_cost(n, d, 10))
+            lambda: ref.lloyd_step(x, cents), *lloyd_cost(n, d, k))
+        calls = by_dk.get((d, k), 0) // ops.lloyd_launches(d)
         if dev is not None:
-            log(f"    share of the bound {b_ms / dev:.4f}")
+            gap = calls * (dev - b_ms)
+            gap_ms += gap
+            log(f"    share of the bound {b_ms / dev:.4f}; main-path calls "
+                f"at (d, k) = ({d}, {k}): {calls} ({2 * calls} launches), "
+                f"x (device - bound) {gap:.4f} ms")
+    log(f"  lloyd_step wide route: calls x (device - bound) over the timed "
+        f"shapes {gap_ms:.4f} ms")
     return row
 
 
@@ -1480,7 +1741,7 @@ def time_kernels(label):
     log(f"  {label}: empty kernel, ms per call / device only: "
         f"{empty_ms:.5f} / {fmt(empty_dev)}")
     n, d = MAIN_LLOYD["n"], MAIN_LLOYD["d"]
-    for dd, k in [(d, k) for k in LLOYD_KS] + [(w, 10) for w in WIDE_DS]:
+    for n, dd, k in [(n, d, k) for k in LLOYD_KS] + list(LLOYD_WIDE):
         x, cents = lloyd_inputs(n, dd, k, seed=1)
 
         def kern():
@@ -1507,7 +1768,7 @@ def time_kernels(label):
         if (t, dd, k) == MAIN_DIST:
             log(f"  {label}: min_dist_and_mask t={t} d={dd} k={k}, per call: "
                 + per_call_readings(kern))
-    for n, m, dd in RBF_SHAPES:
+    for n, m, dd in RBF_SHAPES + RBF_IMAGE_SHAPES:
         a, b = rbf_inputs(n, m, dd, seed=1)
 
         def kern():

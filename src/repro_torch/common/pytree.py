@@ -2,7 +2,8 @@
 
 Dense weights keep the reference's ``w (d_in, d_out)`` layout and are
 applied as ``x @ w + b``, so parameters exported from the JAX package load
-without transposes.
+without transposes; conv weights take PyTorch's OIHW layout, and the
+reference's HWIO ones are transposed at load (``models.cnn``).
 """
 from __future__ import annotations
 
@@ -25,3 +26,16 @@ def init_dense(d_in: int, d_out: int, *,
     if bias:
         p["b"] = torch.zeros((d_out,), device=device)
     return p
+
+
+def init_conv(c_in: int, c_out: int, k: int, *,
+              generator: Optional[torch.Generator] = None,
+              device=None) -> Dict[str, torch.Tensor]:
+    """He-normal float32 conv init; returns {'w': (c_out, c_in, k, k),
+    'b': (c_out,)}, std sqrt(2 / (c_in·k·k)) and a zero bias.
+
+    The weight is in PyTorch's OIHW layout (the reference's is HWIO). It
+    draws on the CPU from ``generator``, as ``init_dense`` does."""
+    std = math.sqrt(2.0 / (c_in * k * k))
+    w = torch.randn((c_out, c_in, k, k), generator=generator) * std
+    return {"w": w.to(device), "b": torch.zeros((c_out,), device=device)}

@@ -3,7 +3,11 @@
 ``Learner`` holds what every trained model of the federation shares — the
 model, its optimizer state, its own shuffling stream and the CE, KD and
 eval steps — and is the base of ``Client`` and of the server's FedDF
-student (``repro_torch.fed.server``). A client keeps its private data on
+student (``repro_torch.fed.server``). The CE and KD steps run the model in
+train mode and ``predict`` (proxy logits, class-wise means, evaluation) in
+eval mode, as the reference's ``train=True`` / ``False`` does: it sets the
+CNN zoo's BatchNorm, and the MLP and the transformer ignore it. A client
+keeps its private data (NHWC images in image mode) on
 its device once, draws its batch order from its own
 ``np.random.default_rng(seed + 1000 * cid)`` stream (the reference's, so
 the order carries over unchanged) and reads every step's loss back to the
@@ -50,6 +54,11 @@ class Learner:
             return []
         return torch.as_tensor(np.stack(batches), device=self.device)
 
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.model.training != train:
+            self.model.train(train)
+        return self.model(x)
+
     def _step(self, loss: torch.Tensor) -> float:
         grads = torch.autograd.grad(loss, self.params)
         upd, self.opt_state = self.opt.update(grads, self.opt_state,
@@ -59,13 +68,13 @@ class Learner:
 
     def distill(self, x: torch.Tensor, teacher: torch.Tensor,
                 weight: torch.Tensor, epochs: int, batch_size: int) -> float:
-        """Distillation on device tensors: x (n, d), teacher (n, K),
+        """Distillation on device tensors: x (n, ...), teacher (n, K),
         weight (n,) — temperature KL, or MSE on raw logits."""
         n = len(x)
         losses = []
         for _ in range(epochs):
             for idx in self._epoch(n, batch_size):
-                logits = self.model(x[idx])
+                logits = self._forward(x[idx], True)
                 if self.distill_loss == "mse":
                     loss = D.kd_mse_loss(logits, teacher[idx], weight[idx])
                 else:
@@ -77,7 +86,7 @@ class Learner:
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return self.model(x)
+            return self._forward(x, False)
 
     def evaluate(self, x_test: torch.Tensor, y_test: torch.Tensor,
                  batch_size: int = 512) -> float:
@@ -105,8 +114,9 @@ class Client(Learner):
         self.x = np.asarray(x)
         self.y = np.asarray(y)
         # samples in their own kind (token ids stay integers for the
-        # embedding lookup); the DRE's features are the flattened samples
-        # as f32, raw token ids included, as in the reference
+        # embedding lookup, images stay NHWC); the DRE's features are the
+        # flattened samples as f32, raw token ids included and images in
+        # (h, w, c) order, as in the reference
         self._x = sample_tensor(self.x, self.device)
         self._y = torch.as_tensor(self.y, dtype=torch.int64,
                                   device=self.device)
@@ -140,7 +150,7 @@ class Client(Learner):
         losses = []
         for _ in range(epochs):
             for idx in self._epoch(n, batch_size):
-                logits = self.model(self._x[idx])
+                logits = self._forward(self._x[idx], True)
                 losses.append(self._step(D.ce_loss(logits, self._y[idx])))
         return float(np.mean(losses)) if losses else 0.0
 

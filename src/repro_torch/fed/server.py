@@ -78,10 +78,12 @@ class Server:
     def attach_student(self, model: nn.Module, opt: Optimizer, *,
                        temperature: float = 3.0,
                        kernel_backend: Optional[str] = None) -> None:
-        """Give the server a trainable student for ensemble distillation.
-        Its shuffling stream, ``default_rng(seed + 31)``, is disjoint from
-        the server's own (seed + 7) and every client's (seed + 1000·cid);
-        its KD step is the clients' temperature-KL step."""
+        """Give the server a trainable student for ensemble distillation
+        (the simulator builds client 0's architecture). Its shuffling
+        stream, ``default_rng(seed + 31)``, is disjoint from the server's
+        own (seed + 7) and every client's (seed + 1000·cid); its KD step
+        is the clients' temperature-KL step, in train mode, and its
+        evaluation runs in eval mode (``Learner``)."""
         self.student = Learner(model, opt,
                                np.random.default_rng(self.seed + 31),
                                temperature=temperature,

@@ -5,7 +5,12 @@ KMeans-DRE centroid count per the paper (§IV-A/B):
   weak non-IID   → one per held label;
   IID            → one per class.
 
-A feature dataset gets the shared MLP zoo; a token dataset (``lm_tokens``:
+An image dataset (``mnist_like``, ``fashion_like``, ``cifar_like``: NHWC
+arrays) gets the Tables I/II CNN zoo, client ``cid`` the architecture of
+slot ``cid % 10`` (``models.cnn.get_client_model``; 28-pixel images take
+Table I, others Table II), and the FedDF student client 0's; every
+convolution runs in fp32 (``pin_fp32``). A feature dataset gets the
+shared MLP zoo; a token dataset (``lm_tokens``:
 (n, S) integer sequences) gets one transformer client per cid,
 ``core.fd_trainer.TransformerClientModel``: by default the reference's
 reduced granite backbone (``reduced(get_arch("granite-8b"), layers=2,
@@ -15,19 +20,20 @@ granite-8b's published widths. Transformer weights are drawn on the target
 device from a generator of that device.
 
 ``build_experiment`` also accepts injected dataset arrays, per-client
-initial parameters (MLP layer lists or transformer pytrees), per-client
-k-means seeds and KuLSIF auxiliary samples, and the FedDF student's
+initial parameters (CNN or MLP layer lists, or transformer pytrees),
+per-client k-means seeds and KuLSIF auxiliary samples, and the FedDF student's
 initial parameters: handed the reference's, it builds the same experiment
 the JAX package builds, which is how the tests hold the port against a
 live reference run.
 
-Only the ported slice runs: every method of Table III on feature-mode
-datasets and on ``lm_tokens``, the shared MLP zoo, the loop engine with
-sync rounds and full participation, and the flat server with the mean
-aggregate. ``run`` first refuses a malformed config with ``ValueError``,
-as the reference's does (``participation.validate_config``, then
-``scheduler.validate_config``); ``check_slice`` then refuses everything
-else with ``NotImplementedError`` naming the ROADMAP item that brings it.
+Only the ported slice runs: every method of Table III on the image,
+feature and token datasets, the CNN zoo and the shared MLP zoo, the loop
+engine with sync rounds and full participation, and the flat server with
+the mean aggregate. ``run`` first refuses a malformed config with
+``ValueError``, as the reference's does
+(``participation.validate_config``, then ``scheduler.validate_config``);
+``check_slice`` then refuses everything else with
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from repro_torch.fed.client import Client
 from repro_torch.fed.scheduler import resolve_round_mode
 from repro_torch.fed.server import Server
 from repro_torch.kernels import dispatch
-from repro_torch.models.cnn import MLPClassifier
+from repro_torch.models.cnn import MLPClassifier, get_client_model
 from repro_torch.optim.optimizers import sgd
 
 ZOOS = ("shared", "mixed")
@@ -75,6 +81,19 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; ask for the CPU "
                            "explicitly (--device cpu) to run there")
     return dev
+
+
+def pin_fp32() -> None:
+    """Keep convolutions in IEEE fp32 on the card, as the reference's f32
+    computes them: PyTorch lets cuDNN convolutions use TF32 by default,
+    which moves a CNN's logits far beyond the parity tolerances (its
+    matmul default is already fp32). This sets a process-wide flag: every
+    later convolution of the process, the caller's too, runs in fp32."""
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def hw_guess(x) -> int:
+    return np.asarray(x).shape[1]
 
 
 def check_slice(cfg: FedConfig, dataset_name: str) -> None:
@@ -147,12 +166,13 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
 
     ``dataset`` replaces the generated one; ``transformer_cfg`` replaces
     the token mode's default backbone; ``init_params[cid]`` (the
-    reference's ``[{'w', 'b'}, …]`` per MLP layer, or its transformer
+    reference's parameter list of a CNN or an MLP, or its transformer
     pytree) replaces client ``cid``'s random init; ``kmeans_inits[cid]``
     (k, d) replaces its k-means++ seeding and ``kulsif_aux[cid]``
     (num_aux, d) its KuLSIF auxiliary draw; ``student_params`` replaces the
     FedDF student's random init."""
     device = torch.device(device)
+    pin_fp32()
     ds = (dataset if dataset is not None
           else make_dataset(dataset_name, n_train=n_train, n_test=n_test,
                             seed=cfg.seed))
@@ -167,12 +187,21 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     method = get_method(cfg.method)
     # token mode: (n, S) integer sequences -> transformer clients
     token_mode = ds.x.ndim == 2 and np.issubdtype(ds.x.dtype, np.integer)
-    if token_mode:
+    if ds.x.ndim == 4:
+        # image mode: the Tables I/II zoo, one slot a client, drawn on the
+        # CPU from one generator and moved to the device
+        img_ds = "mnist" if hw_guess(ds.x) == 28 else "cifar10"
+        init_gen = torch.Generator().manual_seed(cfg.seed)
+
+        def make_model(cid):
+            spec, hw, ch = get_client_model(cid, img_ds)
+            return spec.build(hw, ch, generator=init_gen, device=device)
+    elif token_mode:
         t_cfg = transformer_cfg or default_transformer_cfg(ds.num_classes)
         # drawn on the device: a full-width client is 436 M values
         init_gen = torch.Generator(device=device).manual_seed(cfg.seed)
 
-        def make_model():
+        def make_model(cid):
             return TransformerClientModel(
                 t_cfg, generator=init_gen, device=device,
                 kernel_backend=cfg.kernel_backend)
@@ -180,14 +209,14 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         d_in = ds.x.shape[-1]
         init_gen = torch.Generator().manual_seed(cfg.seed)
 
-        def make_model():
+        def make_model(cid):
             return MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
                                  generator=init_gen, device=device)
     # one optimizer and one init stream shared by the whole population
     shared_opt = sgd(cfg.lr)
     clients: List[Client] = []
     for cid, cd in enumerate(clients_data):
-        model = make_model()
+        model = make_model(cid)
         if init_params is not None:
             model.load_jax_params(init_params[cid])
         dre = method.make_dre(
@@ -202,9 +231,10 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
             dre_init=None if kmeans_inits is None else kmeans_inits[cid],
             dre_aux=None if kulsif_aux is None else kulsif_aux[cid]))
     if method.server_distill:
-        # the FedDF student is drawn after the client loop, as in the
-        # reference, so the clients' inits do not depend on the method
-        student = make_model()
+        # the FedDF student (client 0's architecture) is drawn after the
+        # client loop, as in the reference, so the clients' inits do not
+        # depend on the method
+        student = make_model(0)
         if student_params is not None:
             student.load_jax_params(student_params)
         server.attach_student(student, shared_opt,

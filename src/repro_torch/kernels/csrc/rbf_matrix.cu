@@ -20,6 +20,14 @@
 //    precision, inside the tolerances that hold the filter's threshold
 //    test (plain TF32 would not). The three products of every accumulator
 //    are issued pass by pass, so the compiler interleaves them.
+//  * Wide rows (d > 64, flattened images): the tensor cores add into
+//    their fp32 accumulator without rounding to nearest, a bias of up to
+//    an ulp of the running sum a mma, which over 784 features (294 mma)
+//    grew to 2e-5 of the norms and over 3072 beyond, outside the
+//    tolerance. So each stage of 64 features (24 mma) starts from zero
+//    and is added to the running sum with an IEEE fadd. Rows of d <= 64
+//    take one stage and the kernel without the extra accumulators, which
+//    at d = 50 is the faster one by a quarter (PERF.md section 6).
 //  * Tiles by shape: 128 x 96 (8 warps of 32 x 48), which re-reads the
 //    inputs less than 64 x 128 (11.2 MB at the main shape), where 64 x 128
 //    tiles would give every SM one; else 32 x 64 (4 warps of 16 x 32), so
@@ -177,8 +185,9 @@ __device__ __forceinline__ void redo_nonfinite(
 }
 
 // A block owns a (BM x BN) output tile; each of its warps a (WM x WN)
-// part of it, MT x NT mma tiles of 16 x 8.
-template <int BM, int BN, int WM, int WN>
+// part of it, MT x NT mma tiles of 16 x 8. STAGED: more than one stage of
+// KC features, each summed apart and added to the total by an IEEE fadd.
+template <int BM, int BN, int WM, int WN, bool STAGED>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
     rbf_matrix_kernel(const float* __restrict__ a,
                       const float* __restrict__ b, int n, int m, int d,
@@ -278,6 +287,16 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
     }
   };
 
+  // the running sum over the stages (STAGED only)
+  float tot[STAGED ? MT : 1][STAGED ? NT : 1][4];
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[i][j][e] = 0.f;
+  }
   for (int k0 = 0; k0 < d; k0 += KC) {
     const int w = min(KC, d - k0);
     if (k0 != 0) __syncthreads();  // the last stage is consumed
@@ -289,6 +308,25 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * WARP)
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
     mma_steps(0, (w + 7) / 8 * 8);
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[i][j][e] = __fadd_rn(tot[i][j][e], acc[i][j][e]);
+            acc[i][j][e] = 0.f;
+          }
+    }
+  }
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e];
   }
   // each row's norm: its four lanes' sums (features t + 4u), added in a
   // fixed butterfly
@@ -367,7 +405,7 @@ int sm_count(int dev) {
   return sms[dev];
 }
 
-template <int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN, bool STAGED>
 cudaError_t launch(const float* a, const float* b, int n, int m, int d,
                    float neg_scale, float* out, int ldo, int dev,
                    cudaStream_t s) {
@@ -379,13 +417,13 @@ cudaError_t launch(const float* a, const float* b, int n, int m, int d,
   };
   if (dev < 0 || dev >= MAX_DEVICES || !attr_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        rbf_matrix_kernel<BM, BN, WM, WN>,
+        rbf_matrix_kernel<BM, BN, WM, WN, STAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes(KC));
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < MAX_DEVICES) attr_set[dev] = true;
   }
   const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-  rbf_matrix_kernel<BM, BN, WM, WN>
+  rbf_matrix_kernel<BM, BN, WM, WN, STAGED>
       <<<grid, THREADS, bytes(d < KC ? d : KC), s>>>(a, b, n, m, d,
                                                     neg_scale, out, ldo);
   return cudaGetLastError();
@@ -416,10 +454,16 @@ int repro_rbf_matrix(const void* a, const void* b, int n, int m, int d,
   // least one an SM, else 32 x 64 (4 warps of 16 x 32)
   const long long big_tiles =
       static_cast<long long>((m + 127) / 128) * ((n + 63) / 64);
-  if (big_tiles >= sm_count(dev))
-    return launch<128, 96, 32, 48>(af, bf, n, m, d, neg_scale, o, ldo, dev,
-                                   s);
-  return launch<32, 64, 16, 32>(af, bf, n, m, d, neg_scale, o, ldo, dev, s);
+  const bool big = big_tiles >= sm_count(dev);
+  if (d > KC)
+    return big ? launch<128, 96, 32, 48, true>(af, bf, n, m, d, neg_scale, o,
+                                               ldo, dev, s)
+               : launch<32, 64, 16, 32, true>(af, bf, n, m, d, neg_scale, o,
+                                              ldo, dev, s);
+  return big ? launch<128, 96, 32, 48, false>(af, bf, n, m, d, neg_scale, o,
+                                              ldo, dev, s)
+             : launch<32, 64, 16, 32, false>(af, bf, n, m, d, neg_scale, o,
+                                             ldo, dev, s);
 }
 
 const char* repro_error_string(int code) {

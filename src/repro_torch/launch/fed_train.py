@@ -4,8 +4,9 @@
       --dataset mnist_feat --rounds 10 [--device cuda|cpu]``
 
 ``--method`` takes every method of Table III (``repro_torch.core.methods``);
-``--dataset`` takes the feature datasets and ``lm_tokens`` (transformer
-clients).
+``--dataset`` takes the image datasets (``mnist_like``, ``fashion_like``,
+``cifar_like``: the Tables I/II CNN zoo, convolutions in fp32), the
+feature datasets and ``lm_tokens`` (transformer clients).
 
 Takes the reference's flags (``repro.launch.fed_train.add_config_args``)
 plus ``--device``, which defaults to ``cuda``: without a CUDA device the
@@ -35,10 +36,11 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--scenario", default="strong",
                     choices=["strong", "weak", "iid"])
     ap.add_argument("--dataset", default="mnist_feat",
-                    help="synthetic dataset: *_feat = flat features (MLP "
-                         "zoo); lm_tokens = token sequences (transformer "
-                         "clients, the reduced granite backbone); image "
-                         "datasets are not ported")
+                    help="synthetic dataset: mnist_like / fashion_like / "
+                         "cifar_like = images (the Tables I/II CNN zoo); "
+                         "*_feat = flat features (MLP zoo); lm_tokens = "
+                         "token sequences (transformer clients, the reduced "
+                         "granite backbone)")
     ap.add_argument("--engine", default="loop", choices=["loop", "cohort"])
     ap.add_argument("--devices", type=int, default=0)
     ap.add_argument("--model-shards", type=int, default=0)

@@ -3,13 +3,15 @@ the JAX reference.
 
 The reference builds its experiment (``repro.fed.simulator``) and runs it
 on the jnp backend; the port builds the same experiment from the
-reference's dataset arrays, initial parameters (clients' and, for FedDF,
-the server student's: MLP layer lists, or transformer pytrees on the
-``lm_tokens`` dataset), k-means++ seeds and KuLSIF auxiliary samples (the
-things drawn with ``jax.random``) and runs on the CPU through its plain
-PyTorch versions. The dataset and its sizes are arguments
-(``mnist_feat`` at N_TRAIN/N_TEST by default); the client count and the
-rounds come from the config. Everything else — partition, proxy set, batch order,
+reference's dataset arrays (flat features, NHWC images or token ids),
+initial parameters (clients' and, for FedDF, the server student's: CNN or
+MLP layer lists, or transformer pytrees on the ``lm_tokens`` dataset),
+k-means++ seeds and KuLSIF auxiliary samples (the things drawn with
+``jax.random``) and runs on the CPU through its plain PyTorch versions.
+The dataset and its sizes are arguments (``mnist_feat`` at N_TRAIN/N_TEST
+by default; ``mnist_like``, ``fashion_like`` and ``cifar_like`` run the
+Tables I/II CNN zoo); the client count and the rounds come from the
+config. Everything else — partition, proxy set, batch order,
 proxy draws — comes from numpy streams both packages share.
 
 Tolerances, per round (``assert_logs_match``):
@@ -59,7 +61,8 @@ def config(method: str, scenario: str, **overrides) -> dict:
 
 
 def _numpy_params(params):
-    """A parameter pytree (MLP layer list or transformer dict) as numpy."""
+    """A parameter pytree (CNN or MLP layer list, or transformer dict) as
+    numpy."""
     return jax.tree.map(np.asarray, params)
 
 
@@ -94,7 +97,8 @@ def run_reference(kw: dict, dataset: str = "mnist_feat",
     if method.client_filter == "kmeans":
         # the seeds the reference's jnp fit draws: fold_in(PRNGKey(seed), i)
         # per client (LoopEngine.learn_dres), k-means++ under jit as in
-        # _kmeans_fit_jnp
+        # _kmeans_fit_jnp, on the flattened samples (images in NHWC order,
+        # as the port's client flattens them)
         kpp = jax.jit(ref_kmeans_plus_plus, static_argnums=2)
         key = jax.random.PRNGKey(cfg.seed)
         inits = [np.asarray(kpp(jax.random.fold_in(key, i),
@@ -180,3 +184,4 @@ def assert_logs_match(kw: dict, dataset: str = "mnist_feat",
         assert p.bytes_down == q.bytes_down
         assert p.scrubbed_rows == q.scrubbed_rows == 0
     return ref, port
+

@@ -199,14 +199,16 @@ def test_min_dist_kernel_at_other_widths(smoke, t, d, k):
 # learn K11 and K12, report k_ta and k_tp, ragged both ways, a narrow d;
 # the small shapes also at the widest single stage and a narrow odd width;
 # private sets of odd size (rows starting inside a 32-byte sector); a
-# width past one stage
+# width past one stage; a report on flattened mnist_like and cifar_like
+# images (pixel-like rows)
 @pytest.mark.parametrize("n,m,d", [(256, 256, 50), (256, 6000, 50),
                                    (512, 256, 50), (512, 6000, 50),
                                    (511, 5999, 50), (70, 33, 7),
                                    (256, 256, 64), (256, 256, 7),
                                    (512, 256, 64), (512, 256, 7),
                                    (256, 6001, 50), (512, 6001, 50),
-                                   (300, 700, 130)])
+                                   (300, 700, 130), (512, 6000, 784),
+                                   (512, 5000, 3072)])
 def test_rbf_kernel_matches_plain_and_is_deterministic(smoke, n, m, d):
     smoke.check_rbf(n, m, d)
 

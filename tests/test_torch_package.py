@@ -3,8 +3,9 @@
 * The port stands alone: no module under ``src/repro_torch/`` imports
   ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
 * ``repro_torch.launch.fed_train`` runs on the card unless asked for the
-  CPU, raises without a card, and refuses every flag whose feature is not
-  ported yet with ``NotImplementedError`` naming its ROADMAP item.
+  CPU, raises without a card, runs the feature, image and token datasets,
+  and refuses every flag whose feature is not ported yet with
+  ``NotImplementedError`` naming its ROADMAP item.
 """
 import ast
 import os
@@ -106,6 +107,21 @@ def test_fed_train_runs_lm_tokens_on_the_cpu():
     assert log.local_loss == log.local_loss and log.distill_loss > 0.0
 
 
+@pytest.mark.parametrize("dataset", ["mnist_like", "fashion_like",
+                                     "cifar_like"])
+def test_fed_train_runs_the_image_datasets_on_the_cpu(dataset):
+    """The image path through the entry point: the Tables I/II CNN zoo,
+    the KMeans-DRE filter on flattened NHWC images."""
+    res = fed_train.main(SMALL + ["--device", "cpu", "--dataset", dataset,
+                                  "--proxy-batch", "32"])
+    log = res.rounds[0]
+    assert set(log.phase_s) == {"local_train", "report", "aggregate",
+                                "distill", "eval"}
+    assert 0.0 < log.id_fraction <= 1.0 and log.bytes_up > 0
+    assert 0.0 <= log.mean_acc <= 1.0 and len(log.accs) == 2
+    assert log.local_loss > 0.0 and log.distill_loss > 0.0
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "cohort"], "item 5"),
     (["--zoo", "mixed"], "item 5"),
@@ -122,8 +138,6 @@ def test_fed_train_runs_lm_tokens_on_the_cpu():
     (["--robust-aggregation", "median"], "item 7"),
     (["--quarantine-threshold", "1.5"], "item 7"),
     (["--watchdog"], "item 7"),
-    (["--dataset", "mnist_like"], "item 4"),
-    (["--dataset", "cifar_like"], "item 4"),
 ])
 def test_flags_outside_the_slice_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
