@@ -23,17 +23,32 @@ Phases, in order; any failure raises and exits non-zero:
      NaN centroid, with NaN and ±inf where the plain version has them and
      equal masks and argmins; flash attention also on strided views in
      the model's layout, and its autograd function's gradients against
-     autograd of the plain version);
+     autograd of the plain version); then the cohort engine's routes, each
+     kernel over a client axis: the Lloyd kernel for 10 and 34 clients
+     against each client's own launch, bitwise, on both routes; the
+     min-distance kernel for C clients (a shared x, a report, or each
+     client's own, a calibration; thresholds a device tensor) against
+     each client's 2-D launch bitwise and the plain version, also on
+     non-finite inputs; the RBF kernel on a shared a against C clients' b
+     (one launch of the stacked b) against each client's launch bitwise,
+     sentinel rows exactly 0; the fused KL loss over clients (ragged
+     weights, an all-zero lane) against the plain version and each
+     client's 2-D launch bitwise;
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
      weak runs): n_iter, assignments, centroids, DRE thresholds, reported;
+     the cohort's batched fit and calibration against each client's own
+     fit on the card: n_iter, assignments, centroids, thresholds, bitwise
+     (asserted);
   5. small fed_train runs (edgefd and selective-fd on features, edgefd on
      mnist_like and cifar_like images, cuDNN's TF32 turned on first to
      check that the entry point pins fp32) on the card against the same
      runs on the CPU (which takes the plain versions), and a small
      lm_tokens edgefd run (the reduced granite backbone) on the card
-     against the CPU from the same initial weights;
+     against the CPU from the same initial weights; small cohort-engine
+     runs card vs CPU (edgefd, selective-fd and fkd strong, the mixed zoo
+     over 6 clients, and over 9 in waves of 2);
   6. the main path: fed_train, 10 clients with MNIST's split sizes
      (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
@@ -52,7 +67,17 @@ Phases, in order; any failure raises and exits non-zero:
      just before and read just after), the Lloyd kernel's launches by
      (d, k) and by route, the min-distance kernel's by class (calibration
      or report, d, k) and the RBF kernel's by shape and width, and the
-     fused KL loss launched once per distill step;
+     fused KL loss launched once per distill step; then the cohort
+     engine's path, its launches counted from 0: edgefd strong and weak,
+     selective-fd strong and fkd strong at the same sizes, each held to
+     its loop run; the mixed zoo over 100 clients (iid, n_train 60000)
+     unwaved, in waves of 16 and on the loop engine, held to each other;
+     mnist_like edgefd strong and weak (ten one-client cohorts) each held
+     to a loop run, both engines with cuDNN's deterministic algorithms;
+     asserting one Lloyd launch an iteration a uniform cohort, one
+     min-distance launch a cohort a report and a calibration, two RBF
+     launches a cohort a report, one fused-loss launch a cohort a distill
+     step;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -65,7 +90,8 @@ Phases, in order; any failure raises and exits non-zero:
      step's loss and gradient by
      four routes in turns (fused kernel, the per-sample kernels under
      autograd, plain, library) beside an empty kernel's launch and the
-     autograd engine's floor.
+     autograd engine's floor; each route over clients at the cohort's
+     shapes, beside C launches of its 2-D route.
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -701,6 +727,266 @@ def check_flash_grads(b, n, nkv, s, h, seed=0):
         + ", ".join(errs) + " (rtol 1e-4, atol 1e-5)")
 
 
+# ---- the cohort engine's routes: every kernel over a client axis, each
+# client's slice bit for bit its own launch's
+def own(t):
+    """A copy of ``t`` in an allocation of its own (a client's tensor)."""
+    return t.clone().contiguous()
+
+
+def check_lloyd_clients(n, d, k, c=10, seed=0):
+    """B1 for c clients in one launch against c launches of one client
+    each (``kmeans_fit_batched`` against ``kmeans_fit``): bitwise."""
+    import torch
+    from repro_torch.kernels.kmeans_dist import ops
+    x, cents = lloyd_inputs(n, d, k, seed, c)
+    got = ops.lloyd_step_cuda(x, cents)
+    label = f"lloyd_step C={c} n={n} d={d} k={k}"
+    for i in range(c):
+        one = ops.lloyd_step_cuda(own(x[i:i + 1]), own(cents[i:i + 1]))
+        if not all(torch.equal(bits(u[i]), bits(v[0]))
+                   for u, v in zip(got, one)):
+            raise AssertionError(f"{label}: client {i} differs from its own "
+                                 "launch")
+    log(f"  {label}: every client bitwise equal to its own C=1 launch "
+        f"({'wide' if d > 64 else 'narrow'} route)")
+
+
+def min_dist_clients_inputs(c, t, d, k, shared, seed, poison=None):
+    """c clients' centroids (c, k, d) near their rows, thresholds (c,) at
+    each client's median distance (its own rows, or the shared ones), and
+    x (t, d) shared or (c, t, d); ``poison``: "rows" (x's rows 1-3
+    non-finite) or "centroid" (client 1's centroid NaN)."""
+    import torch
+    from repro_torch.kernels.kmeans_dist import ref
+    x, cents = lloyd_inputs(t, d, k, seed, c)
+    if shared:
+        x = x[0]
+    if poison == "rows":
+        x = (nonfinite_rows(x) if shared
+             else torch.stack([nonfinite_rows(v) for v in x]))
+    elif poison == "centroid":
+        cents = cents.clone()
+        cents[min(1, c - 1), min(1, k - 1), 4] = float("nan")
+    d_all = ref.min_dist_and_mask(x, cents, float("inf"))[0]
+    thr = torch.stack([torch.quantile(v[torch.isfinite(v)], 0.5)
+                       if bool(torch.isfinite(v).any())
+                       else torch.tensor(3.0, device="cuda") for v in d_all])
+    return x, cents, thr.contiguous()
+
+
+def check_min_dist_clients(c, t, d, k, shared, seed=0, poison=None):
+    """B2 for c clients in one launch: against each client's own 2-D
+    launch bitwise (its thresholds a device tensor, and an infinite float
+    for all), against the plain version over clients within the
+    min-distance tolerance (masks equal away from the threshold, NaN and
+    inf at the same places), and two launches bitwise. Returns the max
+    abs error of the finite distances."""
+    import torch
+    from repro_torch.kernels.kmeans_dist import ops, ref
+    x, cents, thr = min_dist_clients_inputs(c, t, d, k, shared, seed, poison)
+    label = (f"min_dist_and_mask clients C={c} t={t} d={d} k={k} "
+             f"x {'shared' if shared else 'per client'}"
+             + (f" non-finite {poison}" if poison else ""))
+    before = ops.min_dist_and_mask_clients_cuda.launches
+    got_d, got_m = ops.min_dist_and_mask(x, cents, thr)
+    again = ops.min_dist_and_mask(x, cents, thr)
+    inf_d, inf_m = ops.min_dist_and_mask(x, cents, float("inf"))
+    if ops.min_dist_and_mask_clients_cuda.launches - before != 3:
+        raise AssertionError(f"{label}: not one launch a call")
+    if not (torch.equal(bits(got_d), bits(again[0]))
+            and torch.equal(got_m, again[1])):
+        raise AssertionError(f"{label}: two launches differ")
+    for i in range(c):
+        xi = own(x) if shared else own(x[i])
+        one_d, one_m = ops.min_dist_and_mask_cuda(xi, own(cents[i]),
+                                                  own(thr[i:i + 1]))
+        inf1 = ops.min_dist_and_mask_cuda(xi, own(cents[i]), float("inf"))
+        if not (torch.equal(bits(got_d[i]), bits(one_d))
+                and torch.equal(got_m[i], one_m)
+                and torch.equal(bits(inf_d[i]), bits(inf1[0]))
+                and torch.equal(inf_m[i], inf1[1])):
+            raise AssertionError(f"{label}: client {i} differs from its own "
+                                 "launch")
+    want_d, want_m = ref.min_dist_and_mask(x, cents, thr)
+    torch.cuda.synchronize()
+    if not same_nonfinite(got_d, want_d):
+        raise AssertionError(f"{label}: distances not finite at other "
+                             "places than the plain version's")
+    if bool(got_m[torch.isnan(got_d)].any()):
+        raise AssertionError(f"{label}: a NaN distance is ID")
+    fin = torch.isfinite(want_d)
+    x2 = torch.sum(x * x, -1)
+    scale = x2 + torch.amax(torch.sum(cents * cents, -1), -1)[:, None]
+    tol2 = DIST_ATOL + DIST_RTOL * scale
+    err2 = (got_d * got_d - want_d * want_d).abs()
+    if bool((err2[fin] > tol2[fin]).any()):
+        raise AssertionError(f"{label}: d² off by {float(err2[fin].max())}")
+    clear = ~fin | ((want_d * want_d - (thr * thr)[:, None]).abs() > tol2)
+    if not torch.equal(got_m[clear], want_m[clear]):
+        raise AssertionError(f"{label}: masks differ away from the "
+                             "threshold")
+    err = float((got_d - want_d).abs()[fin].max())
+    log(f"  {label}: every client bitwise equal to its own launch (device "
+        f"and infinite float thresholds); plain version max|dist err| "
+        f"{err:.3e} (tol on d²: {DIST_ATOL:g} + {DIST_RTOL:g}*scale), "
+        f"{int((~fin).sum())} non-finite at its places; deterministic=yes")
+    return err
+
+
+def check_rbf_clients(n, c, m, d, sentinel=0, seed=0):
+    """B5 for one shared a against c clients' b in one launch: each
+    client's slice bitwise its own 2-D launch, the plain version within
+    the RBF tolerance, and ``sentinel`` rows of 1e6 at the end of each b
+    (a padded private set) exactly 0. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.kulsif_rbf import ops, ref
+    a, b0 = rbf_inputs(n, c * m, d, seed)
+    b = b0.reshape(c, m, d).clone()
+    if sentinel:
+        b[:, m - sentinel:] = 1e6
+    label = (f"rbf_matrix clients n={n} C={c} m={m} d={d}"
+             + (f", {sentinel} sentinel rows a client" if sentinel else ""))
+    before = ops.rbf_matrix_clients_cuda.launches
+    got = ops.rbf_matrix(a, b, SIGMA)
+    again = ops.rbf_matrix(a, b, SIGMA)
+    if ops.rbf_matrix_clients_cuda.launches - before != 2:
+        raise AssertionError(f"{label}: not one launch a call")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    for i in range(c):
+        if not torch.equal(got[i], ops.rbf_matrix_cuda(a, own(b[i]), SIGMA)):
+            raise AssertionError(f"{label}: client {i} differs from its own "
+                                 "launch")
+    want = ref.rbf_matrix(a, b, SIGMA)
+    torch.cuda.synchronize()
+    if sentinel and bool((got[:, :, m - sentinel:] != 0).any()):
+        raise AssertionError(f"{label}: a sentinel row's kernel value is "
+                             "not 0")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    scale = (torch.sum(a * a, -1)[None, :, None]
+             + torch.sum(b * b, -1)[:, None, :])
+    tol = want * RBF_RTOL * scale / (2 * SIGMA * SIGMA) + RBF_ATOL
+    err = (got - want).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"{label}: off by {float(err.max())}")
+    log(f"  {label}: every client bitwise equal to its own launch; plain "
+        f"version max|err| {float(err.max()):.3e} (worst err/tol "
+        f"{float((err / tol).max()):.3f}); deterministic=yes")
+    return float(err.max())
+
+
+def kl_clients_weights(c, n, seed):
+    """Each lane's distill-step weights: a ragged count of valid rows
+    (the rest 0, a short last batch padded), a teacher-validity mask on
+    those, lane 1 all zero (a lane with no valid step, as a dummy wave
+    lane has)."""
+    import torch
+    g = torch.Generator().manual_seed(seed + 11)
+    w = torch.rand((c, n), generator=g) * (torch.rand((c, n), generator=g)
+                                           > 0.25)
+    for i in range(c):
+        w[i, n - (i * 7) % n:] = 0.0
+    w[min(1, c - 1)] = 0.0
+    return w.cuda()
+
+
+def check_kl_loss_clients(c, n, k, seed=0):
+    """The fused loss for c clients in one launch (``KdKlLossFunction`` on
+    (C, n, K)): against its plain version over clients within the KL
+    tolerance (loss, kl, the student's gradient through autograd), each
+    client bitwise its own 2-D launch, the all-zero lane's loss and
+    gradient exactly 0, two launches bitwise. Returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops, ref
+    g = torch.Generator().manual_seed(seed)
+    s = (torch.randn((c, n, k), generator=g) * 3).cuda()
+    t = (torch.randn((c, n, k), generator=g) * 3).cuda()
+    w = kl_clients_weights(c, n, seed)
+    label = f"kd_kl_loss clients C={c} n={n} K={k}"
+    before = ops.kd_kl_loss_clients_cuda.launches
+    got = ops.kd_kl_loss_clients_cuda(s, t, w, TEMPERATURE)
+    again = ops.kd_kl_loss_clients_cuda(s, t, w, TEMPERATURE)
+    s_k = s.clone().requires_grad_(True)
+    loss_k = ops.kd_kl_loss(s_k, t, TEMPERATURE, w)
+    cot = torch.randn((c,), generator=g).cuda()
+    ds_k, = torch.autograd.grad(loss_k, s_k, cot)
+    if ops.kd_kl_loss_clients_cuda.launches - before != 3:
+        raise AssertionError(f"{label}: not one launch a call")
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{label}: two launches differ")
+    for i in range(c):
+        one = ops.kd_kl_loss_cuda(own(s[i]), own(t[i]), own(w[i]),
+                                  TEMPERATURE)
+        if not all(torch.equal(u[i], v) for u, v in zip(got, one)):
+            raise AssertionError(f"{label}: client {i} differs from its own "
+                                 "launch")
+    zero = min(1, c - 1)
+    if not (float(got[0][zero]) == 0.0 and bool((got[2][zero] == 0).all())
+            and bool((ds_k[zero] == 0).all())):
+        raise AssertionError(f"{label}: the all-zero lane's loss or "
+                             "gradient is not 0")
+    s_r = s.clone().requires_grad_(True)
+    kl_r = ref.kd_kl_per_sample(s_r, t, TEMPERATURE)
+    loss_r = ref.kd_kl_loss(s_r, t, TEMPERATURE, w)
+    ds_r, = torch.autograd.grad(loss_r, s_r, cot)
+    torch.cuda.synchronize()
+    errs = []
+    for name, u, v in (("loss", loss_k.detach(), loss_r.detach()),
+                       ("kl", got[1], kl_r.detach()), ("ds", ds_k, ds_r)):
+        torch.testing.assert_close(u, v, rtol=KL_RTOL, atol=KL_ATOL)
+        errs.append(float((u - v).abs().max()))
+    log(f"  {label}: every client bitwise equal to its own 2-D launch, the "
+        f"all-zero lane 0 with a zero gradient; plain version max|err| loss "
+        f"{errs[0]:.3e} kl {errs[1]:.3e} ds {errs[2]:.3e} (rtol {KL_RTOL:g}, "
+        f"atol {KL_ATOL:g}); deterministic=yes")
+    return max(errs)
+
+
+# the cohort's launch shapes: B2's report (10 clients, strong k = 1 and
+# weak k = 3), a calibration of 10 uniform clients and of the 100-client
+# run's cohorts (iid, k = 10), the image path's one-client cohorts
+COHORT_DIST = ((10, 512, 50, 1, True), (10, 512, 50, 3, True),
+               (10, 6000, 50, 1, False), (10, 6000, 50, 3, False),
+               (34, 600, 50, 10, False), (34, 512, 50, 10, True),
+               (1, 512, 784, 1, True), (1, 6000, 784, 1, False),
+               (1, 512, 3072, 1, True), (1, 5000, 3072, 1, False),
+               (3, 5999, 50, 3, False), (3, 777, 16, 1, False))
+# B5's: a report's k_ta and k_tp (10 clients' aux sets, private sets of
+# 6000 and the padded 100-client ones), the image path's (one client)
+COHORT_RBF = ((512, 10, 256, 50, 0), (512, 10, 6000, 50, 0),
+              (512, 10, 6001, 50, 7), (512, 100, 600, 50, 0),
+              (512, 1, 6001, 784, 0), (512, 1, 5001, 3072, 3))
+# the fused loss: 10 clients' and a 34-client cohort's distill step
+COHORT_KL = ((10, 64, 10), (34, 64, 10), (1, 64, 10), (3, 300, 10))
+
+
+def check_cohort_kernels():
+    """The batched routes of phase 3; returns their max abs errors."""
+    log("  the cohort engine's routes: each kernel over a client axis")
+    for n, d, k in ((6000, 50, 1), (6000, 50, 3), (600, 50, 10),
+                    (6000, 784, 1), (1001, 3072, 3)):
+        check_lloyd_clients(n, d, k, c=10)
+    check_lloyd_clients(600, 50, 10, c=34)
+    errs = {"dist": {}, "rbf": {}, "kl": {},
+            # the 100-client run's cohort against the plain version
+            "lloyd": check_lloyd(600, 50, 10, c=34)}
+    for c, t, d, k, shared in COHORT_DIST:
+        errs["dist"][(c, t, d, k)] = check_min_dist_clients(c, t, d, k,
+                                                            shared)
+    for poison in ("rows", "centroid"):
+        check_min_dist_clients(10, 512, 50, 3, True, poison=poison)
+        check_min_dist_clients(3, 600, 50, 3, False, poison=poison)
+        check_min_dist_clients(2, 300, 784, 3, False, poison=poison)
+    for n, c, m, d, sentinel in COHORT_RBF:
+        errs["rbf"][(n, c, m, d)] = check_rbf_clients(n, c, m, d, sentinel)
+    for c, n, k in COHORT_KL:
+        errs["kl"][(c, n, k)] = check_kl_loss_clients(c, n, k)
+    return errs
+
+
 def check_kernels():
     log("[3] kernels vs plain versions on the card")
     lloyd_err = {}
@@ -750,7 +1036,8 @@ def check_kernels():
     check_flash_grads(*MAIN_ATTN)
     check_flash_grads(16, 4, 1, 16, 16)
     check_flash_grads(16, 16, 2, 16, 128)  # GQA 8
-    return lloyd_err, kl_err, dist_err, rbf_err, attn_err
+    cohort_err = check_cohort_kernels()
+    return lloyd_err, kl_err, dist_err, rbf_err, attn_err, cohort_err
 
 
 # ----------------------------------------------------------------- phase 4
@@ -871,30 +1158,98 @@ def check_kmeans_agreement():
                                        for n, v in thr_err.items()))
 
 
+def check_kmeans_batched():
+    """Phase 4, the cohort's fit: ``learn_kmeans_batched`` (one Lloyd
+    launch an iteration for every client, one estimation launch for every
+    client's calibration) against each client's own ``KMeansDRE.learn``
+    on the card, from the same seeds: n_iter, assignments, centroids and
+    thresholds equal, bit for bit (asserted)."""
+    import torch
+    from repro_torch.core.dre import KMeansDRE, learn_kmeans_batched
+    from repro_torch.core.kmeans import (kmeans_fit, kmeans_fit_batched,
+                                         kmeans_plus_plus)
+    from repro_torch.kernels.kmeans_dist import ops
+    for c, n, d, k in ((10, 6000, 50, 1), (10, 6000, 50, 3),
+                       (34, 600, 50, 10), (3, 6000, 784, 3)):
+        g = torch.Generator().manual_seed(n + k)
+        centers = torch.randn((c, k, d), generator=g) * 4
+        x = (centers[:, torch.arange(n) % k]
+             + torch.randn((c, n, d), generator=g)).cuda()
+        inits = [kmeans_plus_plus(x[i].cpu(), k, generator=g).cuda()
+                 for i in range(c)]
+        before = ops.lloyd_step_cuda.launches
+        res = kmeans_fit_batched(x, k, inits=inits, backend="cuda")
+        batched_launches = ops.lloyd_step_cuda.launches - before
+        label = f"kmeans_fit_batched C={c} n={n} d={d} k={k}"
+        if batched_launches != (max(res.n_iter) + 1) * ops.lloyd_launches(d):
+            raise AssertionError(f"{label}: {batched_launches} Lloyd launches "
+                                 f"for {max(res.n_iter)} iterations")
+        dre = KMeansDRE(num_centroids=k, kernel_backend="cuda")
+        b_before = ops.min_dist_and_mask_clients_cuda.launches
+        cents, thrs = learn_kmeans_batched(dre, x, inits=inits)
+        if ops.min_dist_and_mask_clients_cuda.launches - b_before != 1:
+            raise AssertionError(f"{label}: not one calibration launch")
+        for i in range(c):
+            one = kmeans_fit(own(x[i]), k, init=inits[i], backend="cuda")
+            own_dre = dre.learn(own(x[i]), init=inits[i])
+            if not (one.n_iter == res.n_iter[i]
+                    and torch.equal(one.assignments, res.assignments[i])
+                    and torch.equal(one.centroids, res.centroids[i])
+                    and torch.equal(own_dre.centroids, cents[i])
+                    and torch.equal(own_dre.threshold.reshape(()),
+                                    thrs[i])):
+                raise AssertionError(f"{label}: client {i} differs from its "
+                                     "own fit")
+        log(f"  {label}: n_iter {res.n_iter}, {batched_launches} Lloyd "
+            f"launches (one an iteration for all {c}); every client's "
+            "n_iter, assignments, centroids and calibrated threshold "
+            "bitwise equal to its own fit's")
+
+
 # --------------------------------------------------------------- phase 5/6
 def fed_train(args):
     from repro_torch.launch import fed_train as ft
     return ft.main(args)
 
 
-def compare_runs(label, gpu, cpu, n_test):
+def compare_runs(label, gpu, cpu, n_test, names=("card", "CPU"),
+                 diverged=(None, None)):
+    """Round logs of two runs held to each other: losses within rtol 1e-3,
+    accuracies within a test sample. A non-finite loss fails, except
+    where both runs' ``DivergenceWatch`` showed a divergence (``diverged``,
+    each run's ``(where, round)`` from ``run_one``): from the later of the
+    two rounds on, two NaNs, or two infinities of one sign, agree."""
+    a_name, b_name = names
+    since = max(d[1] for d in diverged) if all(diverged) else None
+    held = 0
     for p, q in zip(gpu.rounds, cpu.rounds):
         for f in ("local_loss", "distill_loss"):
             a, b = getattr(p, f), getattr(q, f)
-            if not abs(a - b) <= 1e-3 * abs(b):
+            gone = since is not None and p.round >= since and (
+                a == b or (a != a and b != b))
+            # finite first: |a - inf| <= 1e-3 * inf would hold
+            if not (finite(a) and finite(b) and abs(a - b) <= 1e-3 * abs(b)
+                    or gone):
                 raise AssertionError(f"{label} round {p.round} {f}: "
-                                     f"card {a} vs CPU {b}")
+                                     f"{a_name} {a} vs {b_name} {b}")
         for a, b in zip(p.accs, q.accs):
             if abs(a - b) > 1.5 / n_test:
                 raise AssertionError(f"{label} round {p.round} accs: "
-                                     f"card {p.accs} vs CPU {q.accs}")
-    log(f"  {label}: card and CPU agree (losses rtol 1e-3, accuracies "
-        "within a test sample); last round card "
-        f"{gpu.rounds[-1].local_loss:.6f}/{gpu.rounds[-1].distill_loss:.6f}"
-        f" CPU {cpu.rounds[-1].local_loss:.6f}/"
-        f"{cpu.rounds[-1].distill_loss:.6f} (local/distill loss), id "
-        f"fraction card {gpu.rounds[-1].id_fraction:.4f} CPU "
-        f"{cpu.rounds[-1].id_fraction:.4f}")
+                                     f"{a_name} {p.accs} vs {b_name} "
+                                     f"{q.accs}")
+        held += 1
+    same = all((p.local_loss, p.distill_loss, p.accs, p.id_fraction)
+               == (q.local_loss, q.distill_loss, q.accs, q.id_fraction)
+               for p, q in zip(gpu.rounds, cpu.rounds))
+    log(f"  {label}: {a_name} and {b_name} agree (losses rtol 1e-3, "
+        f"accuracies within a test sample) over {held} rounds; last round "
+        f"{a_name} {gpu.rounds[-1].local_loss:.6f}/"
+        f"{gpu.rounds[-1].distill_loss:.6f} {b_name} "
+        f"{cpu.rounds[-1].local_loss:.6f}/{cpu.rounds[-1].distill_loss:.6f}"
+        f" (local/distill loss), id fraction {a_name} "
+        f"{gpu.rounds[-1].id_fraction:.4f} {b_name} "
+        f"{cpu.rounds[-1].id_fraction:.4f}; round logs bitwise equal: "
+        f"{same}")
 
 
 def check_small_run():
@@ -936,6 +1291,22 @@ def check_small_run():
                     for p, q in zip(gpu.rounds, again.rounds)]
             log(f"  {method} {scenario} {dataset}: a second card run's "
                 f"round logs bitwise equal to the first's, by round: {same}")
+    # the cohort engine: one cohort of 4, and the mixed zoo's three (6
+    # clients; 9 in waves of 2, the last wave of each padded)
+    small = ["--clients", "4", "--rounds", "2", "--n-train", "800",
+             "--n-test", "200", "--engine", "cohort"]
+    for label, flags in (
+            ("edgefd strong", ["--method", "edgefd"]),
+            ("selective-fd strong", ["--method", "selective-fd"]),
+            ("fkd strong", ["--method", "fkd"]),
+            ("edgefd strong mixed zoo, 6 clients",
+             ["--zoo", "mixed", "--clients", "6"]),
+            ("edgefd strong mixed zoo, 9 clients, waves of 2",
+             ["--zoo", "mixed", "--clients", "9", "--wave-size", "2"])):
+        base = small + flags
+        gpu = fed_train(base + ["--device", "cuda"])
+        cpu = fed_train(base + ["--device", "cpu"])
+        compare_runs(f"cohort engine {label}", gpu, cpu, 200)
     cfg = FedConfig(method="edgefd", scenario="weak", num_clients=4,
                     rounds=2, proxy_batch=64, batch_size=16, seed=0)
     sizes = dict(n_train=800, n_test=200)
@@ -961,7 +1332,10 @@ def launch_counts():
     from repro_torch.kernels.kulsif_rbf import ops as rbf
     return {"lloyd_step": kd.lloyd_step_cuda,
             "min_dist_and_mask": kd.min_dist_and_mask_cuda,
+            "min_dist_and_mask_clients": kd.min_dist_and_mask_clients_cuda,
             "kd_kl_loss": kl.kd_kl_loss_cuda,
+            "kd_kl_loss_clients": kl.kd_kl_loss_clients_cuda,
+            "rbf_matrix_clients": rbf.rbf_matrix_clients_cuda,
             "kd_kl_fwd": kl.kd_kl_fwd_cuda,
             "kd_kl_bwd_ds": kl.kd_kl_bwd_ds_cuda,
             "kd_kl_bwd_dt": kl.kd_kl_bwd_dt_cuda,
@@ -999,16 +1373,26 @@ class DivergenceWatch:
     distillation phase, and keeps the phase of the first step whose loss
     is not finite. ``check`` runs that phase again in float64 from the
     saved state: a divergence under plain SGD leaves float32's range
-    there too (PERF.md §6), a fault of the float32 path does not."""
+    there too (PERF.md §6), a fault of the float32 path does not. On the
+    cohort engine it saves every lane's state at a cohort phase's start
+    and reads the step losses the phase reads back once. It counts the
+    rounds the scheduler finishes, so the first non-finite step's round
+    is known."""
 
     def __init__(self):
-        self.cur, self.first = None, None
+        self.cur, self.first, self.rounds = None, None, 0
 
     def __enter__(self):
         from repro_torch.fed.client import Client, Learner
+        from repro_torch.fed.scheduler import RoundScheduler
         self.orig = (Client.local_train, Learner.distill, Learner._step)
+        self.orig_finish = RoundScheduler._finish_round
         local, distill, step = self.orig
         watch = self
+
+        def finish(self, st):
+            watch.rounds += 1
+            return watch.orig_finish(self, st)
 
         def save(learner, phase, inputs, epochs, bs):
             # the loop engine runs one phase at a time: only the running
@@ -1034,19 +1418,77 @@ class DivergenceWatch:
             s["steps"].append(v)
             if watch.first is None and not finite(v):
                 watch.first, watch.first_step = s, len(s["steps"]) - 1
+                watch.first_round = watch.rounds
             return v
         Client.local_train, Learner.distill, Learner._step = (
             local_train, distill_, step_)
+        RoundScheduler._finish_round = finish
+        self._watch_cohorts()
         return self
+
+    def _watch_cohorts(self):
+        import torch
+        from repro_torch.fed.cohort import _Cohort
+        self.orig_cohort = (_Cohort.local_train, _Cohort.distill,
+                            _Cohort.distill_private, _Cohort._mean_losses)
+        local, distill, private, mean = self.orig_cohort
+        watch = self
+
+        def lanes(cohort, phase, inputs_of, epochs, bs):
+            # every lane's start: its client (model, optimizer, rng), its
+            # slice of the stacked state, its inputs
+            watch.cur = [{
+                "learner": c, "phase": phase, "inputs": inputs_of(c),
+                "epochs": epochs, "bs": bs,
+                "params": [torch.as_tensor(p[i]).detach().clone()
+                           for p in cohort.params],
+                "mu": [torch.as_tensor(m[i]).clone()
+                       for m in cohort.opt_state["mu"]],
+                "rng": c.rng.bit_generator.state}
+                for i, c in enumerate(cohort.members)]
+
+        def local_train(self, epochs, bs):
+            lanes(self, "local", lambda c: (c._x, c._y), epochs, bs)
+            return local(self, epochs, bs)
+
+        def distill_(self, px, teacher, weight, epochs, bs):
+            lanes(self, "distill", lambda c: (px, teacher, weight), epochs,
+                  bs)
+            return distill(self, px, teacher, weight, epochs, bs)
+
+        def private_(self, tbc, vbc, epochs, bs):
+            lanes(self, "distill", lambda c: (c._x, tbc[c._y],
+                                              vbc[c._y].float()), epochs, bs)
+            return private(self, tbc, vbc, epochs, bs)
+
+        def mean_(losses, valid):
+            for lane, (ls, vs) in enumerate(zip(losses, valid)):
+                steps = [float(v) for v, ok in zip(ls, vs) if ok]
+                bad = [i for i, v in enumerate(steps) if not finite(v)]
+                if watch.first is None and bad and watch.cur:
+                    watch.first = dict(watch.cur[lane], steps=steps)
+                    watch.first_step = bad[0]
+                    watch.first_round = watch.rounds
+            return mean(losses, valid)
+        _Cohort.local_train, _Cohort.distill = local_train, distill_
+        _Cohort.distill_private = private_
+        _Cohort._mean_losses = staticmethod(mean_)
 
     def __exit__(self, *exc):
         from repro_torch.fed.client import Client, Learner
+        from repro_torch.fed.cohort import _Cohort
+        from repro_torch.fed.scheduler import RoundScheduler
         Client.local_train, Learner.distill, Learner._step = self.orig
+        RoundScheduler._finish_round = self.orig_finish
+        (_Cohort.local_train, _Cohort.distill, _Cohort.distill_private,
+         mean) = self.orig_cohort
+        _Cohort._mean_losses = staticmethod(mean)
         self.cur = None
 
     def check(self, label):
         """None without a non-finite step loss; else the phase's name, once
-        float64 from the same state left float32's range in it."""
+        float64 from the same state left float32's range in it. The round
+        of that step is ``first_round``."""
         import copy
 
         import numpy as np
@@ -1303,11 +1745,15 @@ def run_main_path():
                     sorted(rbf_by_shape.by_key.items()) if k[1] != 256)
         + ")")
     return finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
-                            attn_batches) + (by_k, by_shape, by_class)
+                            attn_batches) + (by_k, by_shape, by_class,
+                                             results)
 
 
-def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
-    """One run of phase 6, its launches counted into per_run[label]."""
+def run_one(label, drive, wrappers, results, per_run, steps, attn_batches,
+            kl_name="kd_kl_loss"):
+    """One run of phase 6, its launches counted into per_run[label], its
+    distill steps (calls of ``core.distill.<kl_name>``) into
+    steps[label]."""
     import torch
     from repro_torch.core import distill
     from repro_torch.kernels import dispatch
@@ -1319,7 +1765,7 @@ def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
     # an image run's phases are saved as they start (a few MB a client),
     # so that a non-finite loss can be held to float64 after the run
     watch = DivergenceWatch() if "_like" in label else None
-    with CountedCalls(distill, "kd_kl_loss") as kl_steps, \
+    with CountedCalls(distill, kl_name) as kl_steps, \
             CountedCalls(dispatch, "flash_attention",
                          key=lambda q, *_: q.shape[0]) as attn, \
             watch or contextlib.nullcontext():
@@ -1330,7 +1776,10 @@ def run_one(label, drive, wrappers, results, per_run, steps, attn_batches):
     launches = {n: w.launches - before[n] for n, w in wrappers.items()}
     steps[label] = kl_steps.calls
     attn_batches[label] = dict(sorted(attn.by_key.items()))
-    check_finite(label, res, watch.check(label) if watch else None)
+    diverged = watch.check(label) if watch else None
+    check_finite(label, res, diverged)
+    # (where, round) of a shown divergence, for compare_runs
+    res.divergence = diverged and (diverged, watch.first_round)
     last = res.rounds[-1]
     student = ("" if last.server_student_acc is None
                else f", student acc {last.server_student_acc:.4f}")
@@ -1427,6 +1876,185 @@ def finish_main_path(runs, mlp_runs, counts, results, per_run, steps,
         raise AssertionError(f"edgefd strong final mean accuracy {final} "
                              "<= 0.7")
     return counts, by_batch
+
+
+# ------------------------------------------------------- phase 6, cohort
+# the cohort engine's feature runs at the main path's sizes, each held to
+# phase 6's loop run of the same configuration
+COHORT_RUNS = (("edgefd", "strong"), ("edgefd", "weak"),
+               ("selective-fd", "strong"), ("fkd", "strong"))
+# the scale run: the mixed zoo over 100 clients (cohorts of 34, 33, 33 at
+# hidden widths (256, 128), (128, 64), (512, 256)), 600 samples each (the
+# iid split; the strong one gives each client a class of its own and so
+# takes at most 10 clients), unwaved, in waves of 16, and on the loop
+# engine
+SCALE_CLIENTS, SCALE_WAVE = 100, 16
+
+
+def deterministic(drive):
+    """``drive()`` with cuDNN's deterministic algorithms (restored after)."""
+    import torch
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return drive()
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def run_cohort_path(loop_results):
+    """Phase 6 for the cohort engine, its launches counted from 0: the
+    feature runs against ``loop_results`` (phase 6's loop runs), the
+    100-client scale run three ways, and mnist_like edgefd strong and weak
+    (ten one-client cohorts) against loop runs, each pair with cuDNN's
+    deterministic algorithms. Asserts that each cohort's
+    Lloyd launches go one an iteration for the cohort (C > 1 in a uniform
+    cohort), B2 one launch a cohort a report and a calibration, B5 one
+    launch a Gram matrix a cohort a report, the fused loss one launch a
+    cohort a distill step. Returns (the path's counts, the launches by
+    client count C of B1, B2 and B5's batched routes)."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed.batching import steps_per_epoch
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
+    cfg0 = FedConfig()
+    common = ["--rounds", "3", "--n-test", "10000", "--proxy-batch", "512",
+              "--device", "cuda"]
+    feat = ["--clients", "10", "--n-train", "60000"] + common
+    scale = ["--method", "edgefd", "--scenario", "iid", "--zoo", "mixed",
+             "--clients", str(SCALE_CLIENTS), "--n-train", "60000"] + common
+    runs = [(f"cohort {m} {sc}", 1, lambda m=m, sc=sc: fed_train(
+        ["--method", m, "--scenario", sc, "--engine", "cohort"] + feat))
+        for m, sc in COHORT_RUNS]
+    runs += [
+        ("cohort scale, unwaved", 3, lambda: fed_train(
+            scale + ["--engine", "cohort"])),
+        ("cohort scale, waves of 16", 9, lambda: fed_train(
+            scale + ["--engine", "cohort", "--wave-size", str(SCALE_WAVE)])),
+        ("loop scale", 0, lambda: fed_train(scale)),
+    ]
+    # the image path, engine against engine, both with cuDNN's
+    # deterministic algorithms: its defaults add the convolutions' weight
+    # gradients in an order that changes from run to run, and over three
+    # full-size rounds (the strong split's through its divergence, ROADMAP
+    # C8) two runs of one engine part by more than the tolerances
+    for sc in ("strong", "weak"):
+        flags = ["--method", "edgefd", "--scenario", sc, "--dataset",
+                 "mnist_like"] + feat
+        runs += [(f"loop mnist_like edgefd {sc}, deterministic cuDNN", 0,
+                  lambda flags=flags: deterministic(lambda: fed_train(
+                      flags))),
+                 (f"cohort mnist_like edgefd {sc}, deterministic cuDNN", 10,
+                  lambda flags=flags: deterministic(lambda: fed_train(
+                      flags + ["--engine", "cohort"])))]
+    log("[6] the cohort engine's path: " + ", ".join(r[0] for r in runs)
+        + f" (scale: the mixed zoo, {SCALE_CLIENTS} clients, iid, n_train "
+        "60000; the rest 10 clients at the main path's sizes)")
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    results, per_run, steps, attn = {}, {}, {}, {}
+    # each batched route's calls by client count C (B2 also by class)
+    lloyd = CountedCalls(kd_ops, "lloyd_step",
+                         key=lambda x, c: x.shape[0] if x.ndim == 3 else 1,
+                         weight=lambda x, c: kd_ops.lloyd_launches(
+                             x.shape[-1]))
+    dist = CountedCalls(kd_ops, "min_dist_and_mask",
+                        key=lambda x, c, thr: (
+                            "calibration" if isinstance(thr, float)
+                            else "report", c.shape[0] if c.ndim == 3 else 1))
+    rbf = CountedCalls(rbf_ops, "rbf_matrix",
+                       key=lambda a, b, s: b.shape[0] if b.ndim == 3 else 1)
+    by_run = {}
+    for label, cohorts, drive in runs:
+        for cc in (lloyd, dist, rbf):
+            cc.by_key = {}
+        with lloyd, dist, rbf:
+            run_one(label, drive, wrappers, results, per_run, steps, attn,
+                    kl_name="kd_kl_loss" if label.startswith("loop")
+                    else "kd_kl_loss_clients")
+        by_run[label] = (dict(lloyd.by_key), dict(dist.by_key),
+                         dict(rbf.by_key))
+        log(f"  {label}: Lloyd launches by C {by_run[label][0]}, B2 calls "
+            f"by (class, C) {by_run[label][1]}, B5 calls by C "
+            f"{by_run[label][2]}")
+        if label.startswith("loop"):
+            continue
+        launches = per_run[label]
+        # the fused loss: one launch a cohort a distill step, and no 2-D
+        # or per-sample KL launch
+        if launches["kd_kl_loss_clients"] != steps[label] or not steps[label]:
+            raise AssertionError(f"{label}: {launches['kd_kl_loss_clients']}"
+                                 f" batched KL launches for {steps[label]} "
+                                 "cohort distill steps")
+        for name in ("kd_kl_loss", "kd_kl_fwd", "kd_kl_bwd_ds",
+                     "kd_kl_bwd_dt", "flash_attention"):
+            if launches[name]:
+                raise AssertionError(f"{label} launched {name} "
+                                     f"{launches[name]} times")
+        if "fkd" not in label:   # distill on the proxy batch: per cohort
+            waves = cohorts
+            want = (waves * 3 * cfg0.distill_epochs
+                    * steps_per_epoch(512, cfg0.batch_size))
+            if steps[label] != want:
+                raise AssertionError(f"{label}: {steps[label]} distill "
+                                     f"steps, not {want} ({waves} cohort "
+                                     "waves a round)")
+        l_by_c, d_by_c, r_by_c = by_run[label]
+        reports = sum(v for (kind, _), v in d_by_c.items()
+                      if kind == "report")
+        if "selective-fd" in label:
+            if r_by_c.get(10, 0) != 2 * 3:
+                raise AssertionError(f"{label}: B5 over clients {r_by_c}, "
+                                     "not two Gram matrices a report")
+        elif "fkd" not in label and reports != 3 * cohorts:
+            raise AssertionError(f"{label}: {reports} B2 report launches, "
+                                 f"not one a cohort wave a round")
+        if "scale" in label:
+            # uniform cohorts: the fit and the calibration batched
+            calib = {c: v for (kind, c), v in d_by_c.items()
+                     if kind == "calibration"}
+            if set(l_by_c) & {1} or set(calib) & {1} or \
+                    sum(calib.values()) != cohorts:
+                raise AssertionError(f"{label}: a per-client fit (Lloyd "
+                                     f"by C {l_by_c}, calibrations {calib})")
+    for name in ("lloyd_step", "min_dist_and_mask_clients",
+                 "kd_kl_loss_clients", "rbf_matrix_clients"):
+        if sum(per_run[r[0]][name] for r in runs) == 0:
+            raise AssertionError(f"the cohort path never launched {name}")
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for m, sc in COHORT_RUNS:
+        compare_runs(f"cohort {m} {sc} against the loop engine",
+                     results[f"cohort {m} {sc}"], loop_results[f"{m} {sc}"],
+                     10000, names=("cohort", "loop"))
+    un, wv = (results["cohort scale, unwaved"],
+              results["cohort scale, waves of 16"])
+    compare_runs("scale: waves of 16 against unwaved", wv, un, 10000,
+                 names=("waved", "unwaved"))
+    compare_runs("scale: cohort against the loop engine", un,
+                 results["loop scale"], 10000, names=("cohort", "loop"))
+    for sc in ("strong", "weak"):
+        det = f"mnist_like edgefd {sc}, deterministic cuDNN"
+        a, b = results[f"cohort {det}"], results[f"loop {det}"]
+        compare_runs(f"{det}: cohort against the loop engine", a, b, 10000,
+                     names=("cohort", "loop"),
+                     diverged=(a.divergence, b.divergence))
+    final = results["cohort edgefd strong"].final_acc
+    if not final > 0.7:
+        raise AssertionError(f"cohort edgefd strong final mean accuracy "
+                             f"{final} <= 0.7")
+    for label, _, _ in runs:
+        ph = {}
+        for r in results[label].rounds:
+            for k, v in r.phase_s.items():
+                ph[k] = ph.get(k, 0.0) + v
+        log(f"  {label}: round seconds "
+            + " ".join(f"{sum(r.phase_s.values()):.3f}"
+                       for r in results[label].rounds))
+    log(f"  launches on the cohort path: {counts}")
+    lloyd_c = sum(v for lb in by_run.values() for c, v in lb[0].items()
+                  if c > 1)
+    return counts, lloyd_c, by_run
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1727,6 +2355,129 @@ def measure_lloyd(counts, lloyd_err, by_dk):
     return row
 
 
+def measure_cohort(counts, lloyd_c, cohort_err):
+    """Phase 7 for the batched routes at the cohort's shapes: each per
+    call and device only, beside C launches of its 2-D route (one a
+    client, the loop engine's), its plain version over clients and, for
+    the fused loss, the library route; the bound of the whole launch.
+    Returns their JSON rows."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops as kl_ops
+    from repro_torch.kernels.distill_kl import ref as kl_ref
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kmeans_dist import ref as kd_ref
+    from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
+    from repro_torch.kernels.kulsif_rbf import ref as rbf_ref
+    log("  the cohort engine's routes, one launch for C clients, beside C "
+        "launches of the 2-D route")
+    rows = {}
+
+    def beside(label, per_client):
+        ms, dev = time_ms(per_client), device_ms(per_client)
+        log(f"    {label}: the 2-D route C times {ms:.5f}, device only "
+            f"{fmt(dev)}")
+
+    for c, n, d, k in ((34, 600, 50, 10), (10, 6000, 50, 1),
+                       (10, 6000, 50, 3)):
+        x, cents = lloyd_inputs(n, d, k, seed=1, c=c)
+        xs = [own(x[i:i + 1]) for i in range(c)]
+        cs = [own(cents[i:i + 1]) for i in range(c)]
+        moved, flops = lloyd_cost(n, d, k)
+        ms, plain_ms, b_ms, b_by, _ = time_row(
+            f"lloyd_step C={c} n={n} d={d} k={k} (one launch)",
+            lambda: kd_ops.lloyd_step_cuda(x, cents),
+            lambda: kd_ref.lloyd_step(x, cents), c * moved, c * flops)
+        beside(f"lloyd_step C={c}", lambda: [kd_ops.lloyd_step_cuda(a, b)
+                                              for a, b in zip(xs, cs)])
+        rows.setdefault("lloyd_step_clients", {
+            "name": "lloyd_step_clients", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lloyd_step.cu",
+            "replaces": "src/repro/kernels/kmeans_dist/kernel.py:113",
+            "launches": lloyd_c, "max_abs_err": cohort_err["lloyd"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    for c, t, d, k, shared in ((10, 512, 50, 1, True), (10, 512, 50, 3, True),
+                               (34, 512, 50, 10, True),
+                               (10, 6000, 50, 1, False),
+                               (34, 600, 50, 10, False)):
+        x, cents, thr = min_dist_clients_inputs(c, t, d, k, shared, seed=1)
+        moved, flops = dist_cost(t, d, k)
+        moved = c * moved - (c - 1) * 4 * t * d if shared else c * moved
+        kind = "report" if shared else "calibration"
+        ms, plain_ms, b_ms, b_by, _ = time_row(
+            f"min_dist_and_mask clients C={c} t={t} d={d} k={k} ({kind})",
+            lambda: kd_ops.min_dist_and_mask(x, cents, thr),
+            lambda: kd_ref.min_dist_and_mask(x, cents, thr), moved,
+            c * flops)
+        parts = [(own(x) if shared else own(x[i]), own(cents[i]),
+                  own(thr[i:i + 1])) for i in range(c)]
+        beside(f"min_dist_and_mask C={c} ({kind})",
+               lambda: [kd_ops.min_dist_and_mask_cuda(*p) for p in parts])
+        rows.setdefault("min_dist_and_mask_clients", {
+            "name": "min_dist_and_mask_clients", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/kmeans_dist.cu",
+            "replaces": "src/repro/kernels/kmeans_dist/kernel.py:48",
+            "launches": counts["min_dist_and_mask_clients"],
+            "max_abs_err": max(cohort_err["dist"].values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    for n, c, m, d in ((512, 10, 6000, 50), (512, 10, 256, 50),
+                       (512, 100, 600, 50)):
+        a, b0 = rbf_inputs(n, c * m, d, seed=1)
+        b = b0.reshape(c, m, d)
+        ms, plain_ms, b_ms, b_by, _ = time_row(
+            f"rbf_matrix clients n={n} C={c} m={m} d={d}",
+            lambda: rbf_ops.rbf_matrix(a, b, SIGMA),
+            lambda: rbf_ref.rbf_matrix(a, b, SIGMA), *rbf_cost(n, c * m, d))
+        bs = [own(b[i]) for i in range(c)]
+        beside(f"rbf_matrix C={c}",
+               lambda: [rbf_ops.rbf_matrix_cuda(a, v, SIGMA) for v in bs])
+        rows.setdefault("rbf_matrix_clients", {
+            "name": "rbf_matrix_clients", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rbf_matrix.cu",
+            "replaces": "src/repro/kernels/kulsif_rbf/kernel.py:32",
+            "launches": counts["rbf_matrix_clients"],
+            "max_abs_err": max(cohort_err["rbf"].values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    T = TEMPERATURE
+    for c, n, k in ((10, 64, 10), (34, 64, 10)):
+        g = torch.Generator().manual_seed(c)
+        s = (torch.randn((c, n, k), generator=g) * 3).cuda()
+        t = (torch.randn((c, n, k), generator=g) * 3).cuda()
+        w = kl_clients_weights(c, n, seed=1)
+        s_ = s.clone().requires_grad_(True)
+        moved = 4 * c * (3 * n * k + 2 * n + 1)
+        ms, plain_ms, b_ms, b_by, _ = time_row(
+            f"kd_kl_loss clients C={c} n={n} K={k} (loss, kl and ds)",
+            lambda: kl_ops.kd_kl_loss_clients_cuda(s, t, w, T),
+            lambda: torch.autograd.grad(kl_ref.kd_kl_loss(s_, t, T, w).sum(),
+                                        s_),
+            moved, c * (28 * n * k + 4 * n))
+
+        def library():
+            kl = torch.nn.functional.kl_div(
+                torch.log_softmax(s_ / T, -1), torch.log_softmax(t / T, -1),
+                reduction="none", log_target=True).sum(-1) * (T * T)
+            return torch.autograd.grad(kl_ref.weighted_mean(kl, w).sum(), s_)
+        lib_ms = time_ms(library)
+        log(f"    library (F.kl_div over clients, weighted means, autograd) "
+            f"{lib_ms:.5f}, device only {fmt(device_ms(library))}")
+        parts = [(own(s[i]), own(t[i]), own(w[i])) for i in range(c)]
+        beside(f"kd_kl_loss C={c}",
+               lambda: [kl_ops.kd_kl_loss_cuda(a, b, v, T)
+                        for a, b, v in parts])
+        rows.setdefault("kd_kl_loss_clients", {
+            "name": "kd_kl_loss_clients", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
+            "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
+            "launches": counts["kd_kl_loss_clients"],
+            "max_abs_err": max(cohort_err["kl"].values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms})
+    return list(rows.values())
+
+
 def time_kernels(label):
     """``--time-kernels``: B1 at each k and on its wide route, B2 at each of
     its shapes (a device threshold, which every tree's wrapper takes; at
@@ -1988,12 +2739,17 @@ def main(argv) -> int:
         + ", ".join(f"{h}: {fa_ops.short_route_occupancy(h)}"
                     for h in fa_ops.HEAD_DIMS))
 
-    lloyd_err, kl_err, dist_err, rbf_err, attn_err = check_kernels()
+    (lloyd_err, kl_err, dist_err, rbf_err, attn_err,
+     cohort_err) = check_kernels()
     check_kmeans_agreement()
+    check_kmeans_batched()
     check_small_run()
-    counts, attn_batches, by_k, by_shape, by_class = run_main_path()
+    (counts, attn_batches, by_k, by_shape, by_class,
+     loop_results) = run_main_path()
+    cohort_counts, lloyd_c, _ = run_cohort_path(loop_results)
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
+    rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)
 
     log(smi)
     print(json.dumps({"kernels": rows}))

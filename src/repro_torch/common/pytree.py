@@ -1,4 +1,5 @@
-"""Parameter-init helpers.
+"""Parameter-init helpers, and the stacked-parameter helpers of the cohort
+engine.
 
 Dense weights keep the reference's ``w (d_in, d_out)`` layout and are
 applied as ``x @ w + b``, so parameters exported from the JAX package load
@@ -8,7 +9,7 @@ reference's HWIO ones are transposed at load (``models.cnn``).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -39,3 +40,23 @@ def init_conv(c_in: int, c_out: int, k: int, *,
     std = math.sqrt(2.0 / (c_in * k * k))
     w = torch.randn((c_out, c_in, k, k), generator=generator) * std
     return {"w": w.to(device), "b": torch.zeros((c_out,), device=device)}
+
+
+# ---- stacked clients (the reference's cohort.py _stack_trees,
+# _unstack_tree, _where_tree), over lists of tensors
+
+def stack_trees(trees: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
+    """C lists of tensors -> one list of (C, ...) tensors."""
+    return [torch.stack(leaves) for leaves in zip(*trees)]
+
+
+def unstack_tree(tree: Sequence[torch.Tensor], i: int) -> List[torch.Tensor]:
+    """Row ``i`` of every stacked tensor (views)."""
+    return [leaf[i] for leaf in tree]
+
+
+def where_tree(flag: torch.Tensor, new: Sequence[torch.Tensor],
+               old: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Per client: ``new`` where ``flag`` (C,) is set, else ``old``."""
+    return [torch.where(flag.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+            for a, b in zip(new, old)]

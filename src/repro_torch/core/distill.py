@@ -33,6 +33,39 @@ def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                                sample_weight, backend=backend)
 
 
+def kd_kl_loss_clients(student_logits: torch.Tensor,
+                       teacher_logits: torch.Tensor,
+                       temperature: float = 3.0, sample_weight=None, *,
+                       backend: Optional[str] = None) -> torch.Tensor:
+    """``kd_kl_loss`` for each client of a cohort: (C, B, K) logits and a
+    (C, B) weight -> (C,), client c's loss over its own rows — the
+    reference's loss vmapped over clients, one launch of the fused kernel
+    on a CUDA tensor."""
+    return dispatch.kd_kl_loss(student_logits, teacher_logits, temperature,
+                               sample_weight, backend=backend)
+
+
+def kd_mse_loss_clients(student_logits: torch.Tensor,
+                        teacher_logits: torch.Tensor,
+                        sample_weight=None) -> torch.Tensor:
+    """``kd_mse_loss`` for each client: (C, B, K), weight (C, B) -> (C,)."""
+    se = torch.mean(torch.square(student_logits.to(torch.float32)
+                                 - teacher_logits.to(torch.float32)), dim=-1)
+    return _weighted_mean(se, sample_weight)
+
+
+def ce_loss_clients(logits: torch.Tensor, labels: torch.Tensor,
+                    sample_weight: torch.Tensor) -> torch.Tensor:
+    """Each client's weighted CE over its padded batch, as the reference's
+    cohort computes it: (C, B, K) logits, (C, B) labels and weights (0 on
+    pad slots) -> (C,), ``-Σ w·log p_y / max(Σ w, 1)``."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(logp, labels.to(torch.int64)[..., None],
+                              dim=-1)[..., 0]
+    return -(torch.sum(ll * sample_weight, dim=-1)
+             / torch.clamp_min(torch.sum(sample_weight, dim=-1), 1.0))
+
+
 def kd_mse_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                 sample_weight=None) -> torch.Tensor:
     """Mean-squared error on raw logits (FedMD-style digest matching)."""

@@ -21,7 +21,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.kmeans import kmeans_fit
+from repro_torch.core.kmeans import kmeans_fit, kmeans_fit_batched
 from repro_torch.kernels import dispatch
 
 
@@ -82,6 +82,65 @@ class KMeansDRE:
 
     def is_id(self, t: torch.Tensor) -> torch.Tensor:
         return self.distances_and_id(t)[1]
+
+
+def learn_kmeans_batched(dre: KMeansDRE, xs: torch.Tensor, *,
+                         generators=None, inits=None):
+    """``KMeansDRE.learn`` for C clients of one configuration at once
+    (``dre``'s centroid count, threshold, quantile, iterations, backend):
+    xs (C, n, d) -> (centroids (C, k, d), thresholds (C,)). One
+    ``kmeans_fit_batched`` (one Lloyd launch an iteration for all C) and,
+    without a fixed threshold, one estimation launch over every client's
+    own rows, then ``torch.quantile`` row by row — the reference cohort's
+    fast path (``repro.fed.cohort._Cohort.learn_dres``)."""
+    flat = xs.reshape(xs.shape[0], xs.shape[1], -1)
+    res = kmeans_fit_batched(flat, dre.num_centroids, dre.max_iter,
+                             generators=generators, inits=inits,
+                             backend=dre.kernel_backend)
+    if dre.threshold is None:
+        d, _ = dispatch.min_dist_and_mask(flat, res.centroids, math.inf,
+                                          backend=dre.kernel_backend)
+        thr = torch.quantile(d, dre.calibration_q, dim=1)
+    else:
+        thr = torch.full((xs.shape[0],), float(dre.threshold),
+                         dtype=torch.float32, device=xs.device)
+    return res.centroids, thr
+
+
+def kmeans_id_masks(centroids: torch.Tensor, thresholds: torch.Tensor,
+                    cids: torch.Tensor, proxy_x: torch.Tensor,
+                    proxy_owner: torch.Tensor,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """The two-stage filter of C KMeans-DRE clients on one proxy batch, one
+    estimation launch: centroids (C, k, d), thresholds (C,), client ids
+    (C,), proxy_x (t, d) flat, proxy_owner (t,) -> masks (C, t),
+    ``(owner == cid) | (distance <= threshold)`` (the reference cohort's
+    ``kmeans_mask_chunk``)."""
+    _, stage2 = dispatch.min_dist_and_mask(proxy_x, centroids, thresholds,
+                                           backend=backend)
+    return (proxy_owner[None, :] == cids[:, None]) | stage2
+
+
+def kulsif_id_masks(alpha: torch.Tensor, aux: torch.Tensor,
+                    private: torch.Tensor, n: torch.Tensor,
+                    thresholds: torch.Tensor, cids: torch.Tensor,
+                    sigma: float, lam: float, proxy_x: torch.Tensor,
+                    proxy_owner: torch.Tensor,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """The two-stage filter of C KuLSIF-DRE clients on one proxy batch:
+    alpha (C, m), aux (C, m, d), private sets (C, n_max, d) padded with
+    far-away sentinel rows (their kernel mass is exactly 0), private sizes
+    n (C,) f32, thresholds (C,), client ids (C,) -> masks (C, t), ``(owner
+    == cid) | (r >= threshold)`` with r the estimated ratio — the
+    reference cohort's ``kulsif_mask_chunk``; each Gram matrix is one
+    launch for all C clients."""
+    k_ta = dispatch.rbf_matrix(proxy_x, aux, sigma, backend=backend)
+    k_tp = dispatch.rbf_matrix(proxy_x, private, sigma, backend=backend)
+    # λ·n in f32, as the reference's vmap computes it
+    lam_n = torch.tensor(lam, dtype=torch.float32) * n
+    r = (torch.bmm(k_ta, alpha[..., None])[..., 0]
+         + torch.sum(k_tp, dim=2) / lam_n[:, None])
+    return (proxy_owner[None, :] == cids[:, None]) | (r >= thresholds[:, None])
 
 
 # ---------------------------------------------------------------------------

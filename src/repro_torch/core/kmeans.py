@@ -2,13 +2,14 @@
 
 The paper's KMeans-DRE learns centroid positions from a client's private
 data (Algorithm 1 line 3). Every Lloyd iteration is one
-``dispatch.lloyd_step`` (the fused CUDA kernel for a CUDA tensor), as in
-the reference's ``_kmeans_fit_pallas``; the update, convergence flag and
-iteration count follow ``repro.core.kmeans`` exactly.
+``dispatch.lloyd_step`` (the fused CUDA kernel for a CUDA tensor) for one
+client or, in ``kmeans_fit_batched``, for a cohort's C clients at once, as
+in the reference's ``_kmeans_fit_pallas``; the update, convergence flags
+and iteration counts follow ``repro.core.kmeans`` exactly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -20,7 +21,8 @@ class KMeansResult(NamedTuple):
     centroids: torch.Tensor     # (c, d)
     assignments: torch.Tensor   # (n,) int32
     inertia: torch.Tensor       # scalar — sum of squared distances
-    n_iter: int                 # iterations executed
+    n_iter: int                 # iterations executed (a list of C ints
+                                # from kmeans_fit_batched)
 
 
 def kmeans_plus_plus(x: torch.Tensor, k: int, *,
@@ -47,6 +49,51 @@ def kmeans_plus_plus(x: torch.Tensor, k: int, *,
     return x[torch.as_tensor(picks, device=x.device)]
 
 
+def kmeans_fit_batched(xs: torch.Tensor, k: int, max_iter: int = 50,
+                       tol: float = 1e-6, *,
+                       generators: Optional[Sequence[torch.Generator]] = None,
+                       inits=None,
+                       backend: Optional[str] = None) -> KMeansResult:
+    """Lloyd's algorithm for C clients at once: xs (C, n, d) -> a
+    ``KMeansResult`` whose fields carry a leading client axis (``n_iter`` a
+    list of C ints).
+
+    ``inits[c]`` (k, d) replaces client c's k-means++ seeding (a parity
+    harness hands in the reference's seeds); where it is None (or without
+    ``inits``), ``generators[c]`` seeds client c. Every
+    Lloyd iteration is one ``dispatch.lloyd_step`` for all C clients (the
+    kernel's client axis), as the reference's ``_kmeans_fit_pallas``; each
+    client keeps a ``done`` flag and an iteration count, a converged
+    client's centroids stay frozen (``torch.where``), and the loop stops
+    launching once every client has converged: one host read of
+    ``done.all()`` an iteration, not C. One more Lloyd step gives the
+    assignments, per-row distances and inertias."""
+    xs = xs.to(torch.float32)
+    c = xs.shape[0]
+    gens = [None] * c if generators is None else list(generators)
+    inits = [None] * c if inits is None else list(inits)
+    cents = torch.stack([
+        kmeans_plus_plus(xs[i], k, generator=gens[i]) if inits[i] is None
+        else torch.as_tensor(inits[i], dtype=torch.float32, device=xs.device)
+        for i in range(c)])
+    done = torch.zeros((c,), dtype=torch.bool, device=xs.device)
+    iters = torch.zeros((c,), dtype=torch.int64, device=xs.device)
+    for _ in range(max_iter):
+        _, _, sums, counts = dispatch.lloyd_step(xs, cents, backend=backend)
+        new = torch.where(counts[..., None] > 0,
+                          sums / torch.clamp_min(counts[..., None], 1.0),
+                          cents)
+        shift = torch.sum(torch.square(new - cents).reshape(c, -1), dim=1)
+        cents = torch.where(done[:, None, None], cents, new)
+        iters += (~done).to(torch.int64)
+        done = done | (shift < tol)
+        if bool(done.all()):
+            break
+    assign, min_d2, _, _ = dispatch.lloyd_step(xs, cents, backend=backend)
+    return KMeansResult(cents, assign, torch.sum(min_d2, dim=-1),
+                        iters.tolist())
+
+
 def kmeans_fit(x: torch.Tensor, k: int, max_iter: int = 50,
                tol: float = 1e-6, *,
                generator: Optional[torch.Generator] = None,
@@ -59,23 +106,14 @@ def kmeans_fit(x: torch.Tensor, k: int, max_iter: int = 50,
     keeps the reference's fixed-length semantics — an iteration whose shift
     falls below ``tol`` still applies its update and counts, later ones are
     no-ops — and simply stops launching once converged (one host read of
-    the shift per iteration). One more Lloyd step gives the assignment,
-    per-row distances and inertia."""
-    x = x.to(torch.float32)
-    cents = (kmeans_plus_plus(x, k, generator=generator) if init is None
-             else torch.as_tensor(init, dtype=torch.float32, device=x.device))
-    iters = 0
-    for _ in range(max_iter):
-        _, _, sums, counts = dispatch.lloyd_step(x, cents, backend=backend)
-        new = torch.where(counts[:, None] > 0,
-                          sums / torch.clamp_min(counts[:, None], 1.0), cents)
-        shift = torch.sum(torch.square(new - cents))
-        cents = new
-        iters += 1
-        if bool(shift < tol):
-            break
-    assign, min_d2, _, _ = dispatch.lloyd_step(x, cents, backend=backend)
-    return KMeansResult(cents, assign, torch.sum(min_d2), iters)
+    the convergence flag per iteration). It is ``kmeans_fit_batched`` for
+    one client, so a cohort's fit and a client's own take the same steps."""
+    res = kmeans_fit_batched(x[None], k, max_iter, tol,
+                             generators=[generator],
+                             inits=None if init is None else [init],
+                             backend=backend)
+    return KMeansResult(res.centroids[0], res.assignments[0],
+                        res.inertia[0], res.n_iter[0])
 
 
 def min_dist_to_centroids(x: torch.Tensor,

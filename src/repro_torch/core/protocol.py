@@ -7,8 +7,10 @@ filter only), then drives the rounds through the sync phase scheduler
 [server_distill →] distill → eval``, or ``local_train → eval`` for
 independent learning) and returns the per-round logs. ``LoopEngine``
 drives clients one at a time through the scheduler's per-phase entry
-points, as the reference's loop engine does. The cohort engine
-(``repro.fed.cohort``) is not ported yet (ROADMAP queue A item 5).
+points, as the reference's loop engine does; ``CohortEngine``
+(``repro_torch.fed.cohort``) stacks clients of one architecture and runs
+each phase as batched steps, and ``run_experiment`` writes its state back
+onto the clients at the end.
 """
 from __future__ import annotations
 
@@ -151,13 +153,34 @@ class LoopEngine:
         return [c.evaluate(x_d, y_d) for c in self.clients]
 
 
-def engine_from_config(clients: Sequence["Client"], cfg: FedConfig):
-    """The engine ``cfg.engine`` names, around a client list."""
-    if cfg.engine != "loop":
+def as_engine(clients: Sequence["Client"], engine: str = "loop", *,
+              num_devices: int = 0, wave_size: int = 0,
+              model_shards: int = 0):
+    """A client list as the engine ``engine`` names. ``wave_size`` streams
+    the cohort engine's client axis in waves (0: the whole axis on the
+    device); the device mesh (``num_devices``, ``model_shards``) is not
+    ported yet."""
+    if num_devices or model_shards:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet: ROADMAP queue A "
-            "item 5 (the cohort engine)")
+            "num_devices/model_shards is not ported yet: ROADMAP queue A "
+            "item 10 (multi-device)")
+    if engine == "cohort":
+        # lazy import: core must not import fed at load time
+        from repro_torch.fed.cohort import CohortEngine
+        return CohortEngine(clients, wave_size=wave_size)
+    if engine != "loop":
+        raise ValueError(f"unknown engine {engine!r}; known: loop, cohort")
+    if wave_size:
+        raise ValueError("wave_size requires engine='cohort' (the loop "
+                         "engine never stacks a client axis to stream)")
     return LoopEngine(clients)
+
+
+def engine_from_config(clients: Sequence["Client"], cfg: FedConfig):
+    """``as_engine`` with every engine-relevant ``FedConfig`` field."""
+    return as_engine(clients, cfg.engine,
+                     num_devices=cfg.num_devices, wave_size=cfg.wave_size,
+                     model_shards=cfg.model_shards)
 
 
 def run_experiment(clients, server: "Server", method_name: str,
@@ -175,5 +198,8 @@ def run_experiment(clients, server: "Server", method_name: str,
     y_test = torch.tensor(y_test, dtype=torch.int64, device=engine.device)
     logs = RoundScheduler(engine, server, method, cfg, x_test, y_test
                           ).run_rounds(0, cfg.rounds, progress=progress)
+    if hasattr(engine, "sync_to_clients"):
+        # an engine that trains stacked state hands it back to the clients
+        engine.sync_to_clients()
     return ExperimentResult(method=method_name, scenario=cfg.scenario,
                             rounds=logs)

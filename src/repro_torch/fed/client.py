@@ -106,11 +106,15 @@ class Client(Learner):
                  distill_loss: str = "kl", seed: int = 0,
                  kernel_backend: Optional[str] = None,
                  dre_init: Optional[np.ndarray] = None,
-                 dre_aux: Optional[np.ndarray] = None):
+                 dre_aux: Optional[np.ndarray] = None, arch_key=None):
         super().__init__(model, opt, np.random.default_rng(seed + 1000 * cid),
                          temperature=temperature, distill_loss=distill_loss,
                          kernel_backend=kernel_backend)
         self.cid = cid
+        # clients sharing an arch_key have the same model structure and
+        # share one optimizer instance: the cohort engine stacks them
+        # (None = a cohort of its own)
+        self.arch_key = arch_key
         self.x = np.asarray(x)
         self.y = np.asarray(y)
         # samples in their own kind (token ids stay integers for the

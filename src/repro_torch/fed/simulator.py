@@ -27,9 +27,11 @@ the JAX package builds, which is how the tests hold the port against a
 live reference run.
 
 Only the ported slice runs: every method of Table III on the image,
-feature and token datasets, the CNN zoo and the shared MLP zoo, the loop
-engine with sync rounds and full participation, and the flat server with
-the mean aggregate. ``run`` first refuses a malformed config with
+feature and token datasets, the CNN zoo and the shared and mixed MLP zoos
+(``zoo="mixed"``: three widths by ``cid % 3``, one optimizer and one
+``arch_key`` a width), the loop engine and, on image and feature data,
+the cohort engine (with wave streaming), sync rounds and full
+participation, and the flat server with the mean aggregate. ``run`` first refuses a malformed config with
 ``ValueError``, as the reference's does
 (``participation.validate_config``, then ``scheduler.validate_config``);
 ``check_slice`` then refuses everything else with
@@ -50,7 +52,8 @@ from repro_torch.core.methods import get_method
 from repro_torch.core.protocol import ExperimentResult, run_experiment
 from repro_torch.data.partition import partition
 from repro_torch.data.proxy import build_proxy
-from repro_torch.data.synthetic import Dataset, check_dataset, make_dataset
+from repro_torch.data.synthetic import (SPECS, Dataset, check_dataset,
+                                        make_dataset)
 from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
 from repro_torch.fed.scheduler import resolve_round_mode
@@ -102,14 +105,12 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
     ``KeyError`` for an unknown method)."""
     get_method(cfg.method)
     check_dataset(dataset_name)
+    resolve_zoo(cfg.zoo)
     refused = [
-        (cfg.engine != "loop", f"engine={cfg.engine!r}",
-         "5 (the cohort engine)"),
         (cfg.num_devices != 0 or cfg.model_shards != 0,
          "num_devices/model_shards", "10 (multi-device)"),
-        (cfg.wave_size != 0, "wave_size", "5 (the cohort engine)"),
-        (resolve_zoo(cfg.zoo) != "shared", "zoo='mixed'",
-         "5 (the cohort engine)"),
+        (cfg.engine == "cohort" and SPECS[dataset_name].seq_len > 0,
+         "token data on engine='cohort'", "5 (the cohort engine)"),
         (resolve_round_mode(cfg.round_mode) != "sync", "round_mode='overlap'",
          "6 (the full scheduler)"),
         (cfg.participation_fraction < 1.0, "participation_fraction < 1",
@@ -135,6 +136,15 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP queue A item {item}")
+
+
+def _mixed_hidden(mlp_hidden: Tuple[int, ...]) -> List[Tuple[int, ...]]:
+    """Three MLP widths for the mixed feature-mode zoo: the configured
+    hidden stack, a half-width and a double-width variant (clients cycle
+    through them by ``cid % 3``, giving three cohorts)."""
+    return [tuple(mlp_hidden),
+            tuple(max(4, v // 2) for v in mlp_hidden),
+            tuple(v * 2 for v in mlp_hidden)]
 
 
 def _centroids_for(scenario: str, num_labels: int, num_classes: int) -> int:
@@ -196,6 +206,9 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         def make_model(cid):
             spec, hw, ch = get_client_model(cid, img_ds)
             return spec.build(hw, ch, generator=init_gen, device=device)
+
+        def arch_key(cid):
+            return ("cnn", img_ds, cid % 10)           # Tables I/II slot
     elif token_mode:
         t_cfg = transformer_cfg or default_transformer_cfg(ds.num_classes)
         # drawn on the device: a full-width client is 436 M values
@@ -205,13 +218,25 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
             return TransformerClientModel(
                 t_cfg, generator=init_gen, device=device,
                 kernel_backend=cfg.kernel_backend)
+
+        def arch_key(cid):
+            return ("transformer", t_cfg.name)
     else:
+        # "shared": one MLP width for everyone; "mixed": three widths
+        # cycled by cid % 3, so the cohort engine sees three cohorts
         d_in = ds.x.shape[-1]
         init_gen = torch.Generator().manual_seed(cfg.seed)
+        variants = ([tuple(mlp_hidden)] if resolve_zoo(cfg.zoo) == "shared"
+                    else _mixed_hidden(tuple(mlp_hidden)))
 
         def make_model(cid):
-            return MLPClassifier(d_in, tuple(mlp_hidden), ds.num_classes,
-                                 generator=init_gen, device=device)
+            return MLPClassifier(d_in, variants[cid % len(variants)],
+                                 ds.num_classes, generator=init_gen,
+                                 device=device)
+
+        def arch_key(cid):
+            return ("mlp", d_in, *variants[cid % len(variants)],
+                    ds.num_classes)
     # one optimizer and one init stream shared by the whole population
     shared_opt = sgd(cfg.lr)
     clients: List[Client] = []
@@ -229,11 +254,12 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
             distill_loss=method.distill_loss, seed=cfg.seed,
             kernel_backend=cfg.kernel_backend,
             dre_init=None if kmeans_inits is None else kmeans_inits[cid],
-            dre_aux=None if kulsif_aux is None else kulsif_aux[cid]))
+            dre_aux=None if kulsif_aux is None else kulsif_aux[cid],
+            arch_key=arch_key(cid)))
     if method.server_distill:
-        # the FedDF student (client 0's architecture) is drawn after the
-        # client loop, as in the reference, so the clients' inits do not
-        # depend on the method
+        # the FedDF student (client 0's architecture, the configured MLP
+        # width on feature data) is drawn after the client loop, as in the
+        # reference, so the clients' inits do not depend on the method
         student = make_model(0)
         if student_params is not None:
             student.load_jax_params(student_params)

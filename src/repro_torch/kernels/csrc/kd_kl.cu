@@ -222,7 +222,10 @@ __device__ __forceinline__ float weight_denominator(const float* w, int n,
 }
 
 // The fused loss: per-sample kl, the weighted mean and its gradient for
-// the student, one launch. One warp per row, LOSS_ROWS rows a block.
+// the student, one launch. One warp per row, LOSS_ROWS rows a block; the
+// grid's y axis is the client: client c's operands and outputs are its
+// own slices (rows n c .. n c + n - 1, its loss, its partial sums and its
+// ticket), so its blocks compute exactly what a launch for it alone does.
 template <class Row>
 __global__ void __launch_bounds__(LOSS_ROWS * WARP)
     kd_kl_loss(const float* __restrict__ s, const float* __restrict__ t,
@@ -232,6 +235,15 @@ __global__ void __launch_bounds__(LOSS_ROWS * WARP)
                unsigned* __restrict__ ticket) {
   __shared__ float red[LOSS_ROWS];
   __shared__ bool is_last;
+  const size_t client = blockIdx.y;
+  s += client * n * K;
+  t += client * n * K;
+  if (w != nullptr) w += client * n;
+  kl += client * n;
+  loss += client;
+  if (want_ds) ds += client * n * K;
+  partials += client * gridDim.x;
+  ticket += client;
   const int lane = threadIdx.x % WARP;
   const int row =
       static_cast<int>(blockIdx.x) * LOSS_ROWS + threadIdx.x / WARP;
@@ -283,11 +295,11 @@ __global__ void __launch_bounds__(LOSS_ROWS * WARP)
 }
 
 template <class Row>
-int launch_loss(const void* s, const void* t, const void* w, int n, int K,
-                float T, int want_ds, void* kl, void* loss, void* ds,
+int launch_loss(const void* s, const void* t, const void* w, int C, int n,
+                int K, float T, int want_ds, void* kl, void* loss, void* ds,
                 void* partials, void* ticket, cudaStream_t stream) {
   const int blocks = (n + LOSS_ROWS - 1) / LOSS_ROWS;
-  kd_kl_loss<Row><<<blocks, LOSS_ROWS * WARP, 0, stream>>>(
+  kd_kl_loss<Row><<<dim3(blocks, C), LOSS_ROWS * WARP, 0, stream>>>(
       static_cast<const float*>(s), static_cast<const float*>(t),
       static_cast<const float*>(w), n, K, T, want_ds,
       static_cast<float*>(kl), static_cast<float*>(loss),
@@ -338,14 +350,33 @@ int repro_kd_kl_bwd_dt(const void* s, const void* t, const void* g, int n,
 // loss (1,) f32; ds (n, K) f32 when want_ds, else unused (may be null);
 // partials (ceil(n / 16),) f32 scratch; ticket one unsigned, zero between
 // launches (the kernel leaves it so), used by one stream at a time.
+int repro_kd_kl_loss_clients(const void* s, const void* t, const void* w,
+                             int C, int n, int K, float T, int want_ds,
+                             void* kl, void* loss, void* ds, void* partials,
+                             void* tickets, void* stream);
+
 int repro_kd_kl_loss(const void* s, const void* t, const void* w, int n,
                      int K, float T, int want_ds, void* kl, void* loss,
                      void* ds, void* partials, void* ticket, void* stream) {
+  return repro_kd_kl_loss_clients(s, t, w, 1, n, K, T, want_ds, kl, loss, ds,
+                                  partials, ticket, stream);
+}
+
+// C clients in one launch: s, t (C, n, K) f32; w (C, n) f32 or null; kl
+// (C, n), loss (C,) f32, client c's loss the weighted mean over its own
+// rows; ds (C, n, K) when want_ds; partials (C, ceil(n / 16)) f32
+// scratch; tickets C unsigned, zero between launches. Client c's outputs
+// are bit for bit those of a repro_kd_kl_loss launch on its slices.
+int repro_kd_kl_loss_clients(const void* s, const void* t, const void* w,
+                             int C, int n, int K, float T, int want_ds,
+                             void* kl, void* loss, void* ds, void* partials,
+                             void* tickets, void* stream) {
+  if (C < 1 || C > 65535 || n < 1 || K < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int v = (K + WARP - 1) / WARP;  // elements a lane holds
-#define REPRO_LOSS(ROW)                                                 \
-  launch_loss<ROW>(s, t, w, n, K, T, want_ds, kl, loss, ds, partials, \
-                   ticket, st)
+#define REPRO_LOSS(ROW)                                                    \
+  launch_loss<ROW>(s, t, w, C, n, K, T, want_ds, kl, loss, ds, partials, \
+                   tickets, st)
   if (v <= 1) return REPRO_LOSS(RegRow<1>);
   if (v <= 2) return REPRO_LOSS(RegRow<2>);
   if (v <= 4) return REPRO_LOSS(RegRow<4>);

@@ -4,7 +4,9 @@
 //
 // Replaces: src/repro/kernels/kmeans_dist/kernel.py:48, kmeans_dist_pallas
 // (body _kernel): x (t, d) f32, centroids (k, d) f32, a scalar threshold ->
-// (t,) f32 distances and a (t,) mask (int8 there, bool here).
+// (t,) f32 distances and a (t,) mask (int8 there, bool here); over a
+// client axis as the reference's cohort engine vmaps it
+// (src/repro/fed/cohort.py:430, :543).
 //
 // What bounds it on an H100: nothing on the card. The filter's path runs
 // t = 512 proxy rows (lm_tokens: 256) at d = 50 (16) against k <= 10
@@ -40,6 +42,13 @@
 //  * The threshold: a device scalar read where it lies (a threshold
 //    calibrated on the device costs no host read), or a value passed with
 //    the launch (the calibration's infinite one: no copy to the device).
+//  * Clients: the grid's y axis. A launch takes C clients' centroids and
+//    thresholds against one shared x (a cohort's report on the round's
+//    proxy batch) or against each client's own rows (a cohort's
+//    calibration). A block computes exactly what it computes in a launch
+//    for its client alone, so each client's outputs are those bits; only
+//    the operands' alignment picks the route, and the wrapper keeps every
+//    client's operands 16-byte aligned.
 //  * Rows past t are masked in the kernel (no padding copy). Fixed orders
 //    of summation: two runs give the same bits.
 #include <cuda_runtime.h>
@@ -100,10 +109,10 @@ __device__ __forceinline__ void unpack(const typename Vec<V>::T& v, float* o) {
 }
 
 struct Thr {
-  const float* ptr;  // a device scalar, or null: take value
+  const float* ptr;  // one device scalar a client, or null: take value
   float value;
-  __device__ __forceinline__ float load() const {
-    return ptr != nullptr ? __ldg(ptr) : value;
+  __device__ __forceinline__ float load(int client) const {
+    return ptr != nullptr ? __ldg(ptr + client) : value;
   }
 };
 
@@ -130,8 +139,8 @@ template <int KT, int V, bool STAGE, int D>
 __global__ void __launch_bounds__(WARP)
     narrow_kernel(const float* __restrict__ x,
                   const float* __restrict__ cents, Thr thr_in, int t,
-                  int d_arg, int k, float* __restrict__ dist,
-                  unsigned char* __restrict__ mask) {
+                  int d_arg, int k, long long x_cs, long long c_cs,
+                  float* __restrict__ dist, unsigned char* __restrict__ mask) {
   static_assert(D == 0 || STAGE, "a compiled width is staged");
   constexpr int LPR = lanes_a_row<D>();
   using VT = typename Vec<V>::T;
@@ -152,8 +161,14 @@ __global__ void __launch_bounds__(WARP)
   const int h = lane % LPR;                       // and part of it
   const int row0 = blockIdx.x * RPB;
   const int rows = min(RPB, t - row0);
-  const float thr = thr_in.load();
-  const float* xb = x + static_cast<size_t>(row0) * d;
+  // the client (grid y): its rows x_cs floats on (0: x shared by every
+  // client), its centroids c_cs floats on, its outputs t on
+  const int client = blockIdx.y;
+  const float thr = thr_in.load(client);
+  cents += client * c_cs;
+  dist += static_cast<size_t>(client) * t;
+  mask += static_cast<size_t>(client) * t;
+  const float* xb = x + client * x_cs + static_cast<size_t>(row0) * d;
   const bool c16 = (reinterpret_cast<uintptr_t>(cents) & 15) == 0;
 
   const float* xrow;  // this lane's row
@@ -327,7 +342,7 @@ struct DistMask {
   unsigned char* mask;
   Thr thr_in;
   float thr;
-  __device__ __forceinline__ void begin() { thr = thr_in.load(); }
+  __device__ __forceinline__ void begin() { thr = thr_in.load(blockIdx.y); }
   __device__ __forceinline__ void operator()(size_t row, float best,
                                              int) const {
     const float md = sqrtf(best);
@@ -351,10 +366,20 @@ long long smem_bytes(int d, int k) {
   return f * sizeof(float);
 }
 
+// The operands of a launch: C clients' centroids (c_cs floats apart) and
+// thresholds, their rows (x_cs floats apart, or one x for all: x_cs 0).
+struct Args {
+  const float* x;
+  const float* c;
+  Thr thr;
+  int C, t, d, k;
+  long long x_cs, c_cs;
+  float* dist;
+  unsigned char* mask;
+};
+
 template <int KT, int V, bool STAGE, int D>
-cudaError_t launch_narrow(const float* x, const float* c, Thr thr, int t,
-                          int d, int k, float* dist, unsigned char* mask,
-                          cudaStream_t s) {
+cudaError_t launch_narrow(const Args& a, cudaStream_t s) {
   // opt in once per device to the shared memory a launch may use
   static bool allowed[MAX_DEVICES] = {};
   auto kernel = narrow_kernel<KT, V, STAGE, D>;
@@ -368,20 +393,17 @@ cudaError_t launch_narrow(const float* x, const float* c, Thr thr, int t,
     if (dev >= 0 && dev < MAX_DEVICES) allowed[dev] = true;
   }
   constexpr int RPB = WARP / lanes_a_row<D>();
-  kernel<<<(t + RPB - 1) / RPB, WARP, smem_bytes(d, k), s>>>(
-      x, c, thr, t, d, k, dist, mask);
+  kernel<<<dim3((a.t + RPB - 1) / RPB, a.C), WARP, smem_bytes(a.d, a.k), s>>>(
+      a.x, a.c, a.thr, a.t, a.d, a.k, a.x_cs, a.c_cs, a.dist, a.mask);
   return cudaGetLastError();
 }
 
 // D > 0: a width the kernel is compiled for (the main path's)
 template <int V, int D>
-cudaError_t narrow_by_k(const float* x, const float* c, Thr thr, int t,
-                        int d, int k, float* dist, unsigned char* mask,
-                        cudaStream_t s) {
-#define REPRO_NARROW(KT, STAGE, DD) \
-  launch_narrow<KT, V, STAGE, DD>(x, c, thr, t, d, k, dist, mask, s)
-  if (k > KT_MAX) return REPRO_NARROW(KT_MAX, false, 0);
-  switch (pass_width(k)) {
+cudaError_t narrow_by_k(const Args& a, cudaStream_t s) {
+#define REPRO_NARROW(KT, STAGE, DD) launch_narrow<KT, V, STAGE, DD>(a, s)
+  if (a.k > KT_MAX) return REPRO_NARROW(KT_MAX, false, 0);
+  switch (pass_width(a.k)) {
     case 1: return REPRO_NARROW(1, true, D);
     case 2: return REPRO_NARROW(2, true, D);
     case 3: return REPRO_NARROW(3, true, D);
@@ -393,18 +415,51 @@ cudaError_t narrow_by_k(const float* x, const float* c, Thr thr, int t,
 }
 
 template <int KT>
-cudaError_t launch_wide(const float* x, const float* c, Thr thr, int t, int d,
-                        int k, float* dist, unsigned char* mask,
-                        cudaStream_t s) {
+cudaError_t launch_wide(const Args& a, cudaStream_t s) {
   kmeans_rows::wide_rows_kernel<KT, DistMask>
-      <<<dim3(kmeans_rows::wide_blocks(t), 1), kmeans_rows::W_THREADS, 0,
-         s>>>(x, c, t, d, k, DistMask{dist, mask, thr, 0.f});
+      <<<dim3(kmeans_rows::wide_blocks(a.t), a.C), kmeans_rows::W_THREADS, 0,
+         s>>>(a.x, a.c, a.t, a.d, a.k, static_cast<size_t>(a.x_cs),
+              static_cast<size_t>(a.c_cs), DistMask{a.dist, a.mask, a.thr, 0.f});
   return cudaGetLastError();
+}
+
+int min_dist_mask(const Args& a, cudaStream_t s) {
+  if (a.C < 1 || a.C > 65535 || a.t < 1 || a.d < 1 || a.k < 1 ||
+      a.x_cs < 0 || a.c_cs < 0 || smem_bytes(a.d, a.k) > MAX_SHARED)
+    return cudaErrorInvalidValue;
+  if (a.d > MAX_D) {
+    if (a.k <= 4) return launch_wide<4>(a, s);
+    if (a.k <= 12) return launch_wide<12>(a, s);
+    return launch_wide<KT_MAX>(a, s);
+  }
+  // the rows' vector reads: as wide as d and the alignment of every
+  // client's operands allow
+  const uintptr_t align = reinterpret_cast<uintptr_t>(a.x) |
+                          reinterpret_cast<uintptr_t>(a.c) |
+                          static_cast<uintptr_t>(a.x_cs * 4) |
+                          static_cast<uintptr_t>(a.c_cs * 4);
+  if (a.d % 4 == 0 && (align & 15) == 0) {
+    if (a.d == 16)  // lm_tokens' flattened samples
+      return narrow_by_k<4, 16>(a, s);
+    return narrow_by_k<4, 0>(a, s);
+  }
+  if (a.d % 2 == 0 && (align & 7) == 0) {
+    if (a.d == 50 && (align & 15) == 0)  // the feature path's rows
+      return narrow_by_k<2, 50>(a, s);
+    return narrow_by_k<2, 0>(a, s);
+  }
+  return narrow_by_k<1, 0>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
+
+int repro_min_dist_mask_clients(const void* x, const void* cents,
+                                const void* threshold_ptr,
+                                float threshold_value, int C, long long x_cs,
+                                long long c_cs, int t, int d, int k,
+                                void* dist, void* mask, void* stream);
 
 // Dynamic shared memory a launch for (d, k) needs, in bytes (0: none).
 long long repro_min_dist_smem_bytes(int d, int k) { return smem_bytes(d, k); }
@@ -417,33 +472,28 @@ int repro_min_dist_mask(const void* x, const void* cents,
                         const void* threshold_ptr, float threshold_value,
                         int t, int d, int k, void* dist, void* mask,
                         void* stream) {
-  if (t < 1 || d < 1 || k < 1 || smem_bytes(d, k) > MAX_SHARED)
-    return cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* cf = static_cast<const float*>(cents);
-  const Thr thr{static_cast<const float*>(threshold_ptr), threshold_value};
-  float* df = static_cast<float*>(dist);
-  unsigned char* mf = static_cast<unsigned char*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > MAX_D) {
-    if (k <= 4) return launch_wide<4>(xf, cf, thr, t, d, k, df, mf, s);
-    if (k <= 12) return launch_wide<12>(xf, cf, thr, t, d, k, df, mf, s);
-    return launch_wide<KT_MAX>(xf, cf, thr, t, d, k, df, mf, s);
-  }
-  // the rows' vector reads: as wide as d and the operands' alignment allow
-  const uintptr_t align =
-      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(cents);
-  if (d % 4 == 0 && (align & 15) == 0) {
-    if (d == 16)  // lm_tokens' flattened samples
-      return narrow_by_k<4, 16>(xf, cf, thr, t, d, k, df, mf, s);
-    return narrow_by_k<4, 0>(xf, cf, thr, t, d, k, df, mf, s);
-  }
-  if (d % 2 == 0 && (align & 7) == 0) {
-    if (d == 50 && (align & 15) == 0)  // the feature path's rows
-      return narrow_by_k<2, 50>(xf, cf, thr, t, d, k, df, mf, s);
-    return narrow_by_k<2, 0>(xf, cf, thr, t, d, k, df, mf, s);
-  }
-  return narrow_by_k<1, 0>(xf, cf, thr, t, d, k, df, mf, s);
+  return repro_min_dist_mask_clients(x, cents, threshold_ptr,
+                                     threshold_value, 1, 0, 0, t, d, k, dist,
+                                     mask, stream);
+}
+
+// C clients in one launch: client c's rows at x + c * x_cs floats (x_cs
+// 0: one x (t, d) for every client), its centroids (k, d) at cents + c *
+// c_cs, its threshold threshold_ptr[c] (or threshold_value for all);
+// dist and mask (C, t). Client c's outputs are bit for bit those of a
+// repro_min_dist_mask launch on its own operands at the same alignment
+// (x_cs and c_cs multiples of 4 keep the 16-byte routes).
+int repro_min_dist_mask_clients(const void* x, const void* cents,
+                                const void* threshold_ptr,
+                                float threshold_value, int C, long long x_cs,
+                                long long c_cs, int t, int d, int k,
+                                void* dist, void* mask, void* stream) {
+  const Args a{static_cast<const float*>(x),
+               static_cast<const float*>(cents),
+               Thr{static_cast<const float*>(threshold_ptr), threshold_value},
+               C, t, d, k, x_cs, c_cs, static_cast<float*>(dist),
+               static_cast<unsigned char*>(mask)};
+  return min_dist_mask(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_error_string(int code) {

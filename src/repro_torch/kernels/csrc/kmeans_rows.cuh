@@ -68,12 +68,14 @@ constexpr int W_FC = 256;                 // features a stage
 constexpr int W_U = W_FC / WARP;          // features a lane a stage
 
 // Rows of x (C, n, d) against centroids (C, k, d), for any d: calls
-// out(row index into (C, n), min d2, its argmin) once a row.
+// out(row index into (C, n), min d2, its argmin) once a row. Client c's
+// rows start x_cs floats after client c - 1's (0: one x for every
+// client), its centroids c_cs floats after.
 template <int KT, class Out>
 __global__ void __launch_bounds__(W_THREADS)
     wide_rows_kernel(const float* __restrict__ x,
                      const float* __restrict__ cents, int n, int d, int k,
-                     const Out out_arg) {
+                     size_t x_cs, size_t c_cs, const Out out_arg) {
   constexpr int CU = KT * W_FC / W_THREADS;  // stage floats a thread
   __shared__ float s_c[2][KT][W_FC];
   Out out = out_arg;
@@ -83,8 +85,8 @@ __global__ void __launch_bounds__(W_THREADS)
   const int lane = tid % WARP;
   const int warp = tid / WARP;
   const int r0 = blockIdx.x * W_ROWS + warp * W_RW;
-  const float* xc = x + static_cast<size_t>(client) * n * d;
-  const float* cc = cents + static_cast<size_t>(client) * k * d;
+  const float* xc = x + client * x_cs;
+  const float* cc = cents + client * c_cs;
   // rows past n read the last row; their results are dropped
   const float* xr[W_RW];
 #pragma unroll

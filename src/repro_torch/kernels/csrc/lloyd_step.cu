@@ -20,8 +20,12 @@
 //    ticket, sums the partials in block order and resets the ticket. No
 //    float atomics: two launches on the same inputs give the same bits.
 //  * A grid that fills the card: a client's rows are cut into one block
-//    per SM (clients share the SMs), or fewer, longer blocks where the
-//    last block's sum would read more than a budget of partials.
+//    per SM, or fewer, longer blocks where the last block's sum would read
+//    more than a budget of partials, and at least 64 rows a block. The
+//    cut depends on the client's shape only, never on C, so each client's
+//    sums are added in the same order, and come out in the same bits, as
+//    in a launch for it alone (the cohort engine's fit equals the loop
+//    engine's); C clients make C times the blocks.
 //  * 16-byte loads: a block's rows are one contiguous range of x, staged
 //    in shared memory by float4 loads, several in flight a thread.
 //  * Distances for k <= 16: lanes over rows, warps over feature slices.
@@ -71,6 +75,7 @@ constexpr int MAX_D = 64;              // the narrow route's widest row
 constexpr int WIDE_MAX_D = 4096;
 constexpr int MAX_K = 64;
 constexpr int STAGE_ROWS = 128;         // rows of x in shared memory at once
+constexpr int MIN_BLOCK_ROWS = 64;      // fewest rows a block takes (n allowing)
 // partials the last block may sum: the split path is latency-bound, so
 // fewer, longer blocks pay there; the lane path's rows cost more
 constexpr int REDUCE_FLOATS_SPLIT = 32768;
@@ -536,18 +541,18 @@ int sm_count() {
 
 // Rows a block takes: a multiple of g (so every block's range, and each
 // of its stages, starts 16-byte aligned when the client's rows do), cut
-// so the clients' blocks spread over the SMs (one block each), with fewer,
-// longer blocks where the last block's sum would read more partials than
-// the budget.
-int rows_per_block(int C, int n, int d, int k) {
+// so one client's blocks spread over the SMs (one block each), with
+// fewer, longer blocks where the last block's sum would read more partials
+// than the budget, and none under MIN_BLOCK_ROWS rows (a small client's
+// blocks would pay the centroids' staging and a partial's write for a few
+// rows each); the same for any number of clients.
+int rows_per_block(int n, int d, int k) {
   const int g = (d % 4 == 0) ? 1 : (d % 2 == 0) ? 2 : 4;
   const int op = pitch(d, k);
   const int budget = k <= SPLIT_K ? REDUCE_FLOATS_SPLIT : REDUCE_FLOATS_LANES;
   const int nb_max = budget / op > 1 ? budget / op : 1;
-  int target = sm_count() / C;
-  if (target < 1) target = 1;
-  if (target > nb_max) target = nb_max;
-  const int rpb = (n + target - 1) / target;
+  const int target = sm_count() < nb_max ? sm_count() : nb_max;
+  const int rpb = max((n + target - 1) / target, MIN_BLOCK_ROWS);
   return (rpb + g - 1) / g * g;
 }
 
@@ -570,7 +575,7 @@ cudaError_t launch(const float* x, const float* cents, int C, int n, int d,
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < MAX_DEVICES) attr_set[dev] = true;
   }
-  const int rpb = rows_per_block(C, n, d, k);
+  const int rpb = rows_per_block(n, d, k);
   const int blocks = (n + rpb - 1) / rpb;
   const size_t smem = smem_floats(d, k, KP, WARPS) * sizeof(float);
   lloyd_step_kernel<KP><<<dim3(blocks, C), WARPS * WARP, smem, s>>>(
@@ -598,10 +603,12 @@ struct AssignOut {
 };
 
 // Row groups the sums pass cuts a client's rows into: enough blocks of
-// (slice, group) for about two an SM, none under S_MIN_ROWS rows.
-int sum_groups(int C, int n, int d) {
+// (slice, group) for about two an SM for one client, none under
+// S_MIN_ROWS rows; the same for any number of clients (so each client's
+// sums are added in the order of a launch for it alone).
+int sum_groups(int n, int d) {
   const int slices = (d + WARP - 1) / WARP;
-  const int want = (2 * sm_count() + slices * C - 1) / (slices * C);
+  const int want = (2 * sm_count() + slices - 1) / slices;
   const int most = (n + S_MIN_ROWS - 1) / S_MIN_ROWS;
   return max(1, min(want, most));
 }
@@ -731,18 +738,22 @@ cudaError_t launch_wide(const float* x, const float* cents, int C, int n,
   }
   const dim3 grid(kmeans_rows::wide_blocks(n), C);
   const AssignOut out{assign, min_d2};
+  const size_t xs = static_cast<size_t>(n) * d, cs = static_cast<size_t>(k) * d;
   if (k <= 4)
     kmeans_rows::wide_rows_kernel<4, AssignOut>
-        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, xs, cs,
+                                                 out);
   else if (k <= 12)
     kmeans_rows::wide_rows_kernel<12, AssignOut>
-        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, xs, cs,
+                                                 out);
   else
     kmeans_rows::wide_rows_kernel<16, AssignOut>
-        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, out);
+        <<<grid, kmeans_rows::W_THREADS, 0, s>>>(x, cents, n, d, k, xs, cs,
+                                                 out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wide_sums_kernel<<<dim3((d + WARP - 1) / WARP, sum_groups(C, n, d), C),
+  wide_sums_kernel<<<dim3((d + WARP - 1) / WARP, sum_groups(n, d), C),
                      S_WARPS * WARP, S_WARPS * k * S_PITCH * sizeof(float),
                      s>>>(x, assign, n, d, k, sums, counts, partials,
                           tickets);
@@ -770,8 +781,8 @@ int repro_lloyd_tickets(int C, int d) {
 long long repro_lloyd_scratch_floats(int C, int n, int d, int k) {
   if (d > MAX_D)
     return static_cast<long long>(C) * ((d + WARP - 1) / WARP) *
-           sum_groups(C, n, d) * k * S_PITCH;
-  const int rpb = rows_per_block(C, n, d, k);
+           sum_groups(n, d) * k * S_PITCH;
+  const int rpb = rows_per_block(n, d, k);
   return static_cast<long long>(C) * ((n + rpb - 1) / rpb) * pitch(d, k);
 }
 

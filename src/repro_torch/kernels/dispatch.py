@@ -8,6 +8,9 @@ distillation loss and its gradient, and the transformer clients'
 attention) exists twice: a hand-written CUDA
 kernel for Hopper (``repro_torch.kernels.*.ops``) and its plain PyTorch
 version (``repro_torch.kernels.*.ref``). This module is the switch between them.
+The Lloyd step, the estimation step, the Gram matrix and the KL loss also
+take a client axis (the cohort engine's stacked clients, one launch for
+all of them), as the reference's cohort engine vmaps them.
 
 Backends
 --------
@@ -123,7 +126,10 @@ def min_dist_and_mask(x, centroids, threshold, *,
     """KMeans-DRE's estimation step: x (t, d), centroids (k, d) ->
     ``(dist (t,) f32, mask (t,) bool)``, the distance of each row to its
     nearest centroid and ``dist <= threshold``. ``threshold`` is a float or
-    a one-element tensor; the kernel reads a tensor where it lies."""
+    a one-element tensor; the kernel reads a tensor where it lies.
+
+    Over a client axis: centroids (C, k, d), ``threshold`` a float or a
+    (C,) tensor, x shared (t, d) or per client (C, t, d) -> (C, t) each."""
     if resolve(backend) == "cuda":
         from repro_torch.kernels.kmeans_dist import ops as kd_ops
         return kd_ops.min_dist_and_mask(x, centroids, threshold)
@@ -132,7 +138,8 @@ def min_dist_and_mask(x, centroids, threshold, *,
 
 def rbf_matrix(a, b, sigma, *, backend: Optional[str] = None):
     """RBF Gram matrix K(a, b), (n, d) × (m, d) -> (n, m) f32: the
-    KuLSIF-DRE learn/estimate hot spot. ``sigma`` is a Python float."""
+    KuLSIF-DRE learn/estimate hot spot. ``sigma`` is a Python float. Over
+    a client axis: one shared a (n, d) against b (C, m, d) -> (C, n, m)."""
     if resolve(backend) == "cuda":
         from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
         return rbf_ops.rbf_matrix(a, b, sigma)
@@ -143,7 +150,8 @@ def kd_kl_loss(student_logits, teacher_logits, temperature: float,
                sample_weight=None, *, backend: Optional[str] = None):
     """One distill step's temperature-KL loss: the mean of the per-sample
     T²·KL over (n, K) logits, weighted by ``sample_weight`` (n,) when
-    given -> 0-d.
+    given -> 0-d; over a client axis, (C, n, K) logits and a (C, n) weight
+    -> (C,), each client's loss over its own rows.
 
     Differentiable on both backends: the kernel route is an
     ``autograd.Function`` whose one forward launch also writes the

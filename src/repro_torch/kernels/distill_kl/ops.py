@@ -5,9 +5,11 @@ Two public, differentiable ops; each takes its plain version
 neither on the CPU nor on a CUDA device:
 
 * ``kd_kl_loss``: one distill step's loss, the weighted mean of the
-  per-sample T²·KL. For a CUDA tensor it runs ``KdKlLossFunction``: one
-  launch of the fused kernel writes the loss and the student's gradient,
-  and the backward multiplies that gradient by the cotangent.
+  per-sample T²·KL, for one learner (n, K) or for each client of a cohort
+  (C, n, K). For a CUDA tensor it runs ``KdKlLossFunction``: one launch
+  of the fused kernel writes the loss and the student's gradient (every
+  client's, with the client on the grid's y axis), and the backward
+  multiplies that gradient by the cotangent.
 * ``kd_kl_per_sample``: the per-sample T²·KL, kernels B3 and B4 one for
   one (``KdKlFunction``: forward kernel, backward kernels).
 
@@ -36,10 +38,13 @@ def _lib() -> ctypes.CDLL:
     lib.repro_kd_kl_bwd_dt.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
     lib.repro_kd_kl_loss.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32,
                                      ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.repro_kd_kl_loss_clients.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                             f32, i32, ptr, ptr, ptr, ptr,
+                                             ptr, ptr]
     lib.repro_kd_kl_noop.argtypes = [ptr]
     for fn in (lib.repro_kd_kl_fwd, lib.repro_kd_kl_bwd_ds,
                lib.repro_kd_kl_bwd_dt, lib.repro_kd_kl_loss,
-               lib.repro_kd_kl_noop):
+               lib.repro_kd_kl_loss_clients, lib.repro_kd_kl_noop):
         fn.restype = ctypes.c_int
     return lib
 
@@ -137,18 +142,19 @@ class KdKlFunction(torch.autograd.Function):
 # rows per block of the fused loss (LOSS_ROWS in csrc/kd_kl.cu): one
 # partial sum per block
 LOSS_ROWS = 16
-# (device index, stream handle) -> the fused loss's ticket, one int32 that
-# is zero between launches; one per stream, so launches on two streams of
-# a card never share it
+# (device index, stream handle) -> the fused loss's tickets, one int32 a
+# client, zero between launches; one set per stream, so launches on two
+# streams of a card never share them
 _tickets: dict = {}
 
 
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+def _ticket(device: torch.device, stream: int, clients: int = 1
+            ) -> torch.Tensor:
     key = (device.index, stream)
     ticket = _tickets.get(key)
-    if ticket is None:
-        ticket = _tickets[key] = torch.zeros((1,), dtype=torch.int32,
-                                             device=device)
+    if ticket is None or len(ticket) < clients:
+        ticket = _tickets[key] = torch.zeros((max(clients, 1),),
+                                             dtype=torch.int32, device=device)
     return ticket
 
 
@@ -200,6 +206,56 @@ def kd_kl_loss_cuda(student: torch.Tensor, teacher: torch.Tensor,
 kd_kl_loss_cuda.launches = 0
 
 
+def kd_kl_loss_clients_cuda(student: torch.Tensor, teacher: torch.Tensor,
+                            sample_weight, temperature: float,
+                            want_ds: bool = True):
+    """The fused kernel over a client axis, one launch: (C, n, K) f32
+    logits and an optional (C, n) f32 weight -> ``(loss (C,), kl (C, n),
+    ds (C, n, K) or None)``, client c's loss the weighted mean over its own
+    rows. Client c's outputs are bit for bit ``kd_kl_loss_cuda`` on its
+    slices. The operands must lie on the current device."""
+    require_cuda(student, "kd_kl_loss")
+    if student.ndim != 3 or student.numel() == 0:
+        raise ValueError("kd_kl_loss over clients takes non-empty (C, n, K) "
+                         f"logits, got {tuple(student.shape)}")
+    c, n, k = student.shape
+    dev = student.device
+    check_operand(teacher, "teacher", dtype=torch.float32, shape=(c, n, k),
+                  device=dev)
+    check_operand(student, "student", dtype=torch.float32, shape=(c, n, k),
+                  device=dev)
+    if sample_weight is not None:
+        check_operand(sample_weight, "sample_weight", dtype=torch.float32,
+                      shape=(c, n), device=dev)
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"kd_kl_loss: operands on {dev}, but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one allocation: ds (C·n·K), kl (C·n), the losses (C), each client's
+    # partial sums (C·blocks)
+    n_ds = c * n * k if want_ds else 0
+    blocks = -(-n // LOSS_ROWS)
+    buf = torch.empty((n_ds + c * n + c + c * blocks,), dtype=torch.float32,
+                      device=dev)
+    base = buf.data_ptr()
+    lib = _lib()
+    code = lib.repro_kd_kl_loss_clients(
+        student.data_ptr(), teacher.data_ptr(),
+        None if sample_weight is None else sample_weight.data_ptr(), c, n, k,
+        float(temperature), int(want_ds), base + 4 * n_ds,
+        base + 4 * (n_ds + c * n), base if want_ds else None,
+        base + 4 * (n_ds + c * n + c), _ticket(dev, stream, c).data_ptr(),
+        stream)
+    build.check(lib, code, "kd_kl_loss")
+    kd_kl_loss_clients_cuda.launches += 1
+    ds = buf.as_strided((c, n, k), (n * k, k, 1)) if want_ds else None
+    return (buf.as_strided((c,), (1,), n_ds + c * n),
+            buf.as_strided((c, n), (n, 1), n_ds), ds)
+
+
+kd_kl_loss_clients_cuda.launches = 0
+
+
 def noop_cuda(device: torch.device) -> None:
     """An empty kernel through the same C interface: the launch floor
     that ``chip_smoke.py`` times beside the fused loss (not counted)."""
@@ -209,20 +265,23 @@ def noop_cuda(device: torch.device) -> None:
 
 
 class KdKlLossFunction(torch.autograd.Function):
-    """The weighted-mean T²·KL loss through the fused kernel.
+    """The weighted-mean T²·KL loss through the fused kernel: (n, K) logits
+    -> 0-d, or over a client axis (C, n, K) -> (C,), each client's loss
+    over its own rows (a cohort's distill step, one launch).
 
     The forward launches it once and keeps the student's gradient for a
     unit cotangent, so the backward is ``ds * g``, no launch of ours. Only
     when the teacher needs a gradient (never in federated distillation,
-    where it is the server's constant) does the backward launch the
-    per-sample dt kernel with the mean's per-sample cotangent. The weight
-    is not differentiated."""
+    where it is the server's constant; (n, K) logits only) does the
+    backward launch the per-sample dt kernel with the mean's per-sample
+    cotangent. The weight is not differentiated."""
 
     @staticmethod
     def forward(ctx, student, teacher, sample_weight, temperature: float):
-        loss, _, ds = kd_kl_loss_cuda(student, teacher, sample_weight,
-                                      temperature,
-                                      want_ds=ctx.needs_input_grad[0])
+        fused = kd_kl_loss_cuda if student.ndim == 2 else \
+            kd_kl_loss_clients_cuda
+        loss, _, ds = fused(student, teacher, sample_weight, temperature,
+                            want_ds=ctx.needs_input_grad[0])
         ctx.temperature = temperature
         if ctx.needs_input_grad[1]:
             ctx.save_for_backward(ds, student, teacher, sample_weight)
@@ -233,7 +292,9 @@ class KdKlLossFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ds, *operands = ctx.saved_tensors
-        d_student = ds * g if ctx.needs_input_grad[0] else None
+        # over clients, a client's cotangent scales its own rows
+        gs = g if g.ndim == 0 else g[:, None, None]
+        d_student = ds * gs if ctx.needs_input_grad[0] else None
         d_teacher = None
         if ctx.needs_input_grad[1]:
             student, teacher, w = operands
@@ -257,11 +318,16 @@ def kd_kl_loss(student: torch.Tensor, teacher: torch.Tensor,
                temperature: float, sample_weight=None) -> torch.Tensor:
     """Differentiable loss of one distill step: the mean of the
     per-sample T²·KL(teacher_T ∥ student_T) weighted by ``sample_weight``
-    (n,), or the plain mean without it. (n, K) logits -> 0-d.
-    ``temperature`` is a Python float (never differentiated)."""
+    (n,), or the plain mean without it. (n, K) logits -> 0-d; over a
+    client axis, (C, n, K) logits and a (C, n) weight -> (C,), one launch
+    for every client. ``temperature`` is a Python float (never
+    differentiated)."""
     if student.device.type == "cpu":
         return ref.kd_kl_loss(student, teacher, temperature, sample_weight)
     require_cuda(student, "kd_kl_loss")
+    if student.ndim == 3 and teacher.requires_grad:
+        raise ValueError("kd_kl_loss: over clients the kernel route does "
+                         "not differentiate the teacher")
     if sample_weight is not None:
         if sample_weight.requires_grad:
             raise ValueError("kd_kl_loss: the kernel route does not "

@@ -24,7 +24,14 @@ def kd_kl_per_sample(student_logits: torch.Tensor,
 
 
 def weighted_mean(v: torch.Tensor, sample_weight=None) -> torch.Tensor:
-    """sum(v·w) / max(sum(w), 1), or the plain mean without a weight."""
+    """sum(v·w) / max(sum(w), 1), or the plain mean without a weight: over
+    all of v (n,), or over each row of v (C, n) -> (C,)."""
+    if v.ndim > 1:
+        if sample_weight is None:
+            return torch.mean(v, dim=-1)
+        w = sample_weight.to(torch.float32)
+        return (torch.sum(v * w, dim=-1)
+                / torch.clamp_min(torch.sum(w, dim=-1), 1.0))
     if sample_weight is None:
         return torch.mean(v)
     w = sample_weight.to(torch.float32)
@@ -33,6 +40,8 @@ def weighted_mean(v: torch.Tensor, sample_weight=None) -> torch.Tensor:
 
 def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                temperature: float, sample_weight=None) -> torch.Tensor:
-    """Weighted mean of the per-sample T²·KL: (n, K), weight (n,) -> 0-d."""
+    """Weighted mean of the per-sample T²·KL: (n, K), weight (n,) -> 0-d;
+    or each client's over its own rows: (C, n, K), weight (C, n) -> (C,),
+    the reference's loss vmapped over a cohort's clients."""
     return weighted_mean(kd_kl_per_sample(student_logits, teacher_logits,
                                           temperature), sample_weight)

@@ -2,7 +2,8 @@
 (``csrc/lloyd_step.cu``) and the filter's min-distance estimation step
 (``csrc/kmeans_dist.cu``).
 
-``lloyd_step`` and ``min_dist_and_mask`` are the public ops: the kernel
+``lloyd_step`` and ``min_dist_and_mask`` are the public ops (each also
+over a client axis, one launch for C clients): the kernel
 for a CUDA tensor, the plain version (``ref``) for a CPU tensor, and an
 error for anything else. Each ``*_cuda`` wrapper checks its operands,
 allocates its outputs (and scratch) with ``torch.empty``, launches on the
@@ -68,6 +69,11 @@ def _dist_lib() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p] * 3)
     lib.repro_min_dist_mask.restype = ctypes.c_int
+    lib.repro_min_dist_mask_clients.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 3)
+    lib.repro_min_dist_mask_clients.restype = ctypes.c_int
     lib.repro_min_dist_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.repro_min_dist_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -215,10 +221,89 @@ def min_dist_and_mask_cuda(x: torch.Tensor, centroids: torch.Tensor,
 min_dist_and_mask_cuda.launches = 0
 
 
+def _client_rows(a: torch.Tensor, c: int):
+    """``a`` (C, ...) f32 as a (C, s) buffer whose client rows start on 16
+    bytes: itself when its own are (s a multiple of 4 floats, the base
+    16-byte aligned), else a padded copy. Returns (buffer, s)."""
+    per = a[0].numel()
+    if per % 4 == 0 and a.data_ptr() % 16 == 0:
+        return a, per
+    s = -(-per // 4) * 4
+    buf = torch.zeros((c, s), dtype=torch.float32, device=a.device)
+    buf[:, :per] = a.reshape(c, per)
+    return buf, s
+
+
+def min_dist_and_mask_clients_cuda(x: torch.Tensor, centroids: torch.Tensor,
+                                   threshold):
+    """Launch the estimation kernel once for C clients: centroids (C, k, d)
+    and x shared (t, d) or per client (C, t, d), all f32, contiguous and
+    on the current CUDA device; ``threshold`` a Python float for every
+    client, or a (C,) f32 tensor on that device, read there. Returns
+    (dist (C, t) f32, mask (C, t) bool); client c's are bit for bit
+    ``min_dist_and_mask_cuda`` on its own (16-byte aligned) operands:
+    client rows that would not start on 16 bytes are copied to ones that
+    do, so every client takes the route its own launch would."""
+    require_cuda(x, "min_dist_and_mask")
+    if centroids.ndim != 3 or x.ndim not in (2, 3):
+        raise ValueError("min_dist_and_mask over clients takes centroids "
+                         "(C, k, d) and x (t, d) or (C, t, d)")
+    c, k, d = centroids.shape
+    t = x.shape[-2]
+    dev = x.device
+    f32 = torch.float32
+    check_operand(centroids, "centroids", dtype=f32, shape=(c, k, d),
+                  device=dev)
+    check_operand(x, "x", dtype=f32,
+                  shape=(t, d) if x.ndim == 2 else (c, t, d), device=dev)
+    if isinstance(threshold, torch.Tensor):
+        check_operand(threshold, "threshold", dtype=f32, shape=(c,),
+                      device=dev)
+        thr_ptr, thr_value = threshold.data_ptr(), 0.0
+    else:
+        thr_ptr, thr_value = None, float(threshold)
+    if min(c, t, d, k) == 0:
+        raise ValueError(f"min_dist_and_mask: empty operand x "
+                         f"{tuple(x.shape)}, centroids "
+                         f"{tuple(centroids.shape)}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"min_dist_and_mask: operands on {dev}, but the "
+                         f"current device is cuda:{torch.cuda.current_device()}")
+    lib = _dist_lib()
+    smem = _dist_smem(d, k)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"min_dist_and_mask: {k} centroids of width {d} need {smem} "
+            f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    cb, c_cs = _client_rows(centroids, c)
+    if x.ndim == 3:
+        xb, x_cs = _client_rows(x, c)
+    else:
+        xb, x_cs = (x, 0) if x.data_ptr() % 16 == 0 else (x.clone(), 0)
+    n = c * t
+    buf = torch.empty((n + (n + 3) // 4,), dtype=f32, device=dev)
+    dist = buf[:n].view(c, t)
+    mask = buf.view(torch.bool)[4 * n:5 * n].view(c, t)
+    code = lib.repro_min_dist_mask_clients(
+        xb.data_ptr(), cb.data_ptr(), thr_ptr, thr_value, c, x_cs, c_cs, t,
+        d, k, dist.data_ptr(), mask.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    build.check(lib, code, "min_dist_and_mask")
+    min_dist_and_mask_clients_cuda.launches += 1
+    return dist, mask
+
+
+min_dist_and_mask_clients_cuda.launches = 0
+
+
 def min_dist_and_mask(x: torch.Tensor, centroids: torch.Tensor, threshold):
     """KMeans-DRE's estimation step: x (t, d), centroids (k, d), threshold
     a float or a one-element tensor -> (distance of each row to its nearest
     centroid (t,) f32, ID mask distance <= threshold (t,) bool).
+
+    Over a client axis (one launch): centroids (C, k, d), thresholds a
+    float or a (C,) tensor, and x shared (t, d) or per client (C, t, d)
+    -> (C, t) distances and masks.
 
     On a CUDA tensor a threshold tensor on that device is read there by the
     kernel (no host read); a float, or a tensor on the CPU, goes with the
@@ -226,6 +311,15 @@ def min_dist_and_mask(x: torch.Tensor, centroids: torch.Tensor, threshold):
     if x.device.type == "cpu":
         return ref.min_dist_and_mask(x, centroids, threshold)
     require_cuda(x, "min_dist_and_mask")
+    if centroids.ndim == 3:
+        if not (isinstance(threshold, torch.Tensor)
+                and threshold.device == x.device):
+            thr = float(threshold)
+        else:
+            thr = threshold.to(torch.float32).reshape(-1).contiguous()
+        return min_dist_and_mask_clients_cuda(
+            x.to(torch.float32).contiguous(),
+            centroids.to(torch.float32).contiguous(), thr)
     if isinstance(threshold, torch.Tensor) and threshold.device == x.device:
         thr = threshold.to(torch.float32).reshape(1)
     else:

@@ -1,8 +1,9 @@
 """Wrapper of the RBF Gram-matrix CUDA kernel (``csrc/rbf_matrix.cu``).
 
-``rbf_matrix`` is the public op: the kernel for a CUDA tensor, the plain
-version (``ref.rbf_matrix``) for a CPU tensor, and an error for anything
-else. ``rbf_matrix_cuda`` checks its operands, allocates the output with
+``rbf_matrix`` is the public op, also over a client axis (one shared a
+against C clients' b, one launch): the kernel for a CUDA tensor, the
+plain version (``ref.rbf_matrix``) for a CPU tensor, and an error for
+anything else. ``rbf_matrix_cuda`` checks its operands, allocates the output with
 ``torch.empty``, launches on the current stream and counts its launches in
 ``rbf_matrix_cuda.launches``.
 """
@@ -36,13 +37,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def rbf_matrix_cuda(a: torch.Tensor, b: torch.Tensor,
-                    sigma: float) -> torch.Tensor:
-    """Launch the kernel on a (n, d) and b (m, d), both f32, contiguous and
-    on one CUDA device; ``sigma`` a Python float. Returns (n, m) f32: a
-    view whose rows are padded to a multiple of 8 floats (so that every
-    row starts on a 32-byte sector, which the kernel's stores need to fill
-    whole sectors), contiguous when m is such a multiple."""
+def _launch(a: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
+    """One launch on a (n, d) and b (m, d) (uncounted): the (n, m) view."""
     require_cuda(a, "rbf_matrix")
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("rbf_matrix_cuda takes a (n, d) and b (m, d)")
@@ -66,19 +62,52 @@ def rbf_matrix_cuda(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), n, m, d, 2.0 * sigma * sigma,
             out.data_ptr(), ldo, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "rbf_matrix")
-    rbf_matrix_cuda.launches += 1
     return out if ldo == m else out[:, :m]
+
+
+def rbf_matrix_cuda(a: torch.Tensor, b: torch.Tensor,
+                    sigma: float) -> torch.Tensor:
+    """Launch the kernel on a (n, d) and b (m, d), both f32, contiguous and
+    on one CUDA device; ``sigma`` a Python float. Returns (n, m) f32: a
+    view whose rows are padded to a multiple of 8 floats (so that every
+    row starts on a 32-byte sector, which the kernel's stores need to fill
+    whole sectors), contiguous when m is such a multiple."""
+    out = _launch(a, b, sigma)
+    rbf_matrix_cuda.launches += 1
+    return out
 
 
 rbf_matrix_cuda.launches = 0
 
 
+def rbf_matrix_clients_cuda(a: torch.Tensor, b: torch.Tensor,
+                            sigma: float) -> torch.Tensor:
+    """One launch for C clients: a (n, d) shared, b (C, m, d), both f32,
+    contiguous and on one CUDA device -> (C, n, m) f32, a view of one
+    (n, C·m) matrix (the kernel's launch on b's rows stacked) whose rows
+    are padded as ``rbf_matrix_cuda``'s. Every entry is computed from its
+    own row of a and of b, so client c's (n, m) slice is bit for bit
+    ``rbf_matrix_cuda(a, b[c], sigma)``."""
+    require_cuda(a, "rbf_matrix")
+    if b.ndim != 3:
+        raise ValueError("rbf_matrix over clients takes b (C, m, d)")
+    c, m, d = b.shape
+    out = _launch(a, b.reshape(c * m, d), sigma)
+    rbf_matrix_clients_cuda.launches += 1
+    return out.view(a.shape[0], c, m).transpose(0, 1)
+
+
+rbf_matrix_clients_cuda.launches = 0
+
+
 def rbf_matrix(a: torch.Tensor, b: torch.Tensor, sigma) -> torch.Tensor:
     """RBF Gram matrix exp(−‖a_i − b_j‖² / (2σ²)): a (n, d), b (m, d) ->
-    (n, m) f32. The kernel tiles the output by shape and keeps the cross
-    term in IEEE fp32, with the plain version's matmul form."""
+    (n, m) f32; or one shared a against C clients' b (C, m, d) -> (C, n,
+    m), in one launch. The kernel tiles the output by shape and keeps the
+    cross term in IEEE fp32, with the plain version's matmul form."""
     if a.device.type == "cpu":
         return ref.rbf_matrix(a, b, sigma)
     require_cuda(a, "rbf_matrix")
-    return rbf_matrix_cuda(a.to(torch.float32).contiguous(),
-                           b.to(torch.float32).contiguous(), float(sigma))
+    launch = rbf_matrix_clients_cuda if b.ndim == 3 else rbf_matrix_cuda
+    return launch(a.to(torch.float32).contiguous(),
+                  b.to(torch.float32).contiguous(), float(sigma))

@@ -14,6 +14,16 @@ Tables I/II CNN zoo); the client count and the rounds come from the
 config. Everything else — partition, proxy set, batch order,
 proxy draws — comes from numpy streams both packages share.
 
+The engine is the config's: ``engine="cohort"`` runs the reference's
+cohort engine and the port's (``zoo="mixed"``: three MLP widths, three
+cohorts on each side, each client's parameters at its own width). The
+reference's cohort fits its uniform cohorts' KMeans-DREs from the seeds
+``jax.random.fold_in(key, pos)`` draws (``repro/fed/cohort.py:495``), the
+same seeds its loop engine draws for client ``pos``: the harness exports
+them once, and the port fits every client, stacked or not, from them.
+``assert_params_match`` holds each client's final parameters, written
+back from the cohort's stacked state, to the reference's.
+
 Tolerances, per round (``assert_logs_match``):
   * local, distill and server-student distill losses within rtol 1e-4
     (float32 matmuls in two libraries, a few SGD steps apart);
@@ -150,6 +160,26 @@ def near_threshold_pairs(ref: Reference, port: Run) -> int:
                 | (np.abs(s_p - t_p) <= NEAR_THRESHOLD_REL * abs(t_p)))
         total += int((near & (proxy.owner != i)).sum())
     return total
+
+
+def cohort_config(method: str, scenario: str, **overrides) -> dict:
+    """``config`` on the cohort engine."""
+    return config(method, scenario, engine="cohort", **overrides)
+
+
+def assert_params_match(ref: Reference, port: Run, rtol: float = 1e-3,
+                        atol: float = 1e-4) -> None:
+    """Every MLP client's final weights and biases (the reference's layer
+    list against the port's ``MLPClassifier``), within float32 noise of
+    two libraries over the run's SGD steps."""
+    for rc, pc in zip(ref.clients, port.clients):
+        layers = rc.params
+        assert len(layers) == len(pc.model.weights)
+        for p, w, b in zip(layers, pc.model.weights, pc.model.biases):
+            np.testing.assert_allclose(w.detach().numpy(), np.asarray(p["w"]),
+                                       rtol=rtol, atol=atol)
+            np.testing.assert_allclose(b.detach().numpy(), np.asarray(p["b"]),
+                                       rtol=rtol, atol=atol)
 
 
 def assert_logs_match(kw: dict, dataset: str = "mnist_feat",

@@ -5,6 +5,7 @@ C7).
 
     python tests/_torch_threshold_repeat.py
     python tests/_torch_threshold_repeat.py --child CARD THREADS
+    python tests/_torch_threshold_repeat.py --count N JOBS
 
 The first form needs a CUDA device: it runs the test's CPU half in 204
 processes (100 one after another at the default thread count, 80 four at
@@ -14,7 +15,10 @@ record as a JSON line after "record ", and then each distinct CPU
 threshold with its count and the runs' thread counts. The second form is
 one such run (the card half first when CARD is 1; THREADS 0 keeps
 torch's default), its record printed as JSON; with CARD 0 it runs on a
-host without a card.
+host without a card. The third form runs ``--child 0 0`` in N processes,
+JOBS at a time, on a host with or without a card, and prints each
+distinct CPU threshold with its count, then the count that differs from
+the most common one.
 """
 from __future__ import annotations
 
@@ -184,10 +188,44 @@ def threshold_repeat():
             f"1e-3: {sorted({r['learn_rows_off_1e-3'] for r in group})}")
 
 
+def threshold_count(n: int, jobs: int) -> None:
+    """``--child 0 0`` in ``n`` processes, ``jobs`` at a time: the CPU
+    thresholds at torch's default thread count, counted."""
+    import concurrent.futures as cf
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    argv = [sys.executable, str(Path(__file__).resolve()), "--child", "0",
+            "0"]
+
+    def child(_):
+        res = subprocess.run(argv, env=env, capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode:
+            raise AssertionError(f"{argv}: {res.stderr[-2000:]}")
+        return json.loads(res.stdout.splitlines()[-1])
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(jobs) as pool:
+        recs = list(pool.map(child, range(n)))
+    values = {}
+    for rec in recs:
+        values.setdefault(f"{rec['cpu']:.7f}", []).append(rec)
+    for v, group in sorted(values.items(), key=lambda kv: -len(kv[1])):
+        log(f"  CPU threshold {v}: {len(group)} of {n} processes; rows off "
+            f"by > 1e-3 in learn's calibration: "
+            f"{sorted({r['learn_rows_off_1e-3'] for r in group})}")
+    common = max(len(g) for g in values.values())
+    log(f"{n - common} of {n} processes differ from the most common "
+        f"threshold ({jobs} at a time, {recs[0]['threads']} threads each, "
+        f"{time.perf_counter() - t0:.0f} s)")
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     if argv[:1] == ["--child"] and len(argv) == 3:
         print(json.dumps(threshold_child(bool(int(argv[1])), int(argv[2]))))
+        return 0
+    if argv[:1] == ["--count"] and len(argv) == 3:
+        threshold_count(int(argv[1]), int(argv[2]))
         return 0
     if argv:
         print(__doc__, file=sys.stderr)

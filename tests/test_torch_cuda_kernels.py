@@ -109,8 +109,9 @@ def test_kd_kl_autograd_runs_the_kernels(smoke, teacher_grad):
     after = {n: w.launches for n, w in smoke.launch_counts().items()}
     # fwd and ds once, dt only when the teacher needs a gradient
     assert {n: after[n] - before[n] for n in after} == {
-        "lloyd_step": 0, "min_dist_and_mask": 0, "kd_kl_loss": 0,
-        "kd_kl_fwd": 1,
+        "lloyd_step": 0, "min_dist_and_mask": 0,
+        "min_dist_and_mask_clients": 0, "kd_kl_loss": 0,
+        "kd_kl_loss_clients": 0, "rbf_matrix_clients": 0, "kd_kl_fwd": 1,
         "kd_kl_bwd_ds": 1, "kd_kl_bwd_dt": int(teacher_grad),
         "rbf_matrix": 0, "flash_attention": 0}
     s_r = s.clone().requires_grad_(True)
@@ -390,3 +391,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(smoke):
                                     v[..., :8].contiguous(), True)
     with pytest.raises(ValueError, match="last axis"):
         fa_ops.flash_attention_cuda(q.transpose(2, 3), k, v, True)
+
+
+# ---- the cohort engine's routes: one launch for C clients, each client's
+# slice bit for bit its own launch's
+@pytest.mark.parametrize("n,d,k,c", [(6000, 50, 1, 10), (6000, 50, 3, 10),
+                                     (600, 50, 10, 34), (6000, 784, 1, 10),
+                                     (1001, 3072, 3, 10)])
+def test_lloyd_kernel_clients_equal_their_own_launches(smoke, n, d, k, c):
+    smoke.check_lloyd_clients(n, d, k, c=c)
+
+
+@pytest.mark.parametrize("c,t,d,k,shared", [
+    (10, 512, 50, 1, True), (10, 512, 50, 3, True), (10, 6000, 50, 1, False),
+    (34, 600, 50, 10, False), (1, 512, 784, 1, True),
+    (1, 5000, 3072, 1, False), (3, 5999, 50, 3, False),
+    (3, 777, 16, 1, False)])
+def test_min_dist_kernel_over_clients(smoke, c, t, d, k, shared):
+    smoke.check_min_dist_clients(c, t, d, k, shared)
+
+
+@pytest.mark.parametrize("poison", ["rows", "centroid"])
+def test_min_dist_kernel_over_clients_nonfinite(smoke, poison):
+    smoke.check_min_dist_clients(10, 512, 50, 3, True, poison=poison)
+    smoke.check_min_dist_clients(2, 300, 784, 3, False, poison=poison)
+
+
+@pytest.mark.parametrize("n,c,m,d,sentinel", [
+    (512, 10, 6000, 50, 0), (512, 10, 6001, 50, 7), (512, 100, 600, 50, 0),
+    (512, 1, 5001, 3072, 3)])
+def test_rbf_kernel_over_clients(smoke, n, c, m, d, sentinel):
+    smoke.check_rbf_clients(n, c, m, d, sentinel)
+
+
+@pytest.mark.parametrize("c,n,k", [(10, 64, 10), (34, 64, 10), (1, 64, 10),
+                                   (3, 300, 10)])
+def test_kd_kl_loss_kernel_over_clients(smoke, c, n, k):
+    smoke.check_kl_loss_clients(c, n, k)
+
+
+def test_kmeans_fit_batched_equals_each_clients_fit(smoke):
+    smoke.check_kmeans_batched()

@@ -4,8 +4,9 @@
   ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
 * ``repro_torch.launch.fed_train`` runs on the card unless asked for the
   CPU, raises without a card, runs the feature, image and token datasets,
-  and refuses every flag whose feature is not ported yet with
-  ``NotImplementedError`` naming its ROADMAP item.
+  the cohort engine (with the mixed zoo and wave streaming), and refuses
+  every flag whose feature is not ported yet with ``NotImplementedError``
+  naming its ROADMAP item.
 """
 import ast
 import os
@@ -13,6 +14,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,10 +124,49 @@ def test_fed_train_runs_the_image_datasets_on_the_cpu(dataset):
     assert log.local_loss > 0.0 and log.distill_loss > 0.0
 
 
+@pytest.mark.parametrize("flags", [
+    ["--engine", "cohort"],
+    ["--zoo", "mixed", "--clients", "3"],
+    ["--engine", "cohort", "--zoo", "mixed", "--clients", "6",
+     "--wave-size", "1"],
+    ["--engine", "cohort", "--wave-size", "4", "--clients", "6"]],
+    ids=["cohort", "mixed-zoo-loop", "cohort-mixed-waves-of-1",
+         "cohort-waves-of-4"])
+def test_fed_train_runs_the_cohort_engine_on_the_cpu(flags):
+    """The cohort engine, the mixed MLP zoo and wave streaming through the
+    entry point (the refusals they replace named ROADMAP item 5)."""
+    res = fed_train.main(SMALL + ["--device", "cpu"] + flags)
+    log = res.rounds[0]
+    assert set(log.phase_s) == {"local_train", "report", "aggregate",
+                                "distill", "eval"}
+    assert 0.0 < log.id_fraction <= 1.0 and log.bytes_up > 0
+    assert log.local_loss > 0.0 and log.distill_loss > 0.0
+
+
+def test_wave_size_needs_the_cohort_engine():
+    with pytest.raises(ValueError, match="wave_size requires engine='cohort'"):
+        fed_train.main(SMALL + ["--device", "cpu", "--wave-size", "4"])
+
+
+def test_cohort_phase_refuses_participants():
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    from repro_torch.fed.cohort import CohortEngine
+    clients, *_ = simulator.build_experiment(
+        FedConfig(num_clients=2, rounds=1, engine="cohort"), n_train=200,
+        n_test=50, device="cpu")
+    engine = CohortEngine(clients)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
+        engine.phase_distill(np.zeros((4, 50), np.float32),
+                             np.zeros((4, 10), np.float32),
+                             np.ones(4, np.float32), 1, 64,
+                             participants=[True, True])
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "cohort"], "item 5"),
-    (["--zoo", "mixed"], "item 5"),
-    (["--wave-size", "4"], "item 5"),
+    (["--engine", "cohort", "--dataset", "lm_tokens"], "item 5"),
+    (["--engine", "cohort", "--devices", "2"], "item 10"),
+    (["--engine", "cohort", "--model-shards", "2"], "item 10"),
     (["--devices", "2"], "item 10"),
     (["--round-mode", "overlap"], "item 6"),
     (["--participation", "0.5"], "item 6"),
