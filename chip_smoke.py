@@ -33,7 +33,9 @@ Phases, in order; any failure raises and exits non-zero:
      (one launch of the stacked b) against each client's launch bitwise,
      sentinel rows exactly 0; the fused KL loss over clients (ragged
      weights, an all-zero lane) against the plain version and each
-     client's 2-D launch bitwise;
+     client's 2-D launch bitwise, and through a 16-step distill phase
+     with a lane whose weights are zero at every step (a sampled-out
+     lane: its loss and gradient 0, its weights bitwise unchanged);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
@@ -48,7 +50,10 @@ Phases, in order; any failure raises and exits non-zero:
      lm_tokens edgefd run (the reduced granite backbone) on the card
      against the CPU from the same initial weights; small cohort-engine
      runs card vs CPU (edgefd, selective-fd and fkd strong, the mixed zoo
-     over 6 clients, and over 9 in waves of 2);
+     over 6 clients, and over 9 in waves of 2); partial-participation
+     overlap runs on both engines (fraction 0.5, fixed phase costs) card
+     vs CPU, participants, staleness, bytes and the simulated timeline
+     equal;
   6. the main path: fed_train, 10 clients with MNIST's split sizes
      (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
@@ -77,7 +82,14 @@ Phases, in order; any failure raises and exits non-zero:
      asserting one Lloyd launch an iteration a uniform cohort, one
      min-distance launch a cohort a report and a calibration, two RBF
      launches a cohort a report, one fused-loss launch a cohort a distill
-     step;
+     step; then the full scheduler's path, its launches counted from 0:
+     128 clients at fraction 0.5 (sync and overlap on the cohort engine,
+     sync on the loop, held to each other), the mixed zoo over 30 clients
+     with concurrent cohorts off and on under fixed costs (the timeline
+     equal to a CPU run's), benchmarks/scale.py's heavy traffic (churn,
+     dropout, bursty arrivals, waves of 32), selective-fd and fkd
+     under round-robin participation held to their loop runs; each run's
+     simulated makespan, rounds a second and staleness;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -945,6 +957,61 @@ def check_kl_loss_clients(c, n, k, seed=0):
     return max(errs)
 
 
+def check_kl_loss_zero_lane_phase(c=10, n=32, k=10, d=50, steps=16,
+                                  seed=0):
+    """A distill phase of ``steps`` SGD steps for c lanes of a linear
+    student through the fused loss over clients, lane 3's weights zero at
+    every step (a sampled-out lane): each step's loss, kl and gradient
+    bitwise each lane's own 2-D launch, the zero lane's loss and its
+    parameters' gradient exactly 0 at every step, and its parameters
+    bitwise unchanged at the end of the phase."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops
+    g = torch.Generator().manual_seed(seed)
+    zero = 3
+    W = (torch.randn((c, d, k), generator=g) * 0.3).cuda()
+    start = W.clone()
+    label = (f"kd_kl_loss clients C={c} n={n} K={k}: a {steps}-step distill "
+             f"phase, lane {zero} all-zero weights")
+    before = ops.kd_kl_loss_clients_cuda.launches
+    for _ in range(steps):
+        x = torch.randn((c, n, d), generator=g).cuda()
+        t = (torch.randn((c, n, k), generator=g) * 3).cuda()
+        w = (torch.rand((c, n), generator=g) > 0.2).to(torch.float32).cuda()
+        w[zero] = 0.0
+        Wg = W.clone().requires_grad_(True)
+        logits = torch.bmm(x, Wg)
+        loss = ops.kd_kl_loss(logits, t, TEMPERATURE, w)
+        grad, = torch.autograd.grad(loss.sum(), Wg)
+        got = ops.kd_kl_loss_clients_cuda(logits.detach(), t, w,
+                                          TEMPERATURE)
+        if not torch.equal(got[0], loss.detach()):
+            raise AssertionError(f"{label}: the autograd route's loss "
+                                 "differs from a direct launch")
+        for i in range(c):
+            one = ops.kd_kl_loss_cuda(own(logits[i].detach()), own(t[i]),
+                                      own(w[i]), TEMPERATURE)
+            if not all(torch.equal(u[i], v) for u, v in zip(got, one)):
+                raise AssertionError(f"{label}: lane {i} differs from its "
+                                     "own launch")
+        if not (float(got[0][zero]) == 0.0
+                and bool((got[2][zero] == 0).all())
+                and bool((grad[zero] == 0).all())):
+            raise AssertionError(f"{label}: the zero lane's loss or "
+                                 "gradient is not 0")
+        W = W - 0.05 * grad
+    if ops.kd_kl_loss_clients_cuda.launches - before != 2 * steps:
+        raise AssertionError(f"{label}: not one launch a step and call")
+    if not torch.equal(W[zero], start[zero]):
+        raise AssertionError(f"{label}: the zero lane's parameters moved")
+    moved = [i for i in range(c) if not torch.equal(W[i], start[i])]
+    if len(moved) != c - 1:
+        raise AssertionError(f"{label}: lanes {moved} moved")
+    log(f"  {label}: every step each lane bitwise its own 2-D launch, the "
+        f"zero lane's loss and gradient 0, its parameters bitwise unchanged "
+        f"after the phase, the other {c - 1} lanes moved")
+
+
 # the cohort's launch shapes: B2's report (10 clients, strong k = 1 and
 # weak k = 3), a calibration of 10 uniform clients and of the 100-client
 # run's cohorts (iid, k = 10), the image path's one-client cohorts
@@ -984,6 +1051,7 @@ def check_cohort_kernels():
         errs["rbf"][(n, c, m, d)] = check_rbf_clients(n, c, m, d, sentinel)
     for c, n, k in COHORT_KL:
         errs["kl"][(c, n, k)] = check_kl_loss_clients(c, n, k)
+    check_kl_loss_zero_lane_phase()
     return errs
 
 
@@ -1447,19 +1515,19 @@ class DivergenceWatch:
                 "rng": c.rng.bit_generator.state}
                 for i, c in enumerate(cohort.members)]
 
-        def local_train(self, epochs, bs):
+        def local_train(self, epochs, bs, part=None):
             lanes(self, "local", lambda c: (c._x, c._y), epochs, bs)
-            return local(self, epochs, bs)
+            return local(self, epochs, bs, part=part)
 
-        def distill_(self, px, teacher, weight, epochs, bs):
+        def distill_(self, px, teacher, weight, epochs, bs, part=None):
             lanes(self, "distill", lambda c: (px, teacher, weight), epochs,
                   bs)
-            return distill(self, px, teacher, weight, epochs, bs)
+            return distill(self, px, teacher, weight, epochs, bs, part=part)
 
-        def private_(self, tbc, vbc, epochs, bs):
+        def private_(self, tbc, vbc, epochs, bs, part=None):
             lanes(self, "distill", lambda c: (c._x, tbc[c._y],
                                               vbc[c._y].float()), epochs, bs)
-            return private(self, tbc, vbc, epochs, bs)
+            return private(self, tbc, vbc, epochs, bs, part=part)
 
         def mean_(losses, valid):
             for lane, (ls, vs) in enumerate(zip(losses, valid)):
@@ -1588,7 +1656,7 @@ def run_lm_full_width():
     torch.cuda.reset_peak_memory_stats()
     res = simulator.run(cfg, "lm_tokens", n_train=6000, n_test=1000,
                         device="cuda", transformer_cfg=arch,
-                        progress=print_round)
+                        progress=lambda lg: print_round(lg, cfg.num_clients))
     peak = torch.cuda.max_memory_allocated()
     log(f"  lm_tokens edgefd strong at granite-8b widths: d_model "
         f"{arch.d_model}, heads {arch.num_heads}/{arch.num_kv_heads} of "
@@ -2055,6 +2123,216 @@ def run_cohort_path(loop_results):
     lloyd_c = sum(v for lb in by_run.values() for c, v in lb[0].items()
                   if c > 1)
     return counts, lloyd_c, by_run
+
+
+# ----------------------------------------------------- phase 5/6, scheduler
+# benchmarks/async_rounds.py's fixed per-phase costs and
+# benchmarks/hetero_zoo.py's per-cohort ones (simulated seconds): under
+# either the simulated timeline is deterministic
+ASYNC_COSTS = {"local_train": 1.0, "report": 0.1, "aggregate": 0.3,
+               "distill": 1.0, "eval": 0.0}
+HETERO_COSTS = {"local_train@0": 3.0, "local_train@1": 1.0,
+                "local_train@2": 0.5, "report@0": 0.1, "report@1": 0.1,
+                "report@2": 0.1, "aggregate": 0.3, "distill@0": 0.5,
+                "distill@1": 1.0, "distill@2": 3.0, "eval": 0.0}
+
+
+def sched_fields(res):
+    """The round logs' scheduler fields, which two devices must share."""
+    return [(r.participants, r.mean_staleness, r.bytes_up, r.bytes_down,
+             r.sim_finish_s, r.served_model_age_s) for r in res.rounds]
+
+
+def check_small_scheduler_runs():
+    """Phase 5 for the full scheduler: a partial-participation overlap run
+    (edgefd strong, 8 clients, fraction 0.5 uniform, staleness decay 0.5,
+    3 rounds, max_inflight 2, fixed phase costs) on each engine, card
+    against CPU: round logs by ``compare_runs``, and participants, mean
+    staleness, bytes, ``sim_finish_s`` and ``served_model_age_s``
+    equal."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    log("[5] small partial-participation overlap runs: card vs CPU")
+    t0 = time.perf_counter()
+    for engine in ("loop", "cohort"):
+        cfg = FedConfig(method="edgefd", scenario="strong", num_clients=8,
+                        rounds=3, engine=engine, participation_fraction=0.5,
+                        participation_policy="uniform", staleness_decay=0.5,
+                        round_mode="overlap", max_inflight=2, seed=0)
+        gpu, cpu = (simulator.run(cfg, n_train=800, n_test=200, device=dev,
+                                  sim_phase_costs=ASYNC_COSTS)
+                    for dev in ("cuda", "cpu"))
+        label = f"{engine} edgefd strong, fraction 0.5, overlap"
+        compare_runs(label, gpu, cpu, 200)
+        if sched_fields(gpu) != sched_fields(cpu):
+            raise AssertionError(f"{label}: scheduler fields differ: card "
+                                 f"{sched_fields(gpu)} CPU "
+                                 f"{sched_fields(cpu)}")
+        log(f"  {label}: participants, staleness, bytes, sim_finish_s and "
+            "served_model_age_s equal: "
+            + "; ".join(f"r{r.round} {r.participants} stale "
+                        f"{r.mean_staleness:.3f} sim {r.sim_finish_s:.3f}"
+                        for r in gpu.rounds))
+    log(f"  phase 5's scheduler runs took {time.perf_counter() - t0:.1f} s")
+
+
+# phase 6's edge-fleet runs: BENCH_async's deployment at MNIST's split
+# sizes (128 iid clients, 468-469 samples each), the mixed zoo over 30
+# clients priced with hetero_zoo's costs, heavy traffic, and the class-wise
+# and KuLSIF methods under round-robin participation. The heavy traffic is
+# benchmarks/scale.py's traffic rows' (traffic_c1k, quick_traffic_c256:
+# uniform fraction 0.5, decay 0.5, bursty arrivals over 60 s, churn and
+# dropout 0.05, sync rounds, waves of a quarter of the fleet) on
+# BENCH_async's 128 clients; the rows' edge aggregators are not ported
+# (ROADMAP queue A item 7)
+FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=10,
+             proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
+             participation_fraction=0.5, participation_policy="uniform",
+             staleness_decay=0.5, straggler_factor=4.0, max_inflight=2)
+ZOO = dict(method="edgefd", scenario="iid", num_clients=30, rounds=10,
+           proxy_batch=256, batch_size=32, lr=1e-2, seed=0, engine="cohort",
+           zoo="mixed", round_mode="overlap", straggler_factor=1.0)
+HEAVY = dict(method="edgefd", scenario="iid", num_clients=128, rounds=5,
+             proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
+             engine="cohort", participation_fraction=0.5,
+             participation_policy="uniform", staleness_decay=0.5,
+             arrival_process="bursty", arrival_spread=60.0,
+             churn_prob=0.05, dropout_prob=0.05, wave_size=32,
+             round_mode="sync")
+ROBIN = dict(scenario="strong", num_clients=10, rounds=3, proxy_batch=512,
+             seed=0, participation_fraction=0.5,
+             participation_policy="roundrobin", staleness_decay=0.0,
+             round_mode="overlap", max_inflight=2)
+
+
+def run_scheduler_path():
+    """Phase 6 for the full scheduler, its launches counted from 0: (a)
+    BENCH_async's deployment, sync and overlap on the cohort engine and
+    sync on the loop engine, the loop held to the cohort run; (b) the mixed
+    zoo over 30 clients, overlap, concurrent cohorts off and on, priced
+    with hetero_zoo's costs, each run's simulated timeline equal to the
+    CPU's for the same trace (a CPU run of the same schedule at 1200
+    samples: under fixed costs and full participation the timeline
+    depends on the graph alone); (c) benchmarks/scale.py's heavy traffic
+    on the cohort engine in waves of 32; (d) selective-fd and fkd strong, round robin, decay 0,
+    overlap, each cohort run held to its loop run. Asserts one fused-loss
+    launch a cohort a distill step, one B2 launch a cohort (wave) a
+    report, on the loop engine one B2 report launch a reporting client,
+    and two B5 launches a cohort a report. Returns the path's counts."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    from repro_torch.fed.participation import cohort_size
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
+
+    def drive(cfg, n_train=60000, n_test=10000, device="cuda", costs=None):
+        return lambda: simulator.run(FedConfig(**cfg), n_train=n_train,
+                                     n_test=n_test, device=device,
+                                     sim_phase_costs=costs)
+
+    # (label, config, report launches a round: cohort waves, or 0 for the
+    # loop engine, fixed costs)
+    runs = [("(a) cohort sync", dict(FLEET, engine="cohort",
+                                     round_mode="sync"), 1, None),
+            ("(a) cohort overlap", dict(FLEET, engine="cohort",
+                                        round_mode="overlap"), 1, None),
+            ("(a) loop sync", dict(FLEET, engine="loop", round_mode="sync"),
+             0, None),
+            ("(b) mixed zoo, serial cohorts", dict(ZOO), 3, HETERO_COSTS),
+            ("(b) mixed zoo, concurrent cohorts",
+             dict(ZOO, concurrent_cohorts=True), 3, HETERO_COSTS),
+            ("(c) heavy traffic, waves of 32", dict(HEAVY), 4, None)]
+    for m in ("selective-fd", "fkd"):
+        for engine in ("cohort", "loop"):
+            runs.append((f"(d) {engine} {m} strong, round robin",
+                         dict(ROBIN, method=m, engine=engine),
+                         1 if engine == "cohort" else 0, None))
+    log("[6] the full scheduler's path: " + "; ".join(r[0] for r in runs))
+    t0 = time.perf_counter()
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    results, per_run, steps, attn = {}, {}, {}, {}
+    dist = CountedCalls(kd_ops, "min_dist_and_mask",
+                        key=lambda x, c, thr: (
+                            "calibration" if isinstance(thr, float)
+                            else "report", c.shape[0] if c.ndim == 3 else 1))
+    rbf = CountedCalls(rbf_ops, "rbf_matrix",
+                       key=lambda a, b, s: b.shape[0] if b.ndim == 3 else 1)
+    for label, cfg, waves, costs in runs:
+        cohort = cfg.get("engine") == "cohort"
+        dist.by_key, rbf.by_key = {}, {}
+        with dist, rbf:
+            run_one(label, drive(cfg, costs=costs), wrappers, results,
+                    per_run, steps, attn,
+                    kl_name="kd_kl_loss_clients" if cohort else "kd_kl_loss")
+        res, launches = results[label], per_run[label]
+        total = max(r.sim_finish_s for r in res.rounds)
+        parts = [cfg["num_clients"] if r.participants is None
+                 else len(r.participants) for r in res.rounds]
+        log(f"  {label}: sim_total_s {total!r}, {len(res.rounds) / total!r} "
+            f"simulated rounds a second, last-round mean staleness "
+            f"{res.rounds[-1].mean_staleness!r}, participants a round "
+            f"{parts}; B2 calls "
+            f"by (class, C) {dist.by_key}, B5 calls by C {rbf.by_key}")
+        kl = "kd_kl_loss_clients" if cohort else "kd_kl_loss"
+        if launches[kl] != steps[label] or not steps[label]:
+            raise AssertionError(f"{label}: {launches[kl]} {kl} launches "
+                                 f"for {steps[label]} distill steps")
+        reports = sum(v for (kind, _), v in dist.by_key.items()
+                      if kind == "report")
+        if cfg["method"] == "edgefd":
+            want = (waves * len(res.rounds) if cohort else
+                    sum(len(r.participants) for r in res.rounds))
+            if reports != want:
+                raise AssertionError(f"{label}: {reports} B2 report "
+                                     f"launches, not {want}")
+        if cfg["method"] == "selective-fd" and cohort and \
+                rbf.by_key.get(cfg["num_clients"], 0) != 2 * len(res.rounds):
+            raise AssertionError(f"{label}: B5 over clients {rbf.by_key}, "
+                                 "not two Gram matrices a report")
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for name in ("lloyd_step", "min_dist_and_mask",
+                 "min_dist_and_mask_clients", "kd_kl_loss",
+                 "kd_kl_loss_clients", "rbf_matrix", "rbf_matrix_clients"):
+        if counts[name] == 0:
+            raise AssertionError(f"the scheduler's path never launched "
+                                 f"{name}")
+    pairs = [("(a) cohort sync", "(a) loop sync")]
+    pairs += [(f"(d) cohort {m} strong, round robin",
+               f"(d) loop {m} strong, round robin")
+              for m in ("selective-fd", "fkd")]
+    for a, b in pairs:
+        ra, rb = results[a], results[b]
+        compare_runs(f"{a} against the loop engine", ra, rb, 10000,
+                     names=("cohort", "loop"))
+        for p, q in zip(ra.rounds, rb.rounds):
+            if (p.participants, p.mean_staleness) != (q.participants,
+                                                      q.mean_staleness):
+                raise AssertionError(f"{a}: round {p.round} participants or "
+                                     "staleness differ from the loop's")
+    # (b): the card's timeline against the CPU's for the same schedule
+    for label, cfg, _, costs in runs[3:5]:
+        cpu = drive(cfg, n_train=1200, n_test=100, device="cpu",
+                    costs=costs)()
+        got = [(r.sim_finish_s, r.served_model_age_s)
+               for r in results[label].rounds]
+        want = [(r.sim_finish_s, r.served_model_age_s) for r in cpu.rounds]
+        if got != want:
+            raise AssertionError(f"{label}: the card's timeline {got} is not "
+                                 f"the CPU's {want}")
+        log(f"  {label}: simulated finishes equal to the CPU's for the same "
+            f"schedule, sim_total_s {max(g for g, _ in got)!r}")
+    heavy = results["(c) heavy traffic, waves of 32"]
+    sampled = cohort_size(HEAVY["num_clients"],
+                          HEAVY["participation_fraction"])
+    if not all(0 < len(r.participants) <= sampled for r in heavy.rounds):
+        raise AssertionError(f"(c): participants outside the {sampled} "
+                             "sampled a round")
+    log(f"  launches on the scheduler's path: "
+        f"{ {n: v for n, v in counts.items() if v} }; the path took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2744,9 +3022,11 @@ def main(argv) -> int:
     check_kmeans_agreement()
     check_kmeans_batched()
     check_small_run()
+    check_small_scheduler_runs()
     (counts, attn_batches, by_k, by_shape, by_class,
      loop_results) = run_main_path()
     cohort_counts, lloyd_c, _ = run_cohort_path(loop_results)
+    run_scheduler_path()
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)

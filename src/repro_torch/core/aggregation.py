@@ -4,9 +4,10 @@ EdgeFD's server averages the ID predictions each client uploaded: no
 filtering, no teacher model. The plain mean guards against non-finite
 client rows (an exact no-op on finite inputs). DS-FL sharpens the mean
 (``temperature_sharpen``); FKD and PLS exchange class-wise mean logits
-(``classwise_mean_logits``). The robust reducers and the two-tier partial
-sums of ``repro.core.aggregation`` are not ported yet (ROADMAP queue A
-item 7).
+(``classwise_mean_logits``); a round with stale reports weights each
+client by its staleness (``weighted_masked_mean_logits``). The robust
+reducers and the two-tier partial sums of ``repro.core.aggregation`` are
+not ported yet (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
@@ -55,6 +56,31 @@ def masked_mean_logits(logits: torch.Tensor, mask: torch.Tensor, *,
     cnt = torch.sum(m, dim=0)                                 # (t, 1)
     teacher = s / torch.clamp_min(cnt, 1.0)
     valid = cnt[..., 0] > 0.0
+    return _sharpen(teacher, temperature_sharpen), valid
+
+
+def weighted_masked_mean_logits(logits: torch.Tensor, mask: torch.Tensor,
+                                client_weights: torch.Tensor, *,
+                                temperature_sharpen: Optional[float] = None,
+                                guard_finite: bool = True):
+    """``masked_mean_logits`` with a per-client weight (C,): the staleness
+    model's ``decay ** age`` (``repro_torch.fed.participation``).
+
+    The sum is divided by the weight sum itself, not by a floor, so a
+    position whose only contributor is heavily decayed recovers that
+    contributor's logits; where every weight is 0 the sum is exactly 0 and
+    the teacher is 0, with valid=False."""
+    if guard_finite:
+        lo, fin = _finite_rows(logits, mask)
+        mb = torch.logical_and(mask, fin)
+    else:
+        lo, mb = torch.as_tensor(logits).to(torch.float32), mask
+    w = mb.to(torch.float32) * client_weights[:, None]      # (C, t)
+    wl = w[..., None]                                         # (C, t, 1)
+    s = torch.sum(lo * wl, dim=0)                             # (t, K)
+    den = torch.sum(wl, dim=0)                                # (t, 1)
+    teacher = s / torch.where(den > 0.0, den, 1.0)
+    valid = den[..., 0] > 0.0
     return _sharpen(teacher, temperature_sharpen), valid
 
 

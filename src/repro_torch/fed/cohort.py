@@ -53,9 +53,24 @@ rows), writing each wave's results back before the next. Lanes are
 independent, so waved results equal unwaved ones (bit for bit on the
 CPU).
 
-Not ported yet: partial participation (``participants=``, ROADMAP queue A
-item 6), the device mesh (item 10), ``state_dict``/``load_state_dict``
-(item 8), and token (transformer) clients on this engine (item 5).
+Partial participation
+---------------------
+``participants=`` (a (C,) bool mask over the fleet) makes each sampled-out
+member a no-op lane: it draws no permutation from its rng (as the loop
+engine, which skips it), every one of its steps is invalid, so
+``torch.where`` leaves its parameters and momentum bitwise untouched, and
+its report is zero logits, an all-False mask and zero class-wise counts.
+The batched kernels still run over the whole cohort and the sampled-out
+rows are gated after, as in the reference; a lane's result does not
+depend on the others', so the participants' rows are bitwise what they
+would be alone. The per-cohort entry points (``cohort_positions``,
+``cohort_local_train``, ``cohort_report``, ...) drive one cohort at a
+time for concurrent-cohort scheduling; the ``*_all`` names are aliases of
+the per-phase ones.
+
+Not ported yet: the device mesh (ROADMAP queue A item 10),
+``state_dict``/``load_state_dict`` (item 8), and token (transformer)
+clients on this engine (item 5).
 """
 from __future__ import annotations
 
@@ -76,15 +91,17 @@ from repro_torch.fed.batching import padded_epoch_plan, steps_per_epoch
 from repro_torch.kernels import dispatch
 
 
-def _refuse_participants(participants) -> None:
-    if participants is not None:
-        raise NotImplementedError(
-            "participants= is not ported yet: ROADMAP queue A item 6 (the "
-            "full scheduler)")
-
-
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _gate(out: torch.Tensor, part) -> torch.Tensor:
+    """Zero (or False) the rows of the members ``part`` samples out."""
+    if part is None:
+        return out
+    keep = torch.as_tensor(np.asarray(part, bool), device=out.device)
+    return torch.where(keep.reshape((-1,) + (1,) * (out.ndim - 1)), out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 class _OneLane(list):
@@ -277,11 +294,12 @@ class _Cohort:
         return vmap(one, in_dims=(0, None if shared_x else 0))(params, x)
 
     # --------------------------------------------------------- train steps
-    def _plan(self, draw_n: int, epochs: int, batch_size: int
+    def _plan(self, draw_n: int, epochs: int, batch_size: int, part=None
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Every member's epoch permutations, drawn from its own rng as the
         loop engine draws them, packed into (C, steps, B) index and weight
-        arrays and (C, steps) validity."""
+        arrays and (C, steps) validity. A member that ``part`` (C,) bool
+        samples out draws nothing and keeps every step invalid."""
         C = len(self.members)
         ns = [draw_n] * C if draw_n >= 0 else [int(v) for v in self.n]
         steps = max(steps_per_epoch(n, batch_size) for n in ns) * epochs
@@ -289,6 +307,8 @@ class _Cohort:
         w = np.zeros((C, steps, batch_size), np.float32)
         valid = np.zeros((C, steps), bool)
         for i, c in enumerate(self.members):
+            if part is not None and not part[i]:
+                continue               # a no-op lane this round
             perms = [c.rng.permutation(ns[i]) for _ in range(epochs)]
             idx[i], w[i], valid[i] = padded_epoch_plan(perms, batch_size,
                                                        steps)
@@ -351,8 +371,9 @@ class _Cohort:
             losses[lo:hi] = _np(out)[: hi - lo]
         return self._mean_losses(losses, valid)
 
-    def local_train(self, epochs: int, batch_size: int) -> List[float]:
-        plan = self._plan(-1, epochs, batch_size)
+    def local_train(self, epochs: int, batch_size: int,
+                    part=None) -> List[float]:
+        plan = self._plan(-1, epochs, batch_size, part=part)
 
         def batch_loss(data, params, ib, wb):
             x, y, lanes = data
@@ -368,11 +389,11 @@ class _Cohort:
 
     def distill(self, px: torch.Tensor, teacher: torch.Tensor,
                 weight: torch.Tensor, epochs: int,
-                batch_size: int) -> List[float]:
+                batch_size: int, part=None) -> List[float]:
         """The shared proxy batch px (t, ...) on the device, the teacher
         (t, K) and its per-sample weight (t,): each lane's batch and its
         teacher rows are gathered from them."""
-        idx, w, valid = self._plan(len(px), epochs, batch_size)
+        idx, w, valid = self._plan(len(px), epochs, batch_size, part=part)
 
         def batch_loss(data, params, ib, wb):
             logits = self._forward(params, px[ib], True)
@@ -381,10 +402,10 @@ class _Cohort:
 
     def distill_private(self, teacher_by_class: torch.Tensor,
                         valid_by_class: torch.Tensor, epochs: int,
-                        batch_size: int) -> List[float]:
+                        batch_size: int, part=None) -> List[float]:
         """FKD/PLS: each lane distills on its private data against the
         fused class-wise teacher, looked up by its labels."""
-        plan = self._plan(-1, epochs, batch_size)
+        plan = self._plan(-1, epochs, batch_size, part=part)
         vbc = valid_by_class.to(torch.float32)
 
         def batch_loss(data, params, ib, wb):
@@ -405,13 +426,15 @@ class _Cohort:
                 outs.append(fn(lo, hi, params)[: hi - lo])
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def proxy_logits(self, px: torch.Tensor) -> torch.Tensor:
-        return self._by_wave(
-            lambda lo, hi, p: self._forward(p, px, False, shared_x=True))
+    def proxy_logits(self, px: torch.Tensor, part=None) -> torch.Tensor:
+        return _gate(self._by_wave(
+            lambda lo, hi, p: self._forward(p, px, False, shared_x=True)),
+            part)
 
-    def classwise_means(self):
+    def classwise_means(self, part=None):
         """FKD/PLS: each member's per-class mean logits over its private
-        data and per-class counts, device tensors."""
+        data and per-class counts, device tensors; zero means and counts
+        for a sampled-out member, which drop it from the fusion."""
         k = self.num_classes
 
         def fn(lo, hi, params):
@@ -424,7 +447,7 @@ class _Cohort:
             cnt = torch.sum(oh, dim=1)
             return torch.cat([sums / torch.clamp_min(cnt[..., None], 1.0),
                               cnt[..., None]], dim=-1)
-        out = self._by_wave(fn)
+        out = _gate(self._by_wave(fn), part)
         return [(out[i, :, :-1], out[i, :, -1])
                 for i in range(len(self.members))]
 
@@ -585,19 +608,25 @@ class _Cohort:
         if learned:
             self._pack_filter_state()
 
-    def filter_masks(self, px: torch.Tensor,
-                     powner: torch.Tensor) -> torch.Tensor:
-        """Every member's two-stage ID mask on the proxy batch, (C, t)."""
+    def filter_masks(self, px: torch.Tensor, powner: torch.Tensor,
+                     part=None) -> torch.Tensor:
+        """Every member's two-stage ID mask on the proxy batch, (C, t);
+        all False for a member that ``part`` samples out."""
         t = len(px)
         if self.filter_kind == "none" \
                 and all(c.dre is None for c in self.members):
-            return torch.ones((len(self.members), t), dtype=torch.bool,
-                              device=self.device)
+            return _gate(torch.ones((len(self.members), t),
+                                         dtype=torch.bool,
+                                         device=self.device), part)
         if self.filter_kind in ("none", "loop"):
             # no stacked state: each member's own filter, as the loop
-            # engine runs it (failing loudly on an unlearned estimator)
-            return torch.stack([c.filter_mask(px, powner).mask
-                                for c in self.members])
+            # engine runs it (failing loudly on an unlearned estimator;
+            # sampled-out members skipped, as the loop engine skips them)
+            return torch.stack([
+                c.filter_mask(px, powner).mask
+                if part is None or part[i]
+                else torch.zeros((t,), dtype=torch.bool, device=self.device)
+                for i, c in enumerate(self.members)])
         pxf = px.reshape(t, -1).to(torch.float32)
         st = self._filter_state
         cids = np.asarray([c.cid for c in self.members], np.int64)
@@ -620,7 +649,8 @@ class _Cohort:
                     st["sigma"], st["lam"], pxf, powner,
                     backend=self.kernel_backend)
             outs.append(masks[: hi - lo])
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        return _gate(outs[0] if len(outs) == 1 else torch.cat(outs),
+                          part)
 
 
 class CohortEngine:
@@ -672,51 +702,131 @@ class CohortEngine:
         for cohort in self.cohorts:
             cohort.learn_dres(seed)
 
+    def _part_for(self, cohort: _Cohort, participants):
+        """A fleet participation mask sliced to one cohort's members."""
+        if participants is None:
+            return None
+        part = np.asarray(participants, bool)
+        if part.shape != (len(self.clients),):
+            raise ValueError(
+                f"participation mask shape {part.shape} != "
+                f"({len(self.clients)},)")
+        return part[cohort.positions]
+
     # ------------------------------------------------ per-phase entry points
     def phase_local_train(self, epochs: int, batch_size: int,
                           participants=None) -> List[float]:
-        _refuse_participants(participants)
-        return self._scatter([c.local_train(epochs, batch_size)
-                              for c in self.cohorts])
+        return self._scatter([self.cohort_local_train(ci, epochs, batch_size,
+                                                      participants)
+                              for ci in range(len(self.cohorts))])
 
     def phase_classwise_report(self, participants=None):
-        _refuse_participants(participants)
-        return self._scatter([c.classwise_means() for c in self.cohorts])
+        return self._scatter([self.cohort_classwise_report(ci, participants)
+                              for ci in range(len(self.cohorts))])
 
     def phase_report(self, px, powner, participants=None):
         """(logits (C, t, K), masks (C, t) bool) on the device, in client
-        order."""
-        _refuse_participants(participants)
+        order; sampled-out rows zero and all-False."""
         px_d = sample_tensor(px, self.device)
         owner_d = self._dev(powner)
-        logits = self._gather([c.proxy_logits(px_d) for c in self.cohorts])
-        masks = self._gather([c.filter_masks(px_d, owner_d)
-                              for c in self.cohorts])
-        return logits, masks
+        reports = [self.cohort_report(ci, px_d, owner_d, participants)
+                   for ci in range(len(self.cohorts))]
+        return (self._gather([lg for lg, _ in reports]),
+                self._gather([mk for _, mk in reports]))
 
     def phase_distill(self, px, teacher, weight, epochs: int,
                       batch_size: int, participants=None) -> List[float]:
-        _refuse_participants(participants)
         px_d = sample_tensor(px, self.device)
         teacher_d = self._dev(teacher, torch.float32)
         weight_d = self._dev(weight, torch.float32)
-        return self._scatter([c.distill(px_d, teacher_d, weight_d, epochs,
-                                        batch_size) for c in self.cohorts])
+        return self._scatter([self.cohort_distill(ci, px_d, teacher_d,
+                                                  weight_d, epochs,
+                                                  batch_size, participants)
+                              for ci in range(len(self.cohorts))])
 
     def phase_distill_private(self, teacher_by_class, valid_by_class,
                               epochs: int, batch_size: int,
                               participants=None) -> List[float]:
-        _refuse_participants(participants)
         teacher_d = self._dev(teacher_by_class, torch.float32)
         valid_d = self._dev(valid_by_class)
-        return self._scatter([c.distill_private(teacher_d, valid_d, epochs,
-                                                batch_size)
-                              for c in self.cohorts])
+        return self._scatter([self.cohort_distill_private(
+            ci, teacher_d, valid_d, epochs, batch_size, participants)
+            for ci in range(len(self.cohorts))])
 
     def phase_eval(self, x_test, y_test) -> List[float]:
         x_d = sample_tensor(x_test, self.device)
         y_d = self._dev(y_test, torch.int64)
         return self._scatter([c.evaluate(x_d, y_d) for c in self.cohorts])
+
+    # ------------------------------------------------ per-cohort entry points
+    # Concurrent-cohort scheduling drives each cohort on its own, so that
+    # different cohorts' phases interleave on the round graph. Each call
+    # returns values aligned to the cohort's positions
+    # (``cohort_positions()[ci]``), which the scheduler scatters back.
+    def cohort_positions(self) -> List[np.ndarray]:
+        return [np.asarray(c.positions, int) for c in self.cohorts]
+
+    def cohort_local_train(self, ci: int, epochs: int, batch_size: int,
+                           participants=None) -> List[float]:
+        c = self.cohorts[ci]
+        return c.local_train(epochs, batch_size,
+                             part=self._part_for(c, participants))
+
+    def cohort_classwise_report(self, ci: int, participants=None):
+        c = self.cohorts[ci]
+        return c.classwise_means(part=self._part_for(c, participants))
+
+    def cohort_report(self, ci: int, px, powner, participants=None):
+        """(logits (m, t, K), masks (m, t) bool) for cohort ``ci``'s m
+        members, on the device."""
+        c = self.cohorts[ci]
+        part = self._part_for(c, participants)
+        px_d = sample_tensor(px, self.device)
+        owner_d = self._dev(powner)
+        return (c.proxy_logits(px_d, part=part),
+                c.filter_masks(px_d, owner_d, part=part))
+
+    def cohort_distill(self, ci: int, px, teacher, weight, epochs: int,
+                       batch_size: int, participants=None) -> List[float]:
+        c = self.cohorts[ci]
+        return c.distill(sample_tensor(px, self.device),
+                         self._dev(teacher, torch.float32),
+                         self._dev(weight, torch.float32), epochs,
+                         batch_size, part=self._part_for(c, participants))
+
+    def cohort_distill_private(self, ci: int, teacher_by_class,
+                               valid_by_class, epochs: int, batch_size: int,
+                               participants=None) -> List[float]:
+        c = self.cohorts[ci]
+        return c.distill_private(self._dev(teacher_by_class, torch.float32),
+                                 self._dev(valid_by_class), epochs,
+                                 batch_size,
+                                 part=self._part_for(c, participants))
+
+    # -------------------------------------- historical names (thin aliases)
+    def local_train_all(self, epochs: int, batch_size: int,
+                        participants=None) -> List[float]:
+        return self.phase_local_train(epochs, batch_size, participants)
+
+    def classwise_means_all(self, participants=None):
+        return self.phase_classwise_report(participants)
+
+    def proxy_logits_and_masks(self, px, powner, participants=None):
+        return self.phase_report(px, powner, participants)
+
+    def distill_all(self, px, teacher, weight, epochs: int,
+                    batch_size: int, participants=None) -> List[float]:
+        return self.phase_distill(px, teacher, weight, epochs, batch_size,
+                                  participants)
+
+    def distill_private_all(self, teacher_by_class, valid_by_class,
+                            epochs: int, batch_size: int,
+                            participants=None) -> List[float]:
+        return self.phase_distill_private(teacher_by_class, valid_by_class,
+                                          epochs, batch_size, participants)
+
+    def evaluate_all(self, x_test, y_test) -> List[float]:
+        return self.phase_eval(x_test, y_test)
 
     def sync_to_clients(self) -> None:
         for cohort in self.cohorts:

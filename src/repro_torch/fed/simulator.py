@@ -30,8 +30,11 @@ Only the ported slice runs: every method of Table III on the image,
 feature and token datasets, the CNN zoo and the shared and mixed MLP zoos
 (``zoo="mixed"``: three widths by ``cid % 3``, one optimizer and one
 ``arch_key`` a width), the loop engine and, on image and feature data,
-the cohort engine (with wave streaming), sync rounds and full
-participation, and the flat server with the mean aggregate. ``run`` first refuses a malformed config with
+the cohort engine (with wave streaming), every scheduler knob (sync and
+overlapping rounds, partial participation with its three policies and the
+staleness buffer, churn, dropout, arrival traces, admission under
+``max_pending_reports``, concurrent cohorts), and the flat server with the
+mean aggregate. ``run`` first refuses a malformed config with
 ``ValueError``, as the reference's does
 (``participation.validate_config``, then ``scheduler.validate_config``);
 ``check_slice`` then refuses everything else with
@@ -40,7 +43,7 @@ participation, and the flat server with the mean aggregate. ``run`` first refuse
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +59,6 @@ from repro_torch.data.synthetic import (SPECS, Dataset, check_dataset,
                                         make_dataset)
 from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
-from repro_torch.fed.scheduler import resolve_round_mode
 from repro_torch.fed.server import Server
 from repro_torch.kernels import dispatch
 from repro_torch.models.cnn import MLPClassifier, get_client_model
@@ -111,16 +113,6 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
          "num_devices/model_shards", "10 (multi-device)"),
         (cfg.engine == "cohort" and SPECS[dataset_name].seq_len > 0,
          "token data on engine='cohort'", "5 (the cohort engine)"),
-        (resolve_round_mode(cfg.round_mode) != "sync", "round_mode='overlap'",
-         "6 (the full scheduler)"),
-        (cfg.participation_fraction < 1.0, "participation_fraction < 1",
-         "6 (the full scheduler)"),
-        (cfg.churn_prob > 0.0 or cfg.dropout_prob > 0.0,
-         "churn/dropout > 0", "6 (the full scheduler)"),
-        (cfg.max_pending_reports > 0, "max_pending_reports > 0",
-         "6 (the full scheduler)"),
-        (cfg.concurrent_cohorts, "concurrent_cohorts",
-         "6 (the full scheduler)"),
         (cfg.fault_mode != "none", f"fault_mode={cfg.fault_mode!r}",
          "7 (server scale and robustness)"),
         (cfg.num_edge_aggregators > 1, "num_edge_aggregators > 1",
@@ -192,8 +184,9 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
                              labels_per_client=cfg.labels_per_client,
                              seed=cfg.seed)
     proxy = build_proxy(clients_data, cfg.proxy_fraction, seed=cfg.seed)
-    server = Server(proxy, seed=cfg.seed, sanitize=cfg.sanitize_reports,
-                    device=device)
+    server = Server(proxy, seed=cfg.seed,
+                    max_pending_reports=cfg.max_pending_reports,
+                    sanitize=cfg.sanitize_reports, device=device)
     method = get_method(cfg.method)
     # token mode: (n, S) integer sequences -> transformer clients
     token_mode = ds.x.ndim == 2 and np.issubdtype(ds.x.dtype, np.integer)
@@ -272,7 +265,12 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
 def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         n_train: int = 5000, n_test: int = 1000, device="cuda",
         transformer_cfg: Optional[ArchConfig] = None,
-        progress=None) -> ExperimentResult:
+        progress=None,
+        sim_phase_costs: Optional[Dict[str, float]] = None
+        ) -> ExperimentResult:
+    """Build the experiment of ``cfg`` on ``device`` and run it;
+    ``sim_phase_costs`` prices the simulated timeline with fixed phase
+    costs (``fed.scheduler.RoundScheduler``)."""
     # fail fast on a bad participation/scheduler config (the reference's
     # checks, in its order), a config outside the slice, a bad backend or a
     # missing device, before any client is built
@@ -285,4 +283,4 @@ def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         cfg, dataset_name, n_train=n_train, n_test=n_test, device=device,
         transformer_cfg=transformer_cfg)
     return run_experiment(clients, server, cfg.method, cfg, x_test, y_test,
-                          progress=progress)
+                          progress=progress, sim_phase_costs=sim_phase_costs)

@@ -10,9 +10,14 @@ feature datasets and ``lm_tokens`` (transformer clients).
 
 Takes the reference's flags (``repro.launch.fed_train.add_config_args``)
 plus ``--device``, which defaults to ``cuda``: without a CUDA device the
-run raises unless ``--device cpu`` asks for the CPU. Flags whose feature is
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-brings them (``fed.simulator.check_slice``).
+run raises unless ``--device cpu`` asks for the CPU. The scheduler's flags
+(``--participation``, ``--policy``, ``--staleness-decay``,
+``--round-mode``, ``--max-inflight``, ``--max-pending-reports``,
+``--straggler-factor``, ``--arrival-*``, ``--churn``, ``--dropout``,
+``--concurrent-cohorts``) reach the run; each round's line and ``--json``
+carry its participants, mean staleness, simulated finish and served-model
+age. Flags whose feature is not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that brings them (``fed.simulator.check_slice``).
 """
 from __future__ import annotations
 
@@ -154,15 +159,22 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
     )
 
 
-def print_round(log) -> None:
-    """One progress line per round."""
+def print_round(log, num_clients: int) -> None:
+    """One progress line per retired round: with partial participation the
+    participant count and the mean staleness, then the round's finish on
+    the simulated timeline, the served model's age there and the phase
+    breakdown."""
     extra = ""
     if log.server_student_acc is not None:
         extra += f"  student={log.server_student_acc:.4f}"
+    if log.participants is not None:
+        extra += (f"  part={len(log.participants)}/{num_clients}"
+                  f"  stale={log.mean_staleness:.2f}")
     if log.phase_s:
         breakdown = " ".join(f"{PHASE_ABBREV.get(k, k)}={v:.3f}"
                              for k, v in log.phase_s.items())
-        extra += f"  [{breakdown}]"
+        extra += (f"  sim={log.sim_finish_s:.2f}s"
+                  f"  age={log.served_model_age_s:.2f}s  [{breakdown}]")
     print(f"round {log.round:3d}  acc={log.mean_acc:.4f}  "
           f"id={log.id_fraction:.2f}  local={log.local_loss:.3f}  "
           f"distill={log.distill_loss:.3f}  "
@@ -180,7 +192,7 @@ def main(argv=None):
     cfg = config_from_args(args)
     res = simulator.run(cfg, args.dataset, n_train=args.n_train,
                         n_test=args.n_test, device=args.device,
-                        progress=print_round)
+                        progress=lambda log: print_round(log, args.clients))
     print(f"\n{args.method} / {args.scenario} / {args.dataset} on "
           f"{args.device}: final={res.final_acc:.4f} best={res.best_acc:.4f}")
     if args.json:

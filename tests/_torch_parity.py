@@ -33,7 +33,12 @@ Tolerances, per round (``assert_logs_match``):
     statistic lies within 1e-5 relative of the client's threshold (the
     KMeans-DRE distance, or the KuLSIF-DRE ratio): such pairs are counted,
     and each may move ``bytes_up`` by K·4 bytes per round and
-    ``id_fraction`` by one pair.
+    ``id_fraction`` by one pair;
+  * with a scheduler knob set: ``participants`` and ``mean_staleness``
+    exact; under fixed phase costs (``sim_phase_costs``: the reference's
+    ``RoundScheduler`` built here, the port's through its
+    ``run_experiment``) ``sim_finish_s`` and ``served_model_age_s``
+    exact; and always the schedulers' node-for-node ``trace`` equal.
 """
 from __future__ import annotations
 
@@ -48,16 +53,33 @@ import torch
 from repro.common.types import FedConfig as RefFedConfig
 from repro.core.kmeans import kmeans_plus_plus as ref_kmeans_plus_plus
 from repro.core.methods import get_method as ref_get_method
-from repro.core.protocol import run_experiment as ref_run_experiment
+from repro.core.protocol import engine_from_config as ref_engine_from_config
+from repro.fed.scheduler import RoundScheduler as RefRoundScheduler
 from repro.data.synthetic import make_dataset as ref_make_dataset
 from repro.fed import simulator as ref_simulator
 from repro_torch.common.types import FedConfig
-from repro_torch.core.protocol import run_experiment
+from repro_torch.core import protocol
 from repro_torch.data.synthetic import dataset_from_arrays
 from repro_torch.fed import simulator
 
+# The suite runs on several test workers that share the host's cores;
+# torch's default of one intra-op thread a core has their parallel
+# regions contend (six processes of a parity file ran 1.7x slower on eight
+# cores than at two threads each). Importing this harness, as collection
+# does in every worker, caps the worker at two.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 N_TRAIN, N_TEST, CLIENTS, ROUNDS = 800, 200, 4, 2
 LOSS_RTOL = 1e-4
+# fixed phase costs (simulated seconds) that make the timeline
+# deterministic: benchmarks/async_rounds.py's per phase, and
+# benchmarks/hetero_zoo.py's per cohort of the mixed zoo ("phase@cohort")
+FIXED_COSTS = {"local_train": 1.0, "report": 0.1, "aggregate": 0.3,
+               "distill": 1.0, "eval": 0.0}
+HETERO_COSTS = {"local_train@0": 3.0, "local_train@1": 1.0,
+                "local_train@2": 0.5, "report@0": 0.1, "report@1": 0.1,
+                "report@2": 0.1, "aggregate": 0.3, "distill@0": 0.5,
+                "distill@1": 1.0, "distill@2": 3.0, "eval": 0.0}
 NEAR_THRESHOLD_REL = 1e-5
 MAX_NEAR_PAIRS = 2
 
@@ -78,9 +100,10 @@ def _numpy_params(params):
 
 @dataclasses.dataclass
 class Run:
-    result: Any                      # ExperimentResult
+    result: Any                      # the round logs (``_Result``)
     clients: List[Any]
     server: Any
+    trace: Optional[list] = None     # the scheduler's node keys, host order
 
 
 @dataclasses.dataclass
@@ -92,8 +115,20 @@ class Reference(Run):
     student_params: Optional[list] = None      # FedDF only
 
 
+class _Result:
+    """Round logs as the protocol's ``ExperimentResult`` holds them."""
+
+    def __init__(self, rounds):
+        self.rounds = rounds
+
+    @property
+    def final_acc(self):
+        return self.rounds[-1].mean_acc
+
+
 def run_reference(kw: dict, dataset: str = "mnist_feat",
-                  n_train: int = N_TRAIN, n_test: int = N_TEST) -> Reference:
+                  n_train: int = N_TRAIN, n_test: int = N_TEST,
+                  sim_phase_costs=None) -> Reference:
     cfg = RefFedConfig(**kw)
     method = ref_get_method(cfg.method)
     ds = ref_make_dataset(dataset, n_train=n_train, n_test=n_test,
@@ -116,15 +151,25 @@ def run_reference(kw: dict, dataset: str = "mnist_feat",
                                             jnp.float32),
                                 c.dre.num_centroids))
                  for i, c in enumerate(clients)]
-    res = ref_run_experiment(clients, server, cfg.method, cfg, x_test, y_test)
+    # run_experiment, with the scheduler built here so that fixed phase
+    # costs and the trace are at hand
+    engine = ref_engine_from_config(clients, cfg)
+    if method.client_filter != "none":
+        engine.learn_dres(jax.random.PRNGKey(cfg.seed))
+    sched = RefRoundScheduler(engine, server, method, cfg, x_test, y_test,
+                              sim_phase_costs=sim_phase_costs)
+    res = _Result(sched.run_rounds(0, cfg.rounds))
+    if engine is not clients and hasattr(engine, "sync_to_clients"):
+        engine.sync_to_clients()
     aux = (None if method.client_filter != "kulsif"
            else [np.asarray(c.dre.aux) for c in clients])
-    return Reference(res, clients, server, dataset=ds, params=params,
+    return Reference(res, clients, server, trace=list(sched.trace),
+                     dataset=ds, params=params,
                      kmeans_inits=inits, kulsif_aux=aux,
                      student_params=student)
 
 
-def run_port(kw: dict, ref: Reference) -> Run:
+def run_port(kw: dict, ref: Reference, sim_phase_costs=None) -> Run:
     cfg = FedConfig(**kw)
     ds = ref.dataset
     dataset = dataset_from_arrays(ds.x, ds.y, ds.x_test, ds.y_test,
@@ -133,8 +178,9 @@ def run_port(kw: dict, ref: Reference) -> Run:
         cfg, device="cpu", dataset=dataset, init_params=ref.params,
         kmeans_inits=ref.kmeans_inits, kulsif_aux=ref.kulsif_aux,
         student_params=ref.student_params)
-    res = run_experiment(clients, server, cfg.method, cfg, x_test, y_test)
-    return Run(res, clients, server)
+    res = protocol.run_experiment(clients, server, cfg.method, cfg, x_test,
+                                  y_test, sim_phase_costs=sim_phase_costs)
+    return Run(res, clients, server, trace=res.trace)
 
 
 def _statistic(dre, px):
@@ -183,19 +229,31 @@ def assert_params_match(ref: Reference, port: Run, rtol: float = 1e-3,
 
 
 def assert_logs_match(kw: dict, dataset: str = "mnist_feat",
-                      n_train: int = N_TRAIN, n_test: int = N_TEST) -> tuple:
+                      n_train: int = N_TRAIN, n_test: int = N_TEST,
+                      sim_phase_costs=None) -> tuple:
     """Run ``kw``'s method in both packages on ``dataset`` and hold the
-    port's round logs to the reference's within the tolerances above.
+    port's round logs to the reference's within the tolerances above
+    (``sim_phase_costs``: both timelines priced with these fixed costs).
     Returns (reference, port) for further checks."""
-    ref = run_reference(kw, dataset, n_train, n_test)
-    port = run_port(kw, ref)
+    ref = run_reference(kw, dataset, n_train, n_test, sim_phase_costs)
+    port = run_port(kw, ref, sim_phase_costs)
+    check_logs(kw, ref, port, n_test, sim_phase_costs)
+    return ref, port
+
+
+def check_logs(kw: dict, ref: Reference, port: Run, n_test: int = N_TEST,
+               sim_phase_costs=None) -> None:
+    """Hold a port run's round logs to a reference run's (the tolerances
+    above). ``kw`` is the port's config: it may differ from the
+    reference's in the engine and the wave size only, which the reference
+    holds bit for bit equal."""
     np.testing.assert_array_equal(port.server.proxy.x, ref.server.proxy.x)
     near = near_threshold_pairs(ref, port)
     assert near <= MAX_NEAR_PAIRS, (
         f"{near} near-threshold pairs: the case is too fragile")
     k = ref.dataset.num_classes
-    pairs = kw["num_clients"] * min(
-        kw.get("proxy_batch", FedConfig.proxy_batch), len(port.server.proxy.y))
+    t = min(kw.get("proxy_batch", FedConfig.proxy_batch),
+            len(port.server.proxy.y))
     acc_tol = 1.0 / n_test + 1e-9
     p_rounds, q_rounds = port.result.rounds, ref.result.rounds
     assert len(p_rounds) == len(q_rounds) == kw["rounds"]
@@ -209,9 +267,17 @@ def assert_logs_match(kw: dict, dataset: str = "mnist_feat",
             assert p.server_student_acc is None
         else:
             assert abs(p.server_student_acc - q.server_student_acc) <= acc_tol
-        assert abs(p.id_fraction - q.id_fraction) <= near / pairs + 1e-12
+        assert p.participants == q.participants
+        assert p.mean_staleness == q.mean_staleness
+        reporting = (kw["num_clients"] if q.participants is None
+                     else len(q.participants))
+        assert abs(p.id_fraction - q.id_fraction) <= (
+            near / max(reporting * t, 1) + 1e-12)
         assert abs(p.bytes_up - q.bytes_up) <= (r + 1) * near * k * 4
         assert p.bytes_down == q.bytes_down
         assert p.scrubbed_rows == q.scrubbed_rows == 0
-    return ref, port
+        if sim_phase_costs is not None:
+            assert p.sim_finish_s == q.sim_finish_s
+            assert p.served_model_age_s == q.served_model_age_s
+    assert port.trace == [tuple(k) for k in ref.trace]
 

@@ -13,18 +13,19 @@ Within the port: the cohort engine against its loop engine (bit for bit
 on the CPU here, where each client's batched products equal its own),
 and wave streaming against the unwaved cohort, bit for bit.
 """
-import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_logs_match, assert_params_match,
-                           cohort_config)
+from _torch_parity import (HETERO_COSTS, assert_logs_match,
+                           assert_params_match, cohort_config)
 from repro_torch.common.types import FedConfig
 from repro_torch.core.protocol import run_experiment
 from repro_torch.fed import simulator
 from repro_torch.fed.cohort import CohortEngine
 
-TIMING = ("wall_s", "phase_s")
+# host-clock fields: the simulated timeline is priced from the measured
+# phase seconds
+TIMING = ("wall_s", "phase_s", "sim_finish_s", "served_model_age_s")
 
 
 @pytest.mark.parametrize("scenario", ["strong", "weak", "iid"])
@@ -46,12 +47,34 @@ def test_ragged_clients_and_a_short_proxy_batch_match_reference():
 
 
 def test_mixed_zoo_three_cohorts_match_live_reference():
+    """Sync rounds priced with hetero_zoo's per-cohort costs: the lockstep
+    trace and the simulated finishes equal the reference's too."""
     ref, port = assert_logs_match(cohort_config("edgefd", "strong",
-                                                num_clients=6, zoo="mixed"))
+                                                num_clients=6, zoo="mixed"),
+                                  sim_phase_costs=HETERO_COSTS)
+    assert port.trace[:5] == [(p, 0) for p in ("local_train", "report",
+                                                "aggregate", "distill",
+                                                "eval")]
     assert_params_match(ref, port)
     widths = sorted({tuple(w.shape[1] for w in c.model.weights)
                      for c in port.clients})
     assert widths == [(128, 64, 10), (256, 128, 10), (512, 256, 10)]
+
+
+def test_mixed_zoo_concurrent_overlap_matches_reference():
+    """The mixed zoo of the test above (whose reference run compiled the
+    same cohort steps) with concurrent cohorts, overlapping rounds and
+    half the clients a round: per-cohort client nodes, aggregation a
+    global barrier, the trace and the simulated finishes the
+    reference's."""
+    kw = cohort_config("edgefd", "strong", num_clients=6, rounds=3,
+                       zoo="mixed", round_mode="overlap",
+                       concurrent_cohorts=True, participation_fraction=0.5,
+                       staleness_decay=0.5)
+    _, port = assert_logs_match(kw, sim_phase_costs=HETERO_COSTS)
+    assert ("local_train", 0, 2) in port.trace
+    assert ("aggregate", 0) in port.trace
+    assert port.result.rounds[-1].mean_staleness > 0.0
 
 
 def test_image_singleton_cohorts_match_live_reference():
@@ -124,8 +147,6 @@ def test_cohort_refuses_what_is_not_ported():
     clients, *_ = simulator.build_experiment(cfg, n_train=200, n_test=50,
                                              device="cpu")
     engine = CohortEngine(clients)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        engine.phase_local_train(1, 64, participants=np.ones(2, bool))
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         engine.state_dict()
     with pytest.raises(NotImplementedError, match="queue A item 8"):

@@ -265,7 +265,7 @@ def test_server_round_matches_reference_and_ledger():
     port = Server(proxy.ProxyData(*px), seed=0, device="cpu")
     np.testing.assert_array_equal(port.select_indices(16),
                                   ref.select_indices(16))
-    port.ingest_reports(0, logits, masks)
+    port.ingest_reports(0, None, np.arange(16), logits, masks, decay=0.0)
     ref.ingest_reports(0, None, np.arange(16), logits, masks, decay=0.0)
     t, v, stale = port.aggregate_round(0)
     t_w, v_w, stale_w = ref.aggregate_round(0)

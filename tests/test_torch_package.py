@@ -4,11 +4,13 @@
   ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
 * ``repro_torch.launch.fed_train`` runs on the card unless asked for the
   CPU, raises without a card, runs the feature, image and token datasets,
-  the cohort engine (with the mixed zoo and wave streaming), and refuses
-  every flag whose feature is not ported yet with ``NotImplementedError``
-  naming its ROADMAP item.
+  the cohort engine (with the mixed zoo and wave streaming) and every
+  scheduler flag (overlap, partial participation, churn, dropout,
+  admission, concurrent cohorts), and refuses every flag whose feature is
+  not ported yet with ``NotImplementedError`` naming its ROADMAP item.
 """
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -149,6 +151,9 @@ def test_wave_size_needs_the_cohort_engine():
 
 
 def test_cohort_phase_refuses_participants():
+    """``phase_distill(..., participants=...)`` trains the participants and
+    leaves a sampled-out lane bitwise as it was; a mask of the wrong
+    length is refused."""
     from repro_torch.common.types import FedConfig
     from repro_torch.fed import simulator
     from repro_torch.fed.cohort import CohortEngine
@@ -156,11 +161,55 @@ def test_cohort_phase_refuses_participants():
         FedConfig(num_clients=2, rounds=1, engine="cohort"), n_train=200,
         n_test=50, device="cpu")
     engine = CohortEngine(clients)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        engine.phase_distill(np.zeros((4, 50), np.float32),
-                             np.zeros((4, 10), np.float32),
-                             np.ones(4, np.float32), 1, 64,
-                             participants=[True, True])
+    cohort = engine.cohorts[0]
+    before = [p.detach().clone() for p in cohort.params]
+    rng = np.random.default_rng(0)
+    args = (rng.standard_normal((8, 50)).astype(np.float32),
+            rng.standard_normal((8, 10)).astype(np.float32),
+            np.ones(8, np.float32), 1, 4)
+    losses = engine.phase_distill(*args, participants=[True, False])
+    assert losses[0] > 0.0 and losses[1] == 0.0
+    assert all(torch.equal(p[1], q[1]) for p, q in zip(cohort.params, before))
+    assert not torch.equal(cohort.params[0][0], before[0][0])
+    with pytest.raises(ValueError, match="participation mask shape"):
+        engine.phase_distill(*args, participants=[True, False, True])
+
+
+SCHED_FIELDS = ("participants", "mean_staleness", "sim_finish_s",
+                "served_model_age_s")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--round-mode", "overlap", "--rounds", "3"],
+    ["--participation", "0.5", "--staleness-decay", "0.5"],
+    ["--participation", "0.5", "--policy", "roundrobin", "--engine",
+     "cohort", "--round-mode", "overlap", "--rounds", "2"],
+    ["--churn", "0.3", "--rounds", "2"],
+    ["--dropout", "0.3", "--engine", "cohort"],
+    ["--max-pending-reports", "1", "--round-mode", "overlap", "--rounds",
+     "2"],
+    ["--concurrent-cohorts", "--engine", "cohort", "--zoo", "mixed",
+     "--clients", "3"],
+    ["--participation", "0.5", "--policy", "weighted", "--arrival-process",
+     "bursty", "--arrival-spread", "2"]],
+    ids=["overlap", "participation", "roundrobin-cohort-overlap", "churn",
+         "dropout-cohort", "max-pending-reports", "concurrent-cohorts",
+         "weighted-bursty"])
+def test_scheduler_flags_run_on_the_cpu(flags, tmp_path):
+    """Each scheduler flag (refused before the full scheduler was ported)
+    runs ``fed_train`` to its end, and ``--json`` carries the round's
+    participants, staleness, simulated finish and served-model age."""
+    out = tmp_path / "run.json"
+    res = fed_train.main(SMALL + ["--device", "cpu", "--json", str(out)]
+                         + flags)
+    rounds = json.loads(out.read_text())["rounds"]
+    assert len(rounds) == len(res.rounds) >= 1
+    for r, log in zip(rounds, res.rounds):
+        assert all(f in r for f in SCHED_FIELDS)
+        assert r["sim_finish_s"] == log.sim_finish_s > 0.0
+        assert r["participants"] == log.participants
+    if "--participation" in flags or "--max-pending-reports" in flags:
+        assert all(r["participants"] is not None for r in rounds)
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -168,12 +217,6 @@ def test_cohort_phase_refuses_participants():
     (["--engine", "cohort", "--devices", "2"], "item 10"),
     (["--engine", "cohort", "--model-shards", "2"], "item 10"),
     (["--devices", "2"], "item 10"),
-    (["--round-mode", "overlap"], "item 6"),
-    (["--participation", "0.5"], "item 6"),
-    (["--churn", "0.1"], "item 6"),
-    (["--dropout", "0.1"], "item 6"),
-    (["--max-pending-reports", "4"], "item 6"),
-    (["--concurrent-cohorts"], "item 6"),
     (["--fault-mode", "nan"], "item 7"),
     (["--edge-aggregators", "2"], "item 7"),
     (["--robust-aggregation", "median"], "item 7"),
