@@ -35,7 +35,12 @@ Phases, in order; any failure raises and exits non-zero:
      weights, an all-zero lane) against the plain version and each
      client's 2-D launch bitwise, and through a 16-step distill phase
      with a lane whose weights are zero at every step (a sampled-out
-     lane: its loss and gradient 0, its weights bitwise unchanged);
+     lane: its loss and gradient 0, its weights bitwise unchanged); and
+     benchmarks/scale.py's fleet shapes, 1024 clients a launch: B1 at
+     (16, 50, 10), B2's report at (64, 50, 10) and calibration at (16, 50,
+     10), the fused loss at (16, 10), then a 1024-lane grid on every
+     client-axis route (B1 and B2 wide, B5 over a stacked b) within CUDA's
+     grid limits;
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
@@ -53,7 +58,11 @@ Phases, in order; any failure raises and exits non-zero:
      over 6 clients, and over 9 in waves of 2); partial-participation
      overlap runs on both engines (fraction 0.5, fixed phase costs) card
      vs CPU, participants, staleness, bytes and the simulated timeline
-     equal;
+     equal; robustness runs on both engines (tests/test_faults.py's
+     scenarios: each fault mode, trimmed_mean, median and krum_row under a
+     colluding flip, 3 edge aggregators with a subset and with
+     Selective-FD, quarantine) card vs CPU, scrubbed rows, quarantined
+     clients, participants and bytes equal;
   6. the main path: fed_train, 10 clients with MNIST's split sizes
      (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
@@ -87,9 +96,25 @@ Phases, in order; any failure raises and exits non-zero:
      sync on the loop, held to each other), the mixed zoo over 30 clients
      with concurrent cohorts off and on under fixed costs (the timeline
      equal to a CPU run's), benchmarks/scale.py's heavy traffic (churn,
-     dropout, bursty arrivals, waves of 32), selective-fd and fkd
+     dropout, bursty arrivals, waves of 32) with its 4 edge aggregators
+     held to a flat server's run, selective-fd and fkd
      under round-robin participation held to their loop runs; each run's
-     simulated makespan, rounds a second and staleness;
+     simulated makespan, rounds a second and staleness; then the
+     robustness path, its launches counted from 0: benchmarks/robust_agg.py's
+     accuracy knobs at n_train 60000 (the fault-free mean, then a
+     colluding flip at 0.3 under the mean, trimmed_mean, median and
+     krum_row, final accuracies printed, the trimmed_mean run also on the
+     loop engine held to its cohort run), quarantine (iid, 10 clients:
+     every Byzantine client quarantined and out of the next round), a nan
+     attack under the sanitize pass (rows scrubbed every round, finite
+     losses); then the fleet path, its launches counted from 0:
+     benchmarks/scale.py's headline_c16k_w1k (16384 clients, waves of
+     1024, 8 edges, 2 rounds) and traffic_c1k (1024 clients, waves of 256,
+     4 edges, fraction 0.5, bursty arrivals, churn, dropout), asserting
+     one B1 launch a wave an iteration, one B2 launch a wave a calibration
+     and a report, one fused-loss launch a wave a distill step, printing
+     set-up and round seconds, peak device memory and bytes_up beside
+     BENCH_scale.json's;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -103,7 +128,8 @@ Phases, in order; any failure raises and exits non-zero:
      four routes in turns (fused kernel, the per-sample kernels under
      autograd, plain, library) beside an empty kernel's launch and the
      autograd engine's floor; each route over clients at the cohort's
-     shapes, beside C launches of its 2-D route.
+     shapes, beside C launches of its 2-D route; B1, B2's report and the
+     fused loss at the fleet's shapes (1024 clients a launch).
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -1028,6 +1054,18 @@ COHORT_RBF = ((512, 10, 256, 50, 0), (512, 10, 6000, 50, 0),
               (512, 1, 6001, 784, 0), (512, 1, 5001, 3072, 3))
 # the fused loss: 10 clients' and a 34-client cohort's distill step
 COHORT_KL = ((10, 64, 10), (34, 64, 10), (1, 64, 10), (3, 300, 10))
+# benchmarks/scale.py's fleet (16 samples a client, mnist_feat's 50
+# features, iid: 10 centroids, proxy batch 64, batch 16) in waves of 1024:
+# a wave's fit (B1), its report (B2 on the shared proxy batch) and
+# calibration (B2 on each client's own rows), a distill step (the fused
+# loss)
+FLEET_C = 1024
+FLEET_LLOYD = (16, 50, 10)
+FLEET_REPORT, FLEET_CALIB = (64, 50, 10), (16, 50, 10)
+FLEET_KL = (16, 10)
+# CUDA's grid limits (compute capability 9.0): x up to 2^31 - 1 blocks, y
+# and z up to 65535; every route puts the client axis on y or z
+GRID_X_MAX, GRID_YZ_MAX = 2**31 - 1, 65535
 
 
 def check_cohort_kernels():
@@ -1052,6 +1090,35 @@ def check_cohort_kernels():
     for c, n, k in COHORT_KL:
         errs["kl"][(c, n, k)] = check_kl_loss_clients(c, n, k)
     check_kl_loss_zero_lane_phase()
+    errs["fleet"] = check_fleet_kernels()
+    return errs
+
+
+def check_fleet_kernels():
+    """The fleet's launch shapes, 1024 clients in one launch, each against
+    its plain version and each client bitwise its own launch; then a
+    1024-lane grid on the client-axis routes the fleet's shapes do not
+    take (B1 and B2 on their wide routes, B5 on a stacked b), within
+    CUDA's grid limits. Returns the max abs errors by kernel."""
+    c = FLEET_C
+    log(f"  the fleet's launch shapes (benchmarks/scale.py, waves of {c})")
+    check_lloyd_clients(*FLEET_LLOYD, c=c)
+    errs = {"lloyd": check_lloyd(*FLEET_LLOYD, c=c),
+            "report": check_min_dist_clients(c, *FLEET_REPORT, True),
+            "calibration": check_min_dist_clients(c, *FLEET_CALIB, False),
+            "kl": check_kl_loss_clients(c, *FLEET_KL)}
+    if c > GRID_YZ_MAX:
+        raise AssertionError(f"{c} lanes exceed grid y/z's {GRID_YZ_MAX}")
+    # the other routes at 1024 lanes: B1 and B2 wide (d > 64; the client
+    # on grid y, and on z for B1's sums), B5 on a shared a against 1024
+    # clients' b, stacked on the grid's x axis
+    check_lloyd(16, 784, 3, c=c)
+    check_min_dist_clients(c, 16, 784, 3, False)
+    check_rbf_clients(64, c, 16, 50)
+    log(f"  a {c}-lane grid launched on every client-axis route (B1 and B2 "
+        f"narrow and wide, the fused loss, B5 over {c * 16} stacked rows) "
+        f"and agreed with the plain versions: the client axis on grid y or "
+        f"z ({c} <= {GRID_YZ_MAX}), rows on x (<= {GRID_X_MAX})")
     return errs
 
 
@@ -2176,15 +2243,75 @@ def check_small_scheduler_runs():
     log(f"  phase 5's scheduler runs took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 5's robustness runs: tests/test_faults.py's scenarios (edgefd
+# strong, 5 clients, 2 rounds, proxy batch 96, batch 32, n_train 500,
+# n_test 200): each fault mode, the robust reducers under a colluding flip,
+# 3 edge aggregators (subset rounds; Selective-FD's filter at the edges),
+# and quarantine (4 clients, 3 rounds)
+SMALL_ROBUST = dict(method="edgefd", scenario="strong", num_clients=5,
+                    rounds=2, proxy_batch=96, batch_size=32, lr=1e-2, seed=0)
+ROBUST_CASES = (
+    [(f"fault {m}", dict(fault_mode=m, byzantine_frac=0.4, fault_prob=0.2))
+     for m in ("nan", "random_logits", "scaled", "colluding_flip",
+               "stale_replay")]
+    + [(f"{red} under a colluding flip",
+        dict(fault_mode="colluding_flip", byzantine_frac=0.3,
+             robust_aggregation=red,
+             trim_frac=0.45 if red == "trimmed_mean" else 0.2))
+       for red in ("trimmed_mean", "median", "krum_row")]
+    + [("3 edges, fraction 0.6, decay 0.5",
+        dict(num_edge_aggregators=3, participation_fraction=0.6,
+             staleness_decay=0.5)),
+       ("selective-fd on 3 edges",
+        dict(method="selective-fd", num_edge_aggregators=3)),
+       ("quarantine", dict(fault_mode="scaled", byzantine_frac=0.25,
+                           robust_aggregation="trimmed_mean", trim_frac=0.3,
+                           quarantine_threshold=2.0, quarantine_rounds=2,
+                           num_clients=4, rounds=3))])
+
+
+def robust_fields(res):
+    """The round fields the defense stack decides, which two devices must
+    share."""
+    return [(r.scrubbed_rows, r.quarantined, r.participants, r.bytes_up)
+            for r in res.rounds]
+
+
+def check_small_robust_runs():
+    """Phase 5 for the robustness layer: every ROBUST_CASES run on both
+    engines, card against CPU: round logs by ``compare_runs``, and
+    scrubbed rows, quarantined clients, participants and bytes equal."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    log("[5] small robustness runs (faults, robust reducers, edges, "
+        "quarantine): card vs CPU")
+    t0 = time.perf_counter()
+    for label, knobs in ROBUST_CASES:
+        for engine in ("loop", "cohort"):
+            cfg = FedConfig(**dict(SMALL_ROBUST, **knobs, engine=engine))
+            gpu, cpu = (simulator.run(cfg, n_train=500, n_test=200,
+                                      device=dev) for dev in ("cuda", "cpu"))
+            name = f"{engine} {label}"
+            compare_runs(name, gpu, cpu, 200)
+            if robust_fields(gpu) != robust_fields(cpu):
+                raise AssertionError(f"{name}: card {robust_fields(gpu)} "
+                                     f"CPU {robust_fields(cpu)}")
+            log(f"  {name}: scrubbed rows, quarantined, participants and "
+                f"bytes equal: " + "; ".join(
+                    f"r{r.round} scrubbed {r.scrubbed_rows} quarantined "
+                    f"{r.quarantined} part {r.participants}"
+                    for r in gpu.rounds))
+    log(f"  phase 5's robustness runs took {time.perf_counter() - t0:.1f} s")
+
+
 # phase 6's edge-fleet runs: BENCH_async's deployment at MNIST's split
 # sizes (128 iid clients, 468-469 samples each), the mixed zoo over 30
 # clients priced with hetero_zoo's costs, heavy traffic, and the class-wise
 # and KuLSIF methods under round-robin participation. The heavy traffic is
 # benchmarks/scale.py's traffic rows' (traffic_c1k, quick_traffic_c256:
 # uniform fraction 0.5, decay 0.5, bursty arrivals over 60 s, churn and
-# dropout 0.05, sync rounds, waves of a quarter of the fleet) on
-# BENCH_async's 128 clients; the rows' edge aggregators are not ported
-# (ROADMAP queue A item 7)
+# dropout 0.05, sync rounds, waves of a quarter of the fleet, 4 edge
+# aggregators) on BENCH_async's 128 clients, held to a flat server's run
 FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=10,
              proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
              participation_fraction=0.5, participation_policy="uniform",
@@ -2198,7 +2325,7 @@ HEAVY = dict(method="edgefd", scenario="iid", num_clients=128, rounds=5,
              participation_policy="uniform", staleness_decay=0.5,
              arrival_process="bursty", arrival_spread=60.0,
              churn_prob=0.05, dropout_prob=0.05, wave_size=32,
-             round_mode="sync")
+             round_mode="sync", num_edge_aggregators=4)
 ROBIN = dict(scenario="strong", num_clients=10, rounds=3, proxy_batch=512,
              seed=0, participation_fraction=0.5,
              participation_policy="roundrobin", staleness_decay=0.0,
@@ -2214,7 +2341,10 @@ def run_scheduler_path():
     CPU's for the same trace (a CPU run of the same schedule at 1200
     samples: under fixed costs and full participation the timeline
     depends on the graph alone); (c) benchmarks/scale.py's heavy traffic
-    on the cohort engine in waves of 32; (d) selective-fd and fkd strong, round robin, decay 0,
+    on the cohort engine in waves of 32 with its 4 edge aggregators, held
+    to a flat server's run (losses rtol 1e-3, accuracies within a test
+    sample, participants, staleness and bytes equal: a two-tier mean is a
+    regrouped sum); (d) selective-fd and fkd strong, round robin, decay 0,
     overlap, each cohort run held to its loop run. Asserts one fused-loss
     launch a cohort a distill step, one B2 launch a cohort (wave) a
     report, on the loop engine one B2 report launch a reporting client,
@@ -2241,7 +2371,10 @@ def run_scheduler_path():
             ("(b) mixed zoo, serial cohorts", dict(ZOO), 3, HETERO_COSTS),
             ("(b) mixed zoo, concurrent cohorts",
              dict(ZOO, concurrent_cohorts=True), 3, HETERO_COSTS),
-            ("(c) heavy traffic, waves of 32", dict(HEAVY), 4, None)]
+            ("(c) heavy traffic, waves of 32, 4 edges", dict(HEAVY), 4,
+             None),
+            ("(c) heavy traffic, waves of 32, flat server",
+             dict(HEAVY, num_edge_aggregators=1), 4, None)]
     for m in ("selective-fd", "fkd"):
         for engine in ("cohort", "loop"):
             runs.append((f"(d) {engine} {m} strong, round robin",
@@ -2323,7 +2456,21 @@ def run_scheduler_path():
                                  f"the CPU's {want}")
         log(f"  {label}: simulated finishes equal to the CPU's for the same "
             f"schedule, sim_total_s {max(g for g, _ in got)!r}")
-    heavy = results["(c) heavy traffic, waves of 32"]
+    heavy = results["(c) heavy traffic, waves of 32, 4 edges"]
+    flat = results["(c) heavy traffic, waves of 32, flat server"]
+    compare_runs("(c) 4 edges against the flat server", heavy, flat, 10000,
+                 names=("4 edges", "flat"))
+    fields = [(r.participants, r.mean_staleness, r.bytes_up, r.bytes_down)
+              for r in heavy.rounds]
+    if fields != [(r.participants, r.mean_staleness, r.bytes_up,
+                   r.bytes_down) for r in flat.rounds]:
+        raise AssertionError("(c): participants, staleness or bytes of the "
+                             "4-edge run differ from the flat run's")
+    log("  (c) 4 edges: participants, staleness and bytes equal to the "
+        "flat server's: " + "; ".join(
+            f"r{r.round} {len(r.participants)} participants, stale "
+            f"{r.mean_staleness!r}, MB up {r.bytes_up / 1e6:.6f}"
+            for r in heavy.rounds))
     sampled = cohort_size(HEAVY["num_clients"],
                           HEAVY["participation_fraction"])
     if not all(0 < len(r.participants) <= sampled for r in heavy.rounds):
@@ -2333,6 +2480,286 @@ def run_scheduler_path():
         f"{ {n: v for n, v in counts.items() if v} }; the path took "
         f"{time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# ----------------------------------------------------- phase 6, robustness
+# (e) benchmarks/robust_agg.py's accuracy knobs at the main path's split:
+# edgefd iid, 10 clients, 6 rounds, proxy batch 96, batch 32, lr 1e-2,
+# mnist_feat with n_train 60000 and n_test 10000, cohort engine
+ROBUST_ACC = dict(method="edgefd", scenario="iid", num_clients=10, rounds=6,
+                  proxy_batch=96, batch_size=32, lr=1e-2, seed=0,
+                  engine="cohort")
+FLIP = dict(fault_mode="colluding_flip", byzantine_frac=0.3)
+# (f) phase 5's quarantine knobs and (g) a nan attack under the sanitize
+# pass, at 10 clients, n_train 60000, 4 rounds, cohort engine. (f) takes
+# the iid split: in the strong one at 10 clients each client holds one
+# class and alone claims its proxy rows, so each row has one voter, the
+# attacker is its own robust center and scores no distance (in both
+# packages: nobody is quarantined)
+FULL_STRONG = dict(method="edgefd", scenario="strong", num_clients=10,
+                   rounds=4, proxy_batch=96, batch_size=32, lr=1e-2, seed=0,
+                   engine="cohort")
+QUARANTINE = dict(fault_mode="scaled", byzantine_frac=0.25,
+                  robust_aggregation="trimmed_mean", trim_frac=0.3,
+                  quarantine_threshold=2.0, quarantine_rounds=2)
+
+
+def run_robust_path():
+    """Phase 6 for the robustness layer, its launches counted from 0: (e)
+    the fault-free mean, then a colluding flip at 0.3 under the mean,
+    trimmed_mean (0.45), median and krum_row, each final accuracy printed
+    (the shape, not asserted), and the trimmed_mean run on the loop engine
+    held to its cohort run; (f) quarantine: every Byzantine client
+    quarantined and absent from the next round's participants; (g) nan
+    under the sanitize pass: rows scrubbed every round, finite losses.
+    Asserts one fused-loss launch a cohort a distill step (a loop client's
+    step on the loop engine). Returns the path's counts."""
+    import numpy as np
+    from repro_torch.common.types import FedConfig
+    from repro_torch.fed import simulator
+    from repro_torch.fed.faults import byzantine_ids
+
+    def drive(cfg):
+        return lambda: simulator.run(FedConfig(**cfg), n_train=60000,
+                                     n_test=10000, device="cuda")
+
+    tm = dict(robust_aggregation="trimmed_mean", trim_frac=0.45)
+    runs = [("(e) fault-free, mean", dict(ROBUST_ACC)),
+            ("(e) colluding flip 0.3, mean", dict(ROBUST_ACC, **FLIP))]
+    runs += [(f"(e) colluding flip 0.3, {red}",
+              dict(ROBUST_ACC, **FLIP, robust_aggregation=red,
+                   trim_frac=0.45 if red == "trimmed_mean" else 0.2))
+             for red in ("trimmed_mean", "median", "krum_row")]
+    runs += [("(e) colluding flip 0.3, trimmed_mean, loop engine",
+              dict(ROBUST_ACC, **FLIP, **tm, engine="loop")),
+             ("(f) quarantine, iid",
+              dict(FULL_STRONG, **QUARANTINE, scenario="iid")),
+             ("(g) nan, sanitized",
+              dict(FULL_STRONG, fault_mode="nan", byzantine_frac=0.34))]
+    log("[6] the robustness path: " + "; ".join(r[0] for r in runs))
+    t0 = time.perf_counter()
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    results, per_run, steps, attn = {}, {}, {}, {}
+    for label, cfg in runs:
+        cohort = cfg["engine"] == "cohort"
+        kl = "kd_kl_loss_clients" if cohort else "kd_kl_loss"
+        run_one(label, drive(cfg), wrappers, results, per_run, steps, attn,
+                kl_name=kl)
+        if per_run[label][kl] != steps[label] or not steps[label]:
+            raise AssertionError(f"{label}: {per_run[label][kl]} {kl} "
+                                 f"launches for {steps[label]} distill steps")
+        res = results[label]
+        log(f"  {label}: accuracy by round "
+            + " ".join(f"{r.mean_acc:.4f}" for r in res.rounds)
+            + "; scrubbed " + str([r.scrubbed_rows for r in res.rounds])
+            + ", quarantined " + str([r.quarantined for r in res.rounds]))
+    compare_runs("(e) trimmed_mean: loop against cohort",
+                 results["(e) colluding flip 0.3, trimmed_mean, loop engine"],
+                 results["(e) colluding flip 0.3, trimmed_mean"], 10000,
+                 names=("loop", "cohort"))
+    base = results["(e) fault-free, mean"].final_acc
+    log("  (e) final accuracies beside the fault-free mean's "
+        f"{base:.4f}: " + "; ".join(
+            f"{lb[4:]} {results[lb].final_acc:.4f} "
+            f"({results[lb].final_acc - base:+.4f})"
+            for lb, _ in runs[1:6]))
+    q = results["(f) quarantine, iid"].rounds
+    byz = np.flatnonzero(byzantine_ids(FULL_STRONG["num_clients"], seed=0,
+                                       byzantine_frac=0.25))
+    for cid in byz:
+        ev = [r.round for r in q if r.quarantined and cid in r.quarantined]
+        if not ev:
+            raise AssertionError(f"(f): Byzantine client {cid} was never "
+                                 f"quarantined: {[r.quarantined for r in q]}")
+        nxt = next((r for r in q if r.round == ev[0] + 1), None)
+        if nxt is not None and (nxt.participants is None
+                                or cid in nxt.participants):
+            raise AssertionError(f"(f): client {cid}, quarantined in round "
+                                 f"{ev[0]}, takes part in round "
+                                 f"{nxt.round}: {nxt.participants}")
+        log(f"  (f) Byzantine client {cid} quarantined on round {ev[0]}'s "
+            f"evidence; round {ev[0] + 1}'s participants "
+            f"{nxt.participants if nxt else None}")
+    g = results["(g) nan, sanitized"].rounds
+    if not all(r.scrubbed_rows > 0 for r in g):
+        raise AssertionError(f"(g): a round scrubbed nothing: "
+                             f"{[r.scrubbed_rows for r in g]}")
+    if not all(finite(r.local_loss) and finite(r.distill_loss) for r in g):
+        raise AssertionError("(g): a non-finite loss under the sanitize "
+                             "pass")
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for name in ("lloyd_step", "min_dist_and_mask_clients",
+                 "kd_kl_loss_clients", "kd_kl_loss"):
+        if counts[name] == 0:
+            raise AssertionError(f"the robustness path never launched "
+                                 f"{name}")
+    log(f"  launches on the robustness path: "
+        f"{ {n: v for n, v in counts.items() if v} }; the path took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# (h) benchmarks/scale.py's fleet rows (scale.py:54-61, run as its
+# run_row does: edgefd iid on the cohort engine, mnist_feat with 16
+# samples a client, MLP hidden (16,), n_test 256, proxy batch 64, batch
+# 16, lr 1e-2); the headline row runs 2 rounds (the row's 1, then a warm
+# one)
+FLEET_ROWS = (
+    dict(name="headline_c16k_w1k", clients=16384, wave=1024, edges=8,
+         rounds=2, row_rounds=1),
+    dict(name="traffic_c1k", clients=1024, wave=256, edges=4, rounds=2,
+         row_rounds=2, fraction=0.5, decay=0.5, arrival="bursty",
+         spread=60.0, churn=0.05, dropout=0.05))
+
+
+class FitIterations:
+    """While in effect, records each batched k-means fit's Lloyd launches
+    (its longest lane's iterations, then the assignment step)."""
+
+    def __enter__(self):
+        from repro_torch.core import dre
+        self.module, self.orig, self.launches = dre, dre.kmeans_fit_batched, []
+
+        def fit(*args, **kwargs):
+            res = self.orig(*args, **kwargs)
+            self.launches.append(max(res.n_iter) + 1)
+            return res
+
+        dre.kmeans_fit_batched = fit
+        return self
+
+    def __exit__(self, *exc):
+        self.module.kmeans_fit_batched = self.orig
+
+
+def run_fleet_path():
+    """Phase 6 for the fleet, its launches counted from 0: each FLEET_ROWS
+    row built by ``build_experiment(..., mlp_hidden=(16,))`` and run by
+    ``run_experiment``. Asserts one B1 launch a wave an iteration of its
+    fit, one B2 launch a wave a calibration and a report, one fused-loss
+    launch a wave a distill step. Prints set-up seconds (the build, then
+    the DRE fits and engine), round seconds by phase, peak device memory
+    and bytes_up beside BENCH_scale.json's (a CPU record of the
+    reference, not asserted). Returns (the path's counts, launches by
+    kernel at the 1024-client wave)."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.core.protocol import run_experiment
+    from repro_torch.fed import simulator
+    from repro_torch.fed.batching import steps_per_epoch
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    bench = {r["name"]: r for r in json.loads(
+        (ROOT / "BENCH_scale.json").read_text())["rows"]}
+    log("[6] the fleet path: benchmarks/scale.py's rows "
+        + ", ".join(f"{r['name']} ({r['clients']} clients, waves of "
+                    f"{r['wave']}, {r['edges']} edges)" for r in FLEET_ROWS))
+    t0 = time.perf_counter()
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    results, per_run, steps, attn = {}, {}, {}, {}
+    at_fleet_wave = {}
+    for row in FLEET_ROWS:
+        cfg = FedConfig(
+            num_clients=row["clients"], rounds=row["rounds"],
+            method="edgefd", scenario="iid", proxy_batch=64, batch_size=16,
+            lr=1e-2, seed=0, engine="cohort", wave_size=row["wave"],
+            num_edge_aggregators=row["edges"],
+            participation_fraction=row.get("fraction", 1.0),
+            staleness_decay=row.get("decay", 0.0),
+            arrival_process=row.get("arrival", "static"),
+            arrival_spread=row.get("spread", 0.0),
+            churn_prob=row.get("churn", 0.0),
+            dropout_prob=row.get("dropout", 0.0))
+        waves = -(-cfg.num_clients // cfg.wave_size)
+        timing = {}
+
+        def drive(cfg=cfg, timing=timing):
+            t = time.perf_counter()
+            exp = simulator.build_experiment(
+                cfg, "mnist_feat", n_train=16 * cfg.num_clients, n_test=256,
+                mlp_hidden=(16,), device="cuda")
+            timing["build"] = time.perf_counter() - t
+            t = time.perf_counter()
+            res = run_experiment(*exp[:2], cfg.method, cfg, *exp[2:])
+            timing["run"] = time.perf_counter() - t
+            return res
+
+        label = f"(h) {row['name']}"
+        lloyd = CountedCalls(kd_ops, "lloyd_step",
+                             key=lambda x, c: x.shape[0] if x.ndim == 3
+                             else 1)
+        dist = CountedCalls(kd_ops, "min_dist_and_mask",
+                            key=lambda x, c, thr: (
+                                "calibration" if isinstance(thr, float)
+                                else "report",
+                                c.shape[0] if c.ndim == 3 else 1))
+        with lloyd, dist, FitIterations() as fits:
+            run_one(label, drive, wrappers, results, per_run, steps, attn,
+                    kl_name="kd_kl_loss_clients")
+        res, launches = results[label], per_run[label]
+        rounds_s = sum(r.wall_s for r in res.rounds)
+        fit_s = timing["run"] - rounds_s
+        log(f"  {label}: set-up {timing['build'] + fit_s:.3f} s (build "
+            f"{timing['build']:.3f} s, DRE fits and engine {fit_s:.3f} s); "
+            + "; ".join(f"round {r.round} {r.wall_s:.3f} s ["
+                        + " ".join(f"{k}={v:.3f}"
+                                   for k, v in r.phase_s.items()) + "]"
+                        for r in res.rounds)
+            + f"; mean staleness {[r.mean_staleness for r in res.rounds]}, "
+            "participants a round "
+            + str([cfg.num_clients if r.participants is None
+                   else len(r.participants) for r in res.rounds]))
+        ref_row = bench.get(row["name"], {})
+        log(f"  {label}: bytes_up by round "
+            f"{[r.bytes_up for r in res.rounds]}, bytes_down "
+            f"{[r.bytes_down for r in res.rounds]}; BENCH_scale.json "
+            f"(the reference on a CPU host, after the row's "
+            f"{row['row_rounds']} round(s)): bytes_up "
+            f"{ref_row.get('bytes_up')}, final acc {ref_row.get('final_acc')}"
+            f"; here after round {row['row_rounds'] - 1}: bytes_up "
+            f"{res.rounds[row['row_rounds'] - 1].bytes_up}, acc "
+            f"{res.rounds[row['row_rounds'] - 1].mean_acc:.4f}")
+        # one launch a wave: B1 an iteration of each wave's fit, B2 a
+        # calibration and a report, the fused loss a distill step
+        if set(lloyd.by_key) != {cfg.wave_size} or \
+                len(fits.launches) != waves or \
+                lloyd.by_key[cfg.wave_size] != sum(fits.launches):
+            raise AssertionError(
+                f"{label}: B1 calls by C {lloyd.by_key} for {waves} waves' "
+                f"fits of {fits.launches} Lloyd steps")
+        want = {("calibration", cfg.wave_size): waves,
+                ("report", cfg.wave_size): waves * cfg.rounds}
+        if dist.by_key != want:
+            raise AssertionError(f"{label}: B2 calls by (class, C) "
+                                 f"{dist.by_key}, not {want}")
+        want_steps = (waves * cfg.rounds * cfg.distill_epochs
+                      * steps_per_epoch(cfg.proxy_batch, cfg.batch_size))
+        if not (launches["kd_kl_loss_clients"] == steps[label]
+                == want_steps):
+            raise AssertionError(
+                f"{label}: {launches['kd_kl_loss_clients']} fused-loss "
+                f"launches for {steps[label]} distill steps, not "
+                f"{want_steps} ({waves} waves a round)")
+        log(f"  {label}: B1 {sum(fits.launches)} launches over {waves} "
+            f"wave fits (each wave's Lloyd steps {sorted(set(fits.launches))}"
+            f"), B2 {waves} calibrations and {waves * cfg.rounds} reports, "
+            f"the fused loss {want_steps} launches: one a wave a step")
+        if cfg.wave_size == FLEET_C:
+            at_fleet_wave = {"lloyd_step": sum(fits.launches),
+                             "min_dist_and_mask_clients":
+                                 waves * (cfg.rounds + 1),
+                             "kd_kl_loss_clients": want_steps}
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for name in ("lloyd_step", "min_dist_and_mask_clients",
+                 "kd_kl_loss_clients"):
+        if counts[name] == 0:
+            raise AssertionError(f"the fleet path never launched {name}")
+    log(f"  launches on the fleet path: "
+        f"{ {n: v for n, v in counts.items() if v} }; the path took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts, at_fleet_wave
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2756,6 +3183,80 @@ def measure_cohort(counts, lloyd_c, cohort_err):
     return list(rows.values())
 
 
+def measure_fleet(at_wave, fleet_err):
+    """Phase 7 at the fleet's launch shapes (1024 clients a launch): B1,
+    B2's report and the fused loss, each per call and device only beside
+    its plain version and its bound (the fused loss also beside the
+    library route). Returns their JSON rows, ``launches`` the fleet path's
+    at this shape."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops as kl_ops
+    from repro_torch.kernels.distill_kl import ref as kl_ref
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kmeans_dist import ref as kd_ref
+    c, T = FLEET_C, TEMPERATURE
+    log(f"  the fleet's launch shapes, {c} clients a launch")
+    rows = []
+    x, cents = lloyd_inputs(*FLEET_LLOYD, seed=1, c=c)
+    moved, flops = lloyd_cost(*FLEET_LLOYD)
+    ms, plain_ms, b_ms, b_by, _ = time_row(
+        f"lloyd_step C={c} n, d, k={FLEET_LLOYD}",
+        lambda: kd_ops.lloyd_step_cuda(x, cents),
+        lambda: kd_ref.lloyd_step(x, cents), c * moved, c * flops)
+    rows.append({"name": f"lloyd_step_clients_c{c}", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/lloyd_step.cu",
+                 "replaces": "src/repro/kernels/kmeans_dist/kernel.py:113",
+                 "launches": at_wave["lloyd_step"],
+                 "max_abs_err": fleet_err["lloyd"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None})
+    t, d, k = FLEET_REPORT
+    x, cents, thr = min_dist_clients_inputs(c, t, d, k, True, seed=1)
+    moved, flops = dist_cost(t, d, k)
+    ms, plain_ms, b_ms, b_by, _ = time_row(
+        f"min_dist_and_mask clients C={c} t={t} d={d} k={k} (report)",
+        lambda: kd_ops.min_dist_and_mask(x, cents, thr),
+        lambda: kd_ref.min_dist_and_mask(x, cents, thr),
+        c * moved - (c - 1) * 4 * t * d, c * flops)
+    rows.append({"name": f"min_dist_and_mask_clients_c{c}", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/kmeans_dist.cu",
+                 "replaces": "src/repro/kernels/kmeans_dist/kernel.py:48",
+                 "launches": at_wave["min_dist_and_mask_clients"],
+                 "max_abs_err": max(fleet_err["report"],
+                                    fleet_err["calibration"]),
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None})
+    n, kk = FLEET_KL
+    g = torch.Generator().manual_seed(c)
+    s = (torch.randn((c, n, kk), generator=g) * 3).cuda()
+    tt = (torch.randn((c, n, kk), generator=g) * 3).cuda()
+    w = kl_clients_weights(c, n, seed=1)
+    s_ = s.clone().requires_grad_(True)
+    ms, plain_ms, b_ms, b_by, _ = time_row(
+        f"kd_kl_loss clients C={c} n={n} K={kk} (loss, kl and ds)",
+        lambda: kl_ops.kd_kl_loss_clients_cuda(s, tt, w, T),
+        lambda: torch.autograd.grad(kl_ref.kd_kl_loss(s_, tt, T, w).sum(),
+                                    s_),
+        4 * c * (3 * n * kk + 2 * n + 1), c * (28 * n * kk + 4 * n))
+
+    def library():
+        kl = torch.nn.functional.kl_div(
+            torch.log_softmax(s_ / T, -1), torch.log_softmax(tt / T, -1),
+            reduction="none", log_target=True).sum(-1) * (T * T)
+        return torch.autograd.grad(kl_ref.weighted_mean(kl, w).sum(), s_)
+    lib_ms = time_ms(library)
+    log(f"    library (F.kl_div over clients, weighted means, autograd) "
+        f"{lib_ms:.5f}, device only {fmt(device_ms(library))}")
+    rows.append({"name": f"kd_kl_loss_clients_c{c}", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
+                 "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
+                 "launches": at_wave["kd_kl_loss_clients"],
+                 "max_abs_err": fleet_err["kl"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_ms})
+    return rows
+
+
 def time_kernels(label):
     """``--time-kernels``: B1 at each k and on its wide route, B2 at each of
     its shapes (a device threshold, which every tree's wrapper takes; at
@@ -3023,13 +3524,17 @@ def main(argv) -> int:
     check_kmeans_batched()
     check_small_run()
     check_small_scheduler_runs()
+    check_small_robust_runs()
     (counts, attn_batches, by_k, by_shape, by_class,
      loop_results) = run_main_path()
     cohort_counts, lloyd_c, _ = run_cohort_path(loop_results)
     run_scheduler_path()
+    run_robust_path()
+    _, at_fleet_wave = run_fleet_path()
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)
+    rows += measure_fleet(at_fleet_wave, cohort_err["fleet"])
 
     log(smi)
     print(json.dumps({"kernels": rows}))

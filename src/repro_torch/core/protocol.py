@@ -58,8 +58,9 @@ class RoundLog:
     # FedDF ensemble server (method="server_distill")
     server_distill_loss: float = 0.0
     server_student_acc: Optional[float] = None
-    # defense stack: report rows the sanitize pass scrubbed this round;
-    # quarantine and watchdog rollbacks are not ported yet
+    # defense stack: report rows the sanitize pass scrubbed this round and
+    # the clients quarantined on its evidence (None: nobody); watchdog
+    # rollbacks are not ported yet (ROADMAP queue A item 8)
     scrubbed_rows: int = 0
     quarantined: Optional[List[int]] = None
     rollbacks: int = 0

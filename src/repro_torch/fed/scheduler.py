@@ -34,15 +34,20 @@ deterministic speeds, the server is one serial resource, and
 Per round the scheduler draws the participants (``sample_participants``,
 then churn), drops mid-round dropouts before the report, admits reports
 in simulated-arrival order under ``max_pending_reports``, and computes
-the ID fraction over the reporting clients from integer counts.
+the ID fraction over the reporting clients from integer counts. With
+``fault_mode`` set, a ``FaultInjector`` corrupts the faulty clients'
+reports before admission (class-wise payloads before aggregation);
+clients the server has quarantined sit the round out, unless that would
+empty it.
 
 **Concurrent cohorts** (``concurrent_cohorts=True``) key the client-side
 nodes ``(phase, round, cohort)`` so the cohorts of a mixed zoo pipeline
 independently; aggregation stays a global barrier.
 
-``REPRO_ROUND_MODE`` fills in for ``round_mode="auto"``. The fault
-injector and the watchdog (ROADMAP queue A item 7) and ``snapshot``/
-``restore`` (item 8) are not ported yet and raise ``NotImplementedError``.
+``REPRO_ROUND_MODE`` fills in for ``round_mode="auto"``. The divergence
+watchdog and ``snapshot``/``restore`` (ROADMAP queue A item 8: the
+watchdog rolls back to a snapshot) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from repro_torch.data.synthetic import sample_tensor
 from repro_torch.fed.clock import (ARRIVAL_PROCESSES, SimTimeline,
                                    arrival_offsets, client_speeds,
                                    dropout_mask, online_mask)
-from repro_torch.fed.faults import validate_fault_config
+from repro_torch.fed.faults import FaultInjector, validate_fault_config
 from repro_torch.fed.participation import sample_participants
 
 ROUND_MODES = ("sync", "overlap")
@@ -198,14 +203,10 @@ class RoundScheduler:
     def __init__(self, engine, server, method, cfg, x_test, y_test, *,
                  sim_phase_costs: Optional[Dict[str, float]] = None):
         validate_config(cfg)
-        if cfg.fault_mode != "none":
-            raise NotImplementedError(
-                "the fault injector is not ported yet: ROADMAP queue A "
-                "item 7 (server scale and robustness)")
         if cfg.watchdog:
             raise NotImplementedError(
                 "the divergence watchdog is not ported yet: ROADMAP queue A "
-                "item 7 (server scale and robustness)")
+                "item 8 (state and service: it rolls back to a snapshot)")
         self.engine = engine
         self.server = server
         self.method = method
@@ -246,6 +247,14 @@ class RoundScheduler:
         # reference (service start = 0.0)
         self._last_retire_s = 0.0
         self._cuda = torch.device(engine.device).type == "cuda"
+        # the payload-fault trace, built only when a fault mode is set
+        self.faults: Optional[FaultInjector] = None
+        if cfg.fault_mode != "none":
+            self.faults = FaultInjector(
+                engine.num_clients, mode=cfg.fault_mode, seed=cfg.seed,
+                fault_prob=cfg.fault_prob, byzantine_frac=cfg.byzantine_frac,
+                fault_start=cfg.fault_start,
+                fault_duration=cfg.fault_duration, device=engine.device)
 
     # ------------------------------------------------------------ the graph
     def _build_deps(self, rounds) -> Dict[Tuple, List]:
@@ -388,6 +397,9 @@ class RoundScheduler:
         are ``max_inflight`` rounds old (``eval(q)`` gates
         ``local_train(q + max_inflight)``)."""
         del self._states[r]
+        # the round's outlier scores are the watchdog's (ROADMAP queue A
+        # item 8); dropped here so they do not pile up
+        self.server.pop_round_outlier(r)
         self._done -= {k for k in self._done if k[1] == r}
         horizon = r - self.max_inflight
         for key in [k for k in self._sim_end if k[1] <= horizon]:
@@ -510,7 +522,8 @@ class RoundScheduler:
 
     # --------------------------------------------------------- phase bodies
     def _draw_participants(self, st: _RoundState) -> None:
-        """Participation sampling, then churn, for one round."""
+        """Participation sampling, then churn, then quarantine, for one
+        round."""
         cfg = self.cfg
         st.sampled = True
         if cfg.participation_fraction < 1.0:
@@ -527,6 +540,13 @@ class RoundScheduler:
                              churn=cfg.churn_prob)
         if online is not None:
             st.part = online if st.part is None else (st.part & online)
+        # quarantined clients sit out like sampled-out ones, unless that
+        # would empty the round
+        q = self.server.quarantine_mask(st.r)
+        if q is not None:
+            keep = ~q if st.part is None else (st.part & ~q)
+            if keep.any():
+                st.part = keep
         if st.part is not None:
             st.kw = {"participants": st.part}
 
@@ -630,6 +650,12 @@ class RoundScheduler:
             return
         cfg = self.cfg
         part = self._report_part(st)
+        if self.faults is not None:
+            # faulty clients lie about what they send, after training and
+            # before the server sees anything (admission and the ID
+            # fraction read the corrupted masks)
+            logits, masks = self.faults.corrupt_reports(st.r, logits, masks,
+                                                        part)
         cap = int(self.server.max_pending_reports)
         if cap > 0:
             ids = (np.arange(self.engine.num_clients)
@@ -661,6 +687,12 @@ class RoundScheduler:
 
     def _phase_aggregate(self, st: _RoundState) -> None:
         if self.method.data_free:
+            if self.faults is not None:
+                # class-wise payloads are untouched between report and
+                # aggregate, so the trace acts here, for the serial and the
+                # concurrent report paths alike
+                st.means_counts = self.faults.corrupt_classwise(
+                    st.r, st.means_counts, self._report_part(st))
             st.teacher_by_class, st.valid_by_class = \
                 self.server.aggregate_classwise(
                     st.means_counts, count_weighted=self.method.count_weighted,
@@ -721,6 +753,7 @@ class RoundScheduler:
         age = max(0.0, st.sim_finish_s - self._last_retire_s)
         self._last_retire_s = max(self._last_retire_s, st.sim_finish_s)
         part = self._report_part(st)
+        newly_q = self.server.pop_quarantined(st.r)
         return RoundLog(
             round=st.r,
             mean_acc=float(np.mean(st.accs)),
@@ -741,4 +774,5 @@ class RoundScheduler:
             server_distill_loss=st.server_distill_loss,
             server_student_acc=st.server_student_acc,
             scrubbed_rows=self.server.pop_scrubbed(st.r),
+            quarantined=newly_q if newly_q else None,
         )

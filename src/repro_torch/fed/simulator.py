@@ -33,12 +33,14 @@ feature and token datasets, the CNN zoo and the shared and mixed MLP zoos
 the cohort engine (with wave streaming), every scheduler knob (sync and
 overlapping rounds, partial participation with its three policies and the
 staleness buffer, churn, dropout, arrival traces, admission under
-``max_pending_reports``, concurrent cohorts), and the flat server with the
-mean aggregate. ``run`` first refuses a malformed config with
-``ValueError``, as the reference's does
+``max_pending_reports``, concurrent cohorts), and the server at full
+size: two-tier edge aggregators, the robust reducers, the payload-fault
+injector, the sanitize pass and trust/quarantine. ``run`` first refuses a
+malformed config with ``ValueError``, as the reference's does
 (``participation.validate_config``, then ``scheduler.validate_config``);
-``check_slice`` then refuses everything else with
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``check_slice`` then refuses the rest (the watchdog, the multi-device
+mesh, token data on the cohort engine) with ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -113,16 +115,8 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
          "num_devices/model_shards", "10 (multi-device)"),
         (cfg.engine == "cohort" and SPECS[dataset_name].seq_len > 0,
          "token data on engine='cohort'", "5 (the cohort engine)"),
-        (cfg.fault_mode != "none", f"fault_mode={cfg.fault_mode!r}",
-         "7 (server scale and robustness)"),
-        (cfg.num_edge_aggregators > 1, "num_edge_aggregators > 1",
-         "7 (server scale and robustness)"),
-        (cfg.robust_aggregation != "mean",
-         f"robust_aggregation={cfg.robust_aggregation!r}",
-         "7 (server scale and robustness)"),
-        (cfg.quarantine_threshold > 0.0, "quarantine_threshold > 0",
-         "7 (server scale and robustness)"),
-        (cfg.watchdog, "watchdog", "7 (server scale and robustness)"),
+        (cfg.watchdog, "watchdog",
+         "8 (state and service: the watchdog rolls back to a snapshot)"),
     ]
     for hit, what, item in refused:
         if hit:
@@ -185,8 +179,18 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
                              seed=cfg.seed)
     proxy = build_proxy(clients_data, cfg.proxy_fraction, seed=cfg.seed)
     server = Server(proxy, seed=cfg.seed,
+                    num_edges=cfg.num_edge_aggregators,
                     max_pending_reports=cfg.max_pending_reports,
-                    sanitize=cfg.sanitize_reports, device=device)
+                    robust_aggregation=cfg.robust_aggregation,
+                    trim_frac=cfg.trim_frac,
+                    sanitize=cfg.sanitize_reports,
+                    quarantine_threshold=cfg.quarantine_threshold,
+                    trust_ewma=cfg.trust_ewma,
+                    quarantine_rounds=cfg.quarantine_rounds,
+                    # the watchdog ranks suspects by outlier distance
+                    track_outliers=(cfg.watchdog
+                                    or cfg.quarantine_threshold > 0),
+                    device=device)
     method = get_method(cfg.method)
     # token mode: (n, S) integer sequences -> transformer clients
     token_mode = ds.x.ndim == 2 and np.issubdtype(ds.x.dtype, np.integer)

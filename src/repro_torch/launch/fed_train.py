@@ -16,8 +16,17 @@ run raises unless ``--device cpu`` asks for the CPU. The scheduler's flags
 ``--straggler-factor``, ``--arrival-*``, ``--churn``, ``--dropout``,
 ``--concurrent-cohorts``) reach the run; each round's line and ``--json``
 carry its participants, mean staleness, simulated finish and served-model
-age. Flags whose feature is not ported yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them (``fed.simulator.check_slice``).
+age. The robustness flags reach the run too: ``--fault-mode``,
+``--fault-prob``, ``--byzantine-frac``, ``--fault-start`` and
+``--fault-duration`` (the payload-fault injector),
+``--robust-aggregation`` and ``--trim-frac`` (the robust reducers),
+``--edge-aggregators`` (the two-tier server), ``--no-sanitize``, and
+``--quarantine-threshold``, ``--quarantine-rounds`` and ``--trust-ewma``
+(trust and quarantine); a round's line shows its scrubbed rows and
+quarantined clients when there are any. Flags whose feature is not
+ported yet (``--watchdog``, ``--devices``, ``--model-shards``) raise
+``NotImplementedError`` naming the ROADMAP item that brings them
+(``fed.simulator.check_slice``).
 """
 from __future__ import annotations
 
@@ -161,15 +170,20 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
 
 def print_round(log, num_clients: int) -> None:
     """One progress line per retired round: with partial participation the
-    participant count and the mean staleness, then the round's finish on
-    the simulated timeline, the served model's age there and the phase
-    breakdown."""
+    participant count and the mean staleness, the rows the sanitize pass
+    scrubbed and the clients quarantined when there are any, then the
+    round's finish on the simulated timeline, the served model's age there
+    and the phase breakdown."""
     extra = ""
     if log.server_student_acc is not None:
         extra += f"  student={log.server_student_acc:.4f}"
     if log.participants is not None:
         extra += (f"  part={len(log.participants)}/{num_clients}"
                   f"  stale={log.mean_staleness:.2f}")
+    if log.scrubbed_rows:
+        extra += f"  scrubbed={log.scrubbed_rows}"
+    if log.quarantined:
+        extra += f"  quarantined={log.quarantined}"
     if log.phase_s:
         breakdown = " ".join(f"{PHASE_ABBREV.get(k, k)}={v:.3f}"
                              for k, v in log.phase_s.items())

@@ -38,10 +38,20 @@ Tolerances, per round (``assert_logs_match``):
     exact; under fixed phase costs (``sim_phase_costs``: the reference's
     ``RoundScheduler`` built here, the port's through its
     ``run_experiment``) ``sim_finish_s`` and ``served_model_age_s``
-    exact; and always the schedulers' node-for-node ``trace`` equal.
+    exact; and always the schedulers' node-for-node ``trace`` equal;
+  * ``scrubbed_rows`` and ``quarantined`` equal (0 and None without a
+    fault mode).
+
+``assert_server_state_match`` holds the servers' defense state after the
+run to the reference's: strikes, ``quarantined_until`` and
+``scrub_clients`` equal, trust within rtol 1e-3 (an EWMA of distances
+between two libraries' logits), and the fault injectors' replay caches
+(each scheduler's ``faults``) with equal client ids and masks and logits
+within the loss tolerance.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, Optional
 
@@ -104,6 +114,7 @@ class Run:
     clients: List[Any]
     server: Any
     trace: Optional[list] = None     # the scheduler's node keys, host order
+    faults: Any = None               # the scheduler's FaultInjector, if any
 
 
 @dataclasses.dataclass
@@ -164,7 +175,7 @@ def run_reference(kw: dict, dataset: str = "mnist_feat",
     aux = (None if method.client_filter != "kulsif"
            else [np.asarray(c.dre.aux) for c in clients])
     return Reference(res, clients, server, trace=list(sched.trace),
-                     dataset=ds, params=params,
+                     faults=sched.faults, dataset=ds, params=params,
                      kmeans_inits=inits, kulsif_aux=aux,
                      student_params=student)
 
@@ -178,9 +189,28 @@ def run_port(kw: dict, ref: Reference, sim_phase_costs=None) -> Run:
         cfg, device="cpu", dataset=dataset, init_params=ref.params,
         kmeans_inits=ref.kmeans_inits, kulsif_aux=ref.kulsif_aux,
         student_params=ref.student_params)
-    res = protocol.run_experiment(clients, server, cfg.method, cfg, x_test,
-                                  y_test, sim_phase_costs=sim_phase_costs)
-    return Run(res, clients, server, trace=res.trace)
+    with _keep_scheduler() as made:
+        res = protocol.run_experiment(clients, server, cfg.method, cfg,
+                                      x_test, y_test,
+                                      sim_phase_costs=sim_phase_costs)
+    return Run(res, clients, server, trace=res.trace, faults=made[0].faults)
+
+
+@contextlib.contextmanager
+def _keep_scheduler():
+    """Collect the schedulers ``protocol.run_experiment`` builds, so that a
+    test can read the port's fault injector after the run."""
+    made, build = [], protocol._scheduler
+
+    def keep(*args, **kwargs):
+        made.append(build(*args, **kwargs))
+        return made[-1]
+
+    protocol._scheduler = keep
+    try:
+        yield made
+    finally:
+        protocol._scheduler = build
 
 
 def _statistic(dre, px):
@@ -275,9 +305,37 @@ def check_logs(kw: dict, ref: Reference, port: Run, n_test: int = N_TEST,
             near / max(reporting * t, 1) + 1e-12)
         assert abs(p.bytes_up - q.bytes_up) <= (r + 1) * near * k * 4
         assert p.bytes_down == q.bytes_down
-        assert p.scrubbed_rows == q.scrubbed_rows == 0
+        assert p.scrubbed_rows == q.scrubbed_rows
+        assert p.quarantined == q.quarantined
+        if kw.get("fault_mode", "none") == "none":
+            assert q.scrubbed_rows == 0 and q.quarantined is None
         if sim_phase_costs is not None:
             assert p.sim_finish_s == q.sim_finish_s
             assert p.served_model_age_s == q.served_model_age_s
     assert port.trace == [tuple(k) for k in ref.trace]
 
+
+
+def assert_server_state_match(ref: Reference, port: Run) -> None:
+    """The defense state after the run: strikes, quarantine and scrub
+    counts equal, trust within rtol 1e-3, the replay caches alike."""
+    rs, ps = ref.server, port.server
+    for name in ("strikes", "quarantined_until", "scrub_clients"):
+        a, b = getattr(rs, name), getattr(ps, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+    assert (rs.trust is None) == (ps.trust is None)
+    if rs.trust is not None:
+        np.testing.assert_allclose(ps.trust, rs.trust, rtol=1e-3, atol=1e-9)
+    assert ps.scrub_total == rs.scrub_total
+    assert (ref.faults is None) == (port.faults is None)
+    if ref.faults is None:
+        return
+    r_sd, p_sd = ref.faults.state_dict(), port.faults.state_dict()
+    assert [c for c, _, _ in p_sd["replay"]] == [
+        c for c, _, _ in r_sd["replay"]]
+    for (_, pa, pb), (_, ra, rb) in zip(p_sd["replay"], r_sd["replay"]):
+        np.testing.assert_array_equal(pb, np.asarray(rb))
+        np.testing.assert_allclose(pa, np.asarray(ra), rtol=LOSS_RTOL,
+                                   atol=1e-5)

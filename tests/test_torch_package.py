@@ -217,12 +217,44 @@ def test_scheduler_flags_run_on_the_cpu(flags, tmp_path):
     (["--engine", "cohort", "--devices", "2"], "item 10"),
     (["--engine", "cohort", "--model-shards", "2"], "item 10"),
     (["--devices", "2"], "item 10"),
-    (["--fault-mode", "nan"], "item 7"),
-    (["--edge-aggregators", "2"], "item 7"),
-    (["--robust-aggregation", "median"], "item 7"),
-    (["--quarantine-threshold", "1.5"], "item 7"),
-    (["--watchdog"], "item 7"),
+    (["--watchdog"], "item 8"),
+    (["--watchdog", "--engine", "cohort", "--fault-mode", "nan"], "item 8"),
 ])
 def test_flags_outside_the_slice_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
         fed_train.main(SMALL + ["--device", "cpu"] + flags)
+
+
+ROBUST_FLAGS = {
+    **{f"fault-{m}": ["--fault-mode", m, "--byzantine-frac", "0.5",
+                      "--fault-prob", "0.2"]
+       for m in ("nan", "random_logits", "scaled", "colluding_flip",
+                 "stale_replay")},
+    **{f"robust-{r}": ["--robust-aggregation", r, "--fault-mode",
+                       "colluding_flip", "--byzantine-frac", "0.34"]
+       for r in ("trimmed_mean", "median", "krum_row")},
+    "edges": ["--edge-aggregators", "2", "--participation", "0.67",
+              "--staleness-decay", "0.5"],
+    "quarantine": ["--quarantine-threshold", "1.5", "--fault-mode",
+                   "scaled", "--byzantine-frac", "0.34", "--trim-frac",
+                   "0.3", "--robust-aggregation", "trimmed_mean"],
+}
+
+
+@pytest.mark.parametrize("engine", ["loop", "cohort"])
+@pytest.mark.parametrize("name", list(ROBUST_FLAGS))
+def test_robustness_flags_run_on_the_cpu(name, engine, tmp_path, capsys):
+    """Each robustness flag (refused before the server was ported at full
+    size) runs ``fed_train`` to its end on both engines; a nan attack's
+    scrubbed rows reach the round line."""
+    out = tmp_path / "run.json"
+    res = fed_train.main(["--clients", "3", "--rounds", "2", "--n-train",
+                          "300", "--n-test", "50", "--proxy-batch", "64",
+                          "--device", "cpu", "--engine", engine, "--json",
+                          str(out)] + ROBUST_FLAGS[name])
+    rounds = json.loads(out.read_text())["rounds"]
+    assert len(rounds) == len(res.rounds) == 2
+    assert all(np.isfinite(r.local_loss) for r in res.rounds)
+    if name == "fault-nan":
+        assert all(r["scrubbed_rows"] > 0 for r in rounds)
+        assert "scrubbed=" in capsys.readouterr().out

@@ -245,7 +245,12 @@ def test_what_is_not_ported_raises():
     for call in (sched.snapshot, lambda: sched.restore({})):
         with pytest.raises(NotImplementedError, match="queue A item 8"):
             call()
-    for kw in (dict(fault_mode="nan", fault_prob=0.5), dict(watchdog=True)):
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            RoundScheduler(engine, server, get_method("edgefd"),
-                           FedConfig(num_clients=2, **kw), x_test, y_test)
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        RoundScheduler(engine, server, get_method("edgefd"),
+                       FedConfig(num_clients=2, watchdog=True), x_test,
+                       y_test)
+    # the fault injector is ported: the scheduler builds it
+    sched = RoundScheduler(engine, server, get_method("edgefd"),
+                           FedConfig(num_clients=2, fault_mode="nan",
+                                     fault_prob=0.5), x_test, y_test)
+    assert sched.faults is not None and sched.faults.mode == "nan"
