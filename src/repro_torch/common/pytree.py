@@ -1,5 +1,6 @@
-"""Parameter-init helpers, and the stacked-parameter helpers of the cohort
-engine.
+"""Parameter-init helpers, the stacked-parameter helpers of the cohort
+engine, and the parameter-aligned helpers of the models' reference-layout
+export and import (``jax_params`` / ``load_jax_params``).
 
 Dense weights keep the reference's ``w (d_in, d_out)`` layout and are
 applied as ``x @ w + b``, so parameters exported from the JAX package load
@@ -11,7 +12,9 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
+from torch import nn
 
 
 def init_dense(d_in: int, d_out: int, *,
@@ -60,3 +63,31 @@ def where_tree(flag: torch.Tensor, new: Sequence[torch.Tensor],
     """Per client: ``new`` where ``flag`` (C,) is set, else ``old``."""
     return [torch.where(flag.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
             for a, b in zip(new, old)]
+
+
+# ---- reference-layout export and import
+
+def host_values(module: nn.Module, values=None) -> Dict[int, np.ndarray]:
+    """Host copies of ``values`` (tensors aligned with
+    ``module.parameters()``, e.g. the SGD momentum), or of the parameters
+    themselves, keyed by ``id`` of the parameter they belong to."""
+    params = list(module.parameters())
+    vals = params if values is None else list(values)
+    if len(vals) != len(params):
+        raise ValueError(f"{len(vals)} tensors given for {len(params)} "
+                         "parameters")
+    return {id(p): v.detach().to("cpu", copy=True).numpy()
+            for p, v in zip(params, vals)}
+
+
+def targets(module: nn.Module, into=None):
+    """Where ``load_jax_params`` writes a parameter: the parameter itself,
+    or its entry of ``into`` (tensors aligned with ``module.parameters()``)."""
+    if into is None:
+        return lambda p: p
+    params = list(module.parameters())
+    if len(into) != len(params):
+        raise ValueError(f"{len(into)} tensors given for {len(params)} "
+                         "parameters")
+    by_id = {id(p): t for p, t in zip(params, into)}
+    return lambda p: by_id[id(p)]

@@ -49,10 +49,10 @@ class TransformerClientModel(nn.Module):
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
         return proxy_features(self.backbone, tokens)
 
-    def load_jax_params(self, params: Dict[str, Any]
+    def load_jax_params(self, params: Dict[str, Any], into=None
                         ) -> "TransformerClientModel":
-        self.backbone.load_jax_params(params)
+        self.backbone.load_jax_params(params, into)
         return self
 
-    def export_params(self) -> Dict[str, Any]:
-        return self.backbone.export_params()
+    def jax_params(self, values=None) -> Dict[str, Any]:
+        return self.backbone.jax_params(values)

@@ -6,18 +6,17 @@ filter only), then drives the rounds through the phase-graph scheduler
 (``repro_torch.fed.scheduler``: ``local_train → report → aggregate →
 [server_distill →] distill → eval``, or ``local_train → eval`` for
 independent learning; lockstep or overlapping rounds, partial
-participation, concurrent cohorts) and returns the per-round logs;
-``run_round`` runs one round. ``LoopEngine`` drives clients one at a time
-through the scheduler's per-phase and per-cohort entry points, as the
-reference's loop engine does; ``CohortEngine`` (``repro_torch.fed.cohort``)
-stacks clients of one architecture and runs each phase as batched steps.
-An engine built from a client list writes its state back onto the
-clients at the end.
+participation, concurrent cohorts) and returns the per-round logs.
+``LoopEngine`` drives clients one at a time through the scheduler's
+per-phase and per-cohort entry points, as the reference's loop engine
+does; ``CohortEngine`` (``repro_torch.fed.cohort``) stacks clients of one
+architecture and runs each phase as batched steps and writes its state
+back onto the clients at the end of a run. Both engines' ``state_dict``
+is the per-client checkpoint format of ``repro_torch.fed.state``.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
                     Sequence, Tuple)
 
@@ -59,8 +58,8 @@ class RoundLog:
     server_distill_loss: float = 0.0
     server_student_acc: Optional[float] = None
     # defense stack: report rows the sanitize pass scrubbed this round and
-    # the clients quarantined on its evidence (None: nobody); watchdog
-    # rollbacks are not ported yet (ROADMAP queue A item 8)
+    # the clients quarantined on its evidence (None: nobody), and the
+    # divergence watchdog's rollbacks so far in the run
     scrubbed_rows: int = 0
     quarantined: Optional[List[int]] = None
     rollbacks: int = 0
@@ -94,9 +93,8 @@ def client_generator(seed: int, i: int) -> torch.Generator:
 class LoopEngine:
     """Reference engine: drives clients one by one.
 
-    The ``phase_*`` methods are the scheduler's per-phase entry points, the
-    ``cohort_*`` methods its per-cohort ones (concurrent cohorts), and the
-    ``*_all`` names thin aliases of the former, as in the reference. A
+    The ``phase_*`` methods are the scheduler's per-phase entry points and
+    the ``cohort_*`` methods its per-cohort ones (concurrent cohorts). A
     sampled-out client (``participants`` False) is skipped entirely: no
     training, no report, no draw from its private rng. Inputs may be
     numpy arrays or tensors; each is moved to the clients' device once per
@@ -271,73 +269,52 @@ class LoopEngine:
                                      teacher_by_class, valid_by_class,
                                      epochs, batch_size)
 
-    # -------------------------------------- historical names (thin aliases)
-    def local_train_all(self, epochs: int, batch_size: int,
-                        participants=None) -> List[float]:
-        return self.phase_local_train(epochs, batch_size, participants)
+    # ------------------------------------------------- resumable service
+    def state_dict(self) -> Dict:
+        """Per-client parameters, optimizer state and rng streams
+        (``repro_torch.fed.state.clients_state_dict``)."""
+        from repro_torch.fed.state import clients_state_dict
+        return clients_state_dict(self.clients)
 
-    def classwise_means_all(self, participants=None):
-        return self.phase_classwise_report(participants)
-
-    def proxy_logits_and_masks(self, px, powner, participants=None):
-        return self.phase_report(px, powner, participants)
-
-    def distill_all(self, px, teacher, weight, epochs: int,
-                    batch_size: int, participants=None) -> List[float]:
-        return self.phase_distill(px, teacher, weight, epochs, batch_size,
-                                  participants)
-
-    def distill_private_all(self, teacher_by_class, valid_by_class,
-                            epochs: int, batch_size: int,
-                            participants=None) -> List[float]:
-        return self.phase_distill_private(teacher_by_class, valid_by_class,
-                                          epochs, batch_size, participants)
-
-    def evaluate_all(self, x_test, y_test) -> List[float]:
-        return self.phase_eval(x_test, y_test)
+    def load_state_dict(self, sd: Dict) -> None:
+        from repro_torch.fed.state import load_clients_state_dict
+        load_clients_state_dict(self.clients, sd)
 
 
-def as_engine(clients_or_engine, engine: str = "loop", *,
+def as_engine(clients: Sequence["Client"], engine: str = "loop", *,
               num_devices: int = 0, wave_size: int = 0,
               model_shards: int = 0):
-    """A client list as the engine ``engine`` names, or a built engine as
-    it is. ``wave_size`` streams the cohort engine's client axis in waves
-    (0: the whole axis on the device); the device mesh (``num_devices``,
-    ``model_shards``) is not ported yet."""
+    """A client list as the engine ``engine`` names. ``wave_size`` streams
+    the cohort engine's client axis in waves (0: the whole axis on the
+    device); the device mesh (``num_devices``, ``model_shards``) is not
+    ported yet."""
     if num_devices or model_shards:
         raise NotImplementedError(
             "num_devices/model_shards is not ported yet: ROADMAP queue A "
             "item 10 (multi-device)")
-    if hasattr(clients_or_engine, "phase_local_train"):
-        if wave_size and not getattr(clients_or_engine, "wave_size", 0):
-            warnings.warn(
-                f"wave_size={wave_size} requested but a built engine "
-                "without wave streaming was supplied; it will run as "
-                "constructed — pass the client list to honor the config")
-        return clients_or_engine
     if engine == "cohort":
         # lazy import: core must not import fed at load time
         from repro_torch.fed.cohort import CohortEngine
-        return CohortEngine(clients_or_engine, wave_size=wave_size)
+        return CohortEngine(clients, wave_size=wave_size)
     if engine != "loop":
         raise ValueError(f"unknown engine {engine!r}; known: loop, cohort")
     if wave_size:
         raise ValueError("wave_size requires engine='cohort' (the loop "
                          "engine never stacks a client axis to stream)")
-    return LoopEngine(clients_or_engine)
+    return LoopEngine(clients)
 
 
-def engine_from_config(clients_or_engine, cfg: FedConfig):
+def engine_from_config(clients: Sequence["Client"], cfg: FedConfig):
     """``as_engine`` with every engine-relevant ``FedConfig`` field."""
-    return as_engine(clients_or_engine, cfg.engine,
-                     num_devices=cfg.num_devices, wave_size=cfg.wave_size,
-                     model_shards=cfg.model_shards)
+    return as_engine(clients, cfg.engine, num_devices=cfg.num_devices,
+                     wave_size=cfg.wave_size, model_shards=cfg.model_shards)
 
 
-def _scheduler(engine, server: "Server", method, cfg: FedConfig, x_test,
-               y_test, sim_phase_costs=None):
-    # lazy import, as in the reference: core must not import fed at load;
-    # the test set is copied to the device once, not every round
+def make_scheduler(engine, server: "Server", method, cfg: FedConfig, x_test,
+                   y_test, sim_phase_costs=None):
+    """The ``RoundScheduler`` over ``engine``, with the test set copied to
+    the engine's device once, not every round."""
+    # lazy import, as in the reference: core must not import fed at load
     from repro_torch.fed.scheduler import RoundScheduler
     x_test = sample_tensor(x_test, engine.device)
     y_test = (y_test.to(engine.device, torch.int64)
@@ -348,39 +325,24 @@ def _scheduler(engine, server: "Server", method, cfg: FedConfig, x_test,
                           sim_phase_costs=sim_phase_costs)
 
 
-def run_round(r: int, clients, server: "Server", method, cfg: FedConfig,
-              x_test, y_test) -> RoundLog:
-    """One round through the phase graph (``round_mode="overlap"`` has
-    nothing to overlap with and runs the sync order). An engine built here
-    from a client list dies with the call and writes its state back onto
-    the clients; multi-round callers build the engine once and pass it."""
-    engine = engine_from_config(clients, cfg)
-    log = _scheduler(engine, server, method, cfg, x_test, y_test
-                     ).run_rounds(r, 1)[0]
-    if engine is not clients and hasattr(engine, "sync_to_clients"):
-        engine.sync_to_clients()
-    return log
-
-
 def run_experiment(clients, server: "Server", method_name: str,
                    cfg: FedConfig, x_test, y_test,
                    progress: Optional[Callable[[RoundLog], None]] = None, *,
                    sim_phase_costs: Optional[Dict[str, float]] = None
                    ) -> ExperimentResult:
-    """Fit the DREs, then run ``cfg.rounds`` rounds through one scheduler.
-    ``clients`` is a client list or a built engine; ``sim_phase_costs``
-    prices the simulated timeline with fixed phase costs instead of the
-    measured ones (``RoundScheduler``)."""
+    """Fit the DREs, then run ``cfg.rounds`` rounds of the client list
+    ``clients`` through one scheduler. ``sim_phase_costs`` prices the
+    simulated timeline with fixed phase costs instead of the measured ones
+    (``RoundScheduler``)."""
     method = get_method(method_name)
     engine = engine_from_config(clients, cfg)
     if method.client_filter != "none":                     # Initialization
         engine.learn_dres(cfg.seed)
-    sched = _scheduler(engine, server, method, cfg, x_test, y_test,
-                       sim_phase_costs)
+    sched = make_scheduler(engine, server, method, cfg, x_test, y_test,
+                           sim_phase_costs)
     logs = sched.run_rounds(0, cfg.rounds, progress=progress)
-    if engine is not clients and hasattr(engine, "sync_to_clients"):
-        # an engine built here from a client list hands its stacked state
-        # back to the clients
+    if hasattr(engine, "sync_to_clients"):
+        # the cohort engine hands its stacked state back to the clients
         engine.sync_to_clients()
     return ExperimentResult(method=method_name, scenario=cfg.scenario,
                             rounds=logs, trace=list(sched.trace))

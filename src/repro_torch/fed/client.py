@@ -12,6 +12,12 @@ its device once, draws its batch order from its own
 ``np.random.default_rng(seed + 1000 * cid)`` stream (the reference's, so
 the order carries over unchanged) and reads every step's loss back to the
 host (``float(loss)``), as the reference does.
+
+``Learner.state_dict`` is the reference's per-learner checkpoint entry:
+the parameters and the SGD state (``{"mu": tree, "step": int32}``) as
+flat ``flatten_tree`` dicts in the reference's layout (the model's
+``jax_params``), and the numpy shuffling stream; ``load_state_dict``
+overlays one, from either package, onto the learner's device.
 """
 from __future__ import annotations
 
@@ -21,11 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.ckpt import flatten_tree, unflatten_like
 from repro_torch.core import distill as D
 from repro_torch.core.aggregation import classwise_mean_logits
 from repro_torch.core.filtering import FilterStats, two_stage_filter
 from repro_torch.data.synthetic import sample_tensor
 from repro_torch.fed.batching import epoch_batches
+from repro_torch.fed.state import load_rng_state, rng_state_dict
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -83,6 +91,34 @@ class Learner:
                                         backend=self.kernel_backend)
                 losses.append(self._step(loss))
         return float(np.mean(losses)) if losses else 0.0
+
+    # ------------------------------------------------- resumable service
+    def _jax_opt_state(self, mu) -> dict:
+        return {"mu": self.model.jax_params(mu),
+                "step": np.asarray(self.opt_state["step"], np.int32)}
+
+    def state_dict(self) -> dict:
+        """Parameters, SGD state and shuffling stream, in the reference's
+        layout (host numpy)."""
+        return {"params": flatten_tree(self.model.jax_params()),
+                "opt_state": flatten_tree(
+                    self._jax_opt_state(self.opt_state["mu"])),
+                "rng": rng_state_dict(self.rng)}
+
+    def load_state_dict(self, sd: dict, *, source: str = "learner") -> None:
+        """Overlay a ``state_dict`` (the port's or the reference's) onto
+        this learner's device; a missing leaf or a shape mismatch
+        raises."""
+        like = self.model.jax_params()
+        self.model.load_jax_params(unflatten_like(
+            sd["params"], like, source=f"{source} params"))
+        opt = unflatten_like(sd["opt_state"],
+                             {"mu": like, "step": np.int32(0)},
+                             source=f"{source} opt_state")
+        mu = [torch.empty_like(p) for p in self.params]
+        self.model.load_jax_params(opt["mu"], into=mu)
+        self.opt_state = {"mu": mu, "step": int(opt["step"])}
+        load_rng_state(self.rng, sd["rng"])
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():

@@ -65,12 +65,15 @@ rows are gated after, as in the reference; a lane's result does not
 depend on the others', so the participants' rows are bitwise what they
 would be alone. The per-cohort entry points (``cohort_positions``,
 ``cohort_local_train``, ``cohort_report``, ...) drive one cohort at a
-time for concurrent-cohort scheduling; the ``*_all`` names are aliases of
-the per-phase ones.
+time for concurrent-cohort scheduling.
 
-Not ported yet: the device mesh (ROADMAP queue A item 10),
-``state_dict``/``load_state_dict`` (item 8), and token (transformer)
-clients on this engine (item 5).
+``state_dict`` syncs the stacked state (or a waved cohort's host masters)
+back onto the clients and emits the loop engine's per-client checkpoint;
+``load_state_dict`` loads the clients and re-stacks every cohort from
+them, so a checkpoint moves between the engines and wave sizes.
+
+Not ported yet: the device mesh (ROADMAP queue A item 10) and token
+(transformer) clients on this engine (item 5).
 """
 from __future__ import annotations
 
@@ -88,6 +91,7 @@ from repro_torch.core.dre import (KMeansDRE, KuLSIFDRE, kmeans_id_masks,
 from repro_torch.core.protocol import client_generator
 from repro_torch.data.synthetic import sample_tensor
 from repro_torch.fed.batching import padded_epoch_plan, steps_per_epoch
+from repro_torch.fed.state import clients_state_dict, load_clients_state_dict
 from repro_torch.kernels import dispatch
 
 
@@ -803,42 +807,22 @@ class CohortEngine:
                                  batch_size,
                                  part=self._part_for(c, participants))
 
-    # -------------------------------------- historical names (thin aliases)
-    def local_train_all(self, epochs: int, batch_size: int,
-                        participants=None) -> List[float]:
-        return self.phase_local_train(epochs, batch_size, participants)
-
-    def classwise_means_all(self, participants=None):
-        return self.phase_classwise_report(participants)
-
-    def proxy_logits_and_masks(self, px, powner, participants=None):
-        return self.phase_report(px, powner, participants)
-
-    def distill_all(self, px, teacher, weight, epochs: int,
-                    batch_size: int, participants=None) -> List[float]:
-        return self.phase_distill(px, teacher, weight, epochs, batch_size,
-                                  participants)
-
-    def distill_private_all(self, teacher_by_class, valid_by_class,
-                            epochs: int, batch_size: int,
-                            participants=None) -> List[float]:
-        return self.phase_distill_private(teacher_by_class, valid_by_class,
-                                          epochs, batch_size, participants)
-
-    def evaluate_all(self, x_test, y_test) -> List[float]:
-        return self.phase_eval(x_test, y_test)
-
     def sync_to_clients(self) -> None:
         for cohort in self.cohorts:
             cohort.sync_to_clients()
 
     # ------------------------------------------------- resumable service
     def state_dict(self) -> Dict:
-        raise NotImplementedError(
-            "CohortEngine.state_dict is not ported yet: ROADMAP queue A "
-            "item 8 (state and service, fed/state.py)")
+        """Per-client state in the engine checkpoint format
+        (``repro_torch.fed.state``): the stacked state (a waved cohort's
+        host masters) is synced back onto the ``Client`` objects first, so
+        the checkpoint is the loop engine's in layout and restores under
+        either engine, waved or not."""
+        self.sync_to_clients()
+        return clients_state_dict(self.clients)
 
     def load_state_dict(self, sd: Dict) -> None:
-        raise NotImplementedError(
-            "CohortEngine.load_state_dict is not ported yet: ROADMAP queue A "
-            "item 8 (state and service, fed/state.py)")
+        """Load onto the clients, then re-stack every cohort from them."""
+        load_clients_state_dict(self.clients, sd)
+        for cohort in self.cohorts:
+            cohort.adopt_member_state()

@@ -147,26 +147,35 @@ class StalenessBuffer:
     # ------------------------------------------------- resumable service
     def state_dict(self) -> dict:
         """The buffer's contents, the cached rows as numpy."""
-        return {"logits": self.logits.cpu().numpy(),
-                "masks": self.masks.cpu().numpy(),
+        return {"logits": self.logits.to("cpu", copy=True).numpy(),
+                "masks": self.masks.to("cpu", copy=True).numpy(),
                 "reported": self.reported.copy(),
                 "last_round": self.last_round.copy(),
                 "last_merge_round": self._last_merge_round}
 
     def load_state_dict(self, sd: dict) -> None:
-        logits = torch.as_tensor(np.asarray(sd["logits"], np.float32),
-                                 device=self.device)
+        logits = torch.tensor(np.asarray(sd["logits"], np.float32),
+                              device=self.device)
         if logits.shape != self.logits.shape:
             raise ValueError(
                 f"staleness buffer shape mismatch: checkpoint "
                 f"{tuple(logits.shape)} vs buffer {tuple(self.logits.shape)}")
         self.logits = logits
-        self.masks = torch.as_tensor(np.asarray(sd["masks"], bool),
-                                     device=self.device)
+        self.masks = torch.tensor(np.asarray(sd["masks"], bool),
+                                  device=self.device)
         self.reported = np.asarray(sd["reported"], bool).copy()
         self.last_round = np.asarray(sd["last_round"], np.int64).copy()
         lmr = sd.get("last_merge_round")
         self._last_merge_round = None if lmr is None else int(lmr)
+
+    @classmethod
+    def from_state_dict(cls, sd: dict, device="cpu") -> "StalenessBuffer":
+        """Rebuild a buffer (made at its first subset ingest) from its state
+        dict, its rows on ``device``."""
+        c, t, k = np.shape(sd["logits"])
+        buf = cls(c, t, k, device=device)
+        buf.load_state_dict(sd)
+        return buf
 
     def merge(self, round_idx: int, participants, idx, logits, masks,
               decay: float) -> StaleMerge:

@@ -44,13 +44,26 @@ empty it.
 nodes ``(phase, round, cohort)`` so the cohorts of a mixed zoo pipeline
 independently; aggregation stays a global barrier.
 
-``REPRO_ROUND_MODE`` fills in for ``round_mode="auto"``. The divergence
-watchdog and ``snapshot``/``restore`` (ROADMAP queue A item 8: the
-watchdog rolls back to a snapshot) are not ported yet and raise
-``NotImplementedError``.
+``REPRO_ROUND_MODE`` fills in for ``round_mode="auto"``.
+
+**Snapshot and restore.** Every ``step()`` return is a phase boundary:
+``snapshot()`` captures the run there as an ``ExperimentState``
+(``fed.state``: the node bookkeeping, each in-flight round's payload, and
+the timeline's, server's, engine's and fault injector's ``state_dict``),
+device tensors as numpy; ``restore()`` overlays it onto a scheduler
+freshly built from the same config, on any device and either engine,
+after which ``drain()`` continues the run bit for bit.
+
+**The divergence watchdog** (``cfg.watchdog``) keeps an in-memory
+snapshot of the last healthy retirement. A round that retires with a
+non-finite metric, an accuracy collapse or a distill-loss spike is rolled
+back to it, its top outlier suspects quarantined from that round on, and
+replayed (at most ``watchdog_max_rollbacks`` times a run); the sick log
+is discarded.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -65,6 +78,8 @@ from repro_torch.fed.clock import (ARRIVAL_PROCESSES, SimTimeline,
                                    dropout_mask, online_mask)
 from repro_torch.fed.faults import FaultInjector, validate_fault_config
 from repro_torch.fed.participation import sample_participants
+from repro_torch.fed.state import (STATE_VERSION, ExperimentState, opt_array,
+                                   opt_tensor)
 
 ROUND_MODES = ("sync", "overlap")
 # the five phase names, in intra-round dependency order
@@ -190,6 +205,91 @@ class _RoundState:
         self.server_distill_loss = 0.0   # FedDF ensemble server
         self.server_student_acc = None
 
+    def state_dict(self) -> Dict:
+        """The payload of an in-flight round, host-side. ``px``, ``powner``
+        and ``kw`` are derived from ``idx`` and ``part`` on restore, and
+        ``report_payload`` never outlives a node, so none is captured;
+        losses and accuracies are python floats, which the JSON manifest
+        round-trips exactly."""
+        mc = None
+        if self.means_counts is not None:
+            # a concurrent round between its cohorts' report nodes has
+            # empty slots: zero means and counts, as the reference's
+            k = next(e for e in self.means_counts if e is not None)[1].shape[0]
+            zero = [np.zeros((k, k), np.float32), np.zeros((k,), np.float32)]
+            mc = [zero if e is None else [opt_array(e[0]), opt_array(e[1])]
+                  for e in self.means_counts]
+        return {
+            "r": int(self.r),
+            "part": opt_array(self.part, bool),
+            "idx": opt_array(self.idx),
+            "means_counts": mc,
+            "teacher": opt_array(self.teacher),
+            "valid": opt_array(self.valid),
+            "teacher_by_class": opt_array(self.teacher_by_class),
+            "valid_by_class": opt_array(self.valid_by_class),
+            "local_losses": [float(v) for v in self.local_losses],
+            "distill_losses": [float(v) for v in self.distill_losses],
+            "id_frac": float(self.id_frac),
+            "mean_staleness": float(self.mean_staleness),
+            "accs": (None if self.accs is None
+                     else [float(a) for a in self.accs]),
+            "phase_s": {k: float(v) for k, v in self.phase_s.items()},
+            "sim_finish_s": float(self.sim_finish_s),
+            "rpart": opt_array(self.rpart, bool),
+            "sampled": bool(self.sampled),
+            "reports_pending": (None if self.reports_pending is None
+                                else int(self.reports_pending)),
+            "report_logits": opt_array(self.report_logits),
+            "report_masks": opt_array(self.report_masks, bool),
+            "report_arrival": opt_array(self.report_arrival),
+            "server_distill_loss": float(self.server_distill_loss),
+            "server_student_acc": (None if self.server_student_acc is None
+                                   else float(self.server_student_acc)),
+        }
+
+    def load_state_dict(self, sd: Dict, scheduler: "RoundScheduler") -> None:
+        """Overlay ``state_dict`` output; the round's tensors go to the
+        scheduler's (the engine's) device."""
+        dev = scheduler.engine.device
+        self.part = opt_array(sd["part"], bool)
+        self.kw = {} if self.part is None else {"participants": self.part}
+        self.idx = opt_array(sd["idx"])
+        if self.idx is not None:
+            proxy = scheduler.server.proxy
+            self.px = sample_tensor(proxy.x[self.idx], dev)
+            self.powner = proxy.owner[self.idx]
+        mc = sd["means_counts"]
+        self.means_counts = (None if mc is None
+                             else [(opt_tensor(m, dev, np.float32),
+                                    opt_tensor(c, dev, np.float32))
+                                   for m, c in mc])
+        self.teacher = opt_tensor(sd["teacher"], dev, np.float32)
+        self.valid = opt_tensor(sd["valid"], dev, bool)
+        self.teacher_by_class = opt_tensor(sd["teacher_by_class"], dev,
+                                           np.float32)
+        self.valid_by_class = opt_tensor(sd["valid_by_class"], dev, bool)
+        self.local_losses = [float(v) for v in sd["local_losses"]]
+        self.distill_losses = [float(v) for v in sd["distill_losses"]]
+        self.id_frac = float(sd["id_frac"])
+        self.mean_staleness = float(sd["mean_staleness"])
+        accs = sd["accs"]
+        self.accs = None if accs is None else [float(a) for a in accs]
+        self.phase_s = {k: float(v) for k, v in sd["phase_s"].items()}
+        self.sim_finish_s = float(sd["sim_finish_s"])
+        self.rpart = opt_array(sd.get("rpart"), bool)
+        self.sampled = bool(sd.get("sampled", False))
+        rp = sd.get("reports_pending")
+        self.reports_pending = None if rp is None else int(rp)
+        self.report_logits = opt_tensor(sd.get("report_logits"), dev,
+                                        np.float32)
+        self.report_masks = opt_tensor(sd.get("report_masks"), dev, bool)
+        self.report_arrival = opt_array(sd.get("report_arrival"),
+                                        np.float64)
+        self.server_distill_loss = float(sd.get("server_distill_loss", 0.0))
+        acc = sd.get("server_student_acc")
+        self.server_student_acc = None if acc is None else float(acc)
+
 
 class RoundScheduler:
     """Executes the round phase graph over an engine/server pair.
@@ -203,10 +303,6 @@ class RoundScheduler:
     def __init__(self, engine, server, method, cfg, x_test, y_test, *,
                  sim_phase_costs: Optional[Dict[str, float]] = None):
         validate_config(cfg)
-        if cfg.watchdog:
-            raise NotImplementedError(
-                "the divergence watchdog is not ported yet: ROADMAP queue A "
-                "item 8 (state and service: it rolls back to a snapshot)")
         self.engine = engine
         self.server = server
         self.method = method
@@ -255,6 +351,14 @@ class RoundScheduler:
                 fault_prob=cfg.fault_prob, byzantine_frac=cfg.byzantine_frac,
                 fault_start=cfg.fault_start,
                 fault_duration=cfg.fault_duration, device=engine.device)
+        # divergence watchdog: ``_wd_tree`` is the in-memory restore point
+        # (a deep-copied tree), re-taken at every healthy retirement and on
+        # restore(); it is not checkpointed
+        self._watchdog = bool(cfg.watchdog)
+        self.rollbacks = 0
+        self._wd_best_acc = 0.0
+        self._wd_loss_hist: List[float] = []
+        self._wd_tree = None
 
     # ------------------------------------------------------------ the graph
     def _build_deps(self, rounds) -> Dict[Tuple, List]:
@@ -342,6 +446,10 @@ class RoundScheduler:
         self._done = set()
         self.logs = []
         self.completed = 0
+        if self._watchdog:
+            # a restore point at the window's start, so a round-0 fault is
+            # as recoverable as a later one
+            self._wd_tree = self.snapshot().to_tree()
 
     def has_pending(self) -> bool:
         """True while the open window still has nodes to execute."""
@@ -371,9 +479,16 @@ class RoundScheduler:
         log = None
         if phase == self.phases[-1]:
             log = self._finish_round(self._states[r])
+            if self._watchdog and self._wd_unhealthy(log) \
+                    and self._wd_rollback(r):
+                # the run went back to the last healthy retirement; the
+                # sick log is dropped and the caller sees no retirement
+                return phase, r, None
             self.logs.append(log)
             self.completed += 1
             self._retire(r)
+            if self._watchdog:
+                self._wd_note_healthy(log)
         return phase, r, log
 
     def drain(self, progress: Optional[Callable[[RoundLog], None]] = None
@@ -397,23 +512,172 @@ class RoundScheduler:
         are ``max_inflight`` rounds old (``eval(q)`` gates
         ``local_train(q + max_inflight)``)."""
         del self._states[r]
-        # the round's outlier scores are the watchdog's (ROADMAP queue A
-        # item 8); dropped here so they do not pile up
+        # the round's outlier scores (the watchdog read them on a
+        # rollback); dropped here so they do not pile up
         self.server.pop_round_outlier(r)
         self._done -= {k for k in self._done if k[1] == r}
         horizon = r - self.max_inflight
         for key in [k for k in self._sim_end if k[1] <= horizon]:
             del self._sim_end[key]
 
-    def snapshot(self, *, logs_tail: Optional[int] = None):
-        raise NotImplementedError(
-            "RoundScheduler.snapshot is not ported yet: ROADMAP queue A "
-            "item 8 (state and service, fed/state.py)")
+    # --------------------------------------------------- snapshot / restore
+    def snapshot(self, *, logs_tail: Optional[int] = None) -> ExperimentState:
+        """The whole run at the current phase boundary (call it only
+        between ``step()``s): this scheduler's node bookkeeping and
+        in-flight rounds with the ``state_dict()`` of the timeline, the
+        server, the engine and the fault injector, all host-side.
+
+        ``logs_tail`` caps the retired ``RoundLog``s carried (``None``:
+        all of them); a caller that streams retired logs elsewhere (the
+        ``fed_serve`` sidecar) passes 0, so the checkpoint's size stays
+        flat, and ``completed`` still counts every retired round."""
+        if self._window is None:
+            raise RuntimeError("nothing to snapshot — call begin() first")
+        inflight = sorted(r for r in self._states
+                          if any(k[1] == r for k in self._done))
+
+        def as_list(key):
+            # (phase, round[, cohort]) -> [p, r[, ci]]
+            return [key[0]] + [int(v) for v in key[1:]]
+
+        sched = {
+            "window": [int(self._window[0]), int(self._window[1])],
+            "completed": int(self.completed),
+            "done": sorted(as_list(k) for k in self._done),
+            "trace": [as_list(k) for k in self.trace],
+            "sim_end": sorted(as_list(k) + [float(t)]
+                              for k, t in self._sim_end.items()),
+            "last_retire_s": float(self._last_retire_s),
+            "states": [self._states[r].state_dict() for r in inflight],
+            "rollbacks": int(self.rollbacks),
+            "wd_best_acc": float(self._wd_best_acc),
+            "wd_loss_hist": [float(v) for v in self._wd_loss_hist],
+        }
+        if self.faults is not None:
+            sched["faults"] = self.faults.state_dict()
+        logs = (self.logs if logs_tail is None
+                else self.logs[max(len(self.logs) - int(logs_tail), 0):])
+        return ExperimentState(
+            version=STATE_VERSION, round_mode=self.mode, scheduler=sched,
+            timeline=self.timeline.state_dict(),
+            server=self.server.state_dict(),
+            engine=self.engine.state_dict(),
+            logs=[dataclasses.asdict(lg) for lg in logs])
 
     def restore(self, state) -> None:
-        raise NotImplementedError(
-            "RoundScheduler.restore is not ported yet: ROADMAP queue A "
-            "item 8 (state and service, fed/state.py)")
+        """Rebuild the event loop from a ``snapshot()`` or its tree form
+        (``restore_state`` output, of either package). The scheduler must
+        be freshly built from the same ``FedConfig``; this overlays every
+        piece of mutable state, after which ``drain()`` continues the run
+        bit for bit."""
+        if not isinstance(state, ExperimentState):
+            state = ExperimentState.from_tree(state)
+        if state.round_mode != self.mode:
+            raise ValueError(
+                f"checkpoint was written in round_mode={state.round_mode!r} "
+                f"but this scheduler runs {self.mode!r}")
+        sched = state.scheduler
+        start, count = (int(v) for v in sched["window"])
+        rounds = range(start, start + count)
+        self._window = (start, count)
+        self._nodes = self._build_deps(rounds)
+        completed = int(sched["completed"])
+        # rounds retire in order, so the retired set is a prefix
+        retired = set(range(start, start + completed))
+
+        def as_key(e):
+            return (e[0],) + tuple(int(v) for v in e[1:])
+
+        self._done = {as_key(e) for e in sched["done"]}
+        self._states = {r: _RoundState(r) for r in rounds
+                        if r not in retired}
+        for st_sd in sched["states"]:
+            self._states[int(st_sd["r"])].load_state_dict(st_sd, self)
+        self._pending = {k for k in self._nodes
+                         if k[1] not in retired and k not in self._done}
+        self.trace = [as_key(e) for e in sched["trace"]]
+        self._sim_end = {as_key(e[:-1]): float(e[-1])
+                         for e in sched["sim_end"]}
+        self._last_retire_s = float(sched["last_retire_s"])
+        self.timeline.load_state_dict(state.timeline)
+        self.server.load_state_dict(state.server)
+        self.engine.load_state_dict(state.engine)
+        # a tail-truncated snapshot carries fewer logs than ``completed``;
+        # the counter decides
+        self.logs = [RoundLog(**lg) for lg in state.logs]
+        self.completed = completed
+        if self.faults is not None:
+            self.faults.load_state_dict(sched.get("faults", {}))
+        self.rollbacks = int(sched.get("rollbacks", 0))
+        self._wd_best_acc = float(sched.get("wd_best_acc", 0.0))
+        self._wd_loss_hist = [float(v)
+                              for v in sched.get("wd_loss_hist", [])]
+        if self._watchdog:
+            # the restored boundary is a healthy one: re-arm the rollback
+            # point, so a fault right after a resume can be rolled back
+            self._wd_tree = self.snapshot().to_tree()
+
+    # -------------------------------------------------- divergence watchdog
+    def _wd_unhealthy(self, log: RoundLog) -> bool:
+        """A non-finite metric, an accuracy collapse against the best
+        healthy round, or a distill-loss spike against the recent healthy
+        median."""
+        cfg = self.cfg
+        vals = (log.mean_acc, log.local_loss, log.distill_loss)
+        if not all(np.isfinite(v) for v in vals):
+            return True
+        if self._wd_best_acc > 0.0 and \
+                log.mean_acc < self._wd_best_acc - cfg.watchdog_acc_drop:
+            return True
+        if self._wd_loss_hist and log.distill_loss > 0.0:
+            ref = float(np.median(self._wd_loss_hist))
+            if ref > 0.0 and log.distill_loss > cfg.watchdog_loss_factor * ref:
+                return True
+        return False
+
+    def _wd_suspects(self, r: int) -> List[int]:
+        """Round ``r``'s top suspects from the server's normalized outlier
+        scores (median ≈ 1 for honest clients): everyone past 3× the honest
+        scale, else the single worst scorer."""
+        dist = self.server.pop_round_outlier(r)
+        if dist is None or dist.size == 0:
+            return []
+        bad = np.flatnonzero(~np.isfinite(dist) | (dist > 3.0))
+        if bad.size == 0 and float(np.max(dist)) > 0.0:
+            bad = np.asarray([int(np.argmax(dist))], int)
+        return [int(i) for i in bad]
+
+    def _wd_rollback(self, r: int) -> bool:
+        """Roll back to the last healthy retirement and quarantine round
+        ``r``'s top suspects from ``r`` on, so its replay runs without
+        them. False (the caller retires the sick round as it is) without a
+        restore point or with the rollback budget spent."""
+        if self._wd_tree is None or \
+                self.rollbacks >= self.cfg.watchdog_max_rollbacks:
+            return False
+        # read before the restore overwrites them: the suspect scores live
+        # in the server's state, the counter in the snapshot's
+        suspects = self._wd_suspects(r)
+        prev = self.rollbacks
+        self.restore(self._wd_tree)
+        self.rollbacks = prev + 1
+        if suspects:
+            # the fault trace is deterministic: without the quarantine the
+            # same clients would poison the replayed round again
+            self.server._ensure_fleet(self.engine.num_clients)
+            self.server.quarantine(suspects, r, event_round=r)
+        # re-take the restore point with the quarantine and the counter
+        self._wd_tree = self.snapshot().to_tree()
+        return True
+
+    def _wd_note_healthy(self, log: RoundLog) -> None:
+        """A healthy retirement: update the health references and re-take
+        the restore point."""
+        self._wd_best_acc = max(self._wd_best_acc, float(log.mean_acc))
+        if log.distill_loss > 0.0:
+            self._wd_loss_hist.append(float(log.distill_loss))
+            del self._wd_loss_hist[:-8]
+        self._wd_tree = self.snapshot().to_tree()
 
     # ------------------------------------------------------- node execution
     def _run_node(self, key: Tuple, st: _RoundState, deps) -> None:
@@ -775,4 +1039,5 @@ class RoundScheduler:
             server_student_acc=st.server_student_acc,
             scrubbed_rows=self.server.pop_scrubbed(st.r),
             quarantined=newly_q if newly_q else None,
+            rollbacks=self.rollbacks,
         )

@@ -30,6 +30,11 @@ score and, past ``quarantine_threshold``, quarantines the client for
 leaves it out. Trust, strikes and quarantine are host numpy arrays; the
 reports stay on the server's device, and only the ledger's counts and the
 (C,) outlier distances come back to the host.
+
+``state_dict`` / ``load_state_dict`` carry every mutable piece of the
+server for the resumable service (``repro_torch.fed.state``): device
+tensors go out as numpy and come back on the server's device, in the
+reference's dtypes and layout.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ from repro_torch.core.filtering import server_entropy_filter
 from repro_torch.data.proxy import ProxyData, select_round_indices
 from repro_torch.fed.client import Learner
 from repro_torch.fed.participation import StaleMerge, StalenessBuffer
+from repro_torch.fed.state import (load_rng_state, opt_array, opt_tensor,
+                                   rng_state_dict)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -606,3 +613,123 @@ class Server:
         self.bytes_received += reporting * means[0].numel() * 4
         self.bytes_broadcast += teacher.numel() * 4
         return teacher, valid
+
+    # ------------------------------------------------- resumable service
+    def state_dict(self) -> dict:
+        """All mutable server state, host-side: rng, byte ledger, staleness
+        buffers (flat and per edge), shard bounds, admission-queue
+        occupancy, the parked per-round reports, the FedDF student and
+        the defense state. The proxy set is rebuilt from the config."""
+        pending = []
+        for r in sorted(self._pending):
+            p = self._pending[r]
+            if isinstance(p, _PendingPartials):
+                pending.append({
+                    "round": r, "kind": "partials",
+                    "nums": opt_array(p.nums), "dens": opt_array(p.dens),
+                    "uploaded_bytes": int(p.uploaded_bytes),
+                    "mean_staleness": float(p.mean_staleness),
+                    "outlier": opt_array(p.outlier),
+                    "contrib": opt_array(p.contrib)})
+                continue
+            m = p.merged
+            pending.append({
+                "round": r, "kind": "reports",
+                "participants": opt_array(p.participants),
+                "logits": opt_array(p.logits), "masks": opt_array(p.masks),
+                "merged": None if m is None else {
+                    "logits": opt_array(m.logits),
+                    "masks": opt_array(m.masks),
+                    "client_weights": opt_array(m.client_weights),
+                    "mean_staleness": float(m.mean_staleness),
+                    "ages_sum": float(m.ages_sum),
+                    "num_contributing": int(m.num_contributing)}})
+        return {
+            "rng": rng_state_dict(self.rng),
+            "bytes_received": int(self.bytes_received),
+            "bytes_broadcast": int(self.bytes_broadcast),
+            "stale": (None if self._stale is None
+                      else self._stale.state_dict()),
+            "edge_stale": [None if b is None else b.state_dict()
+                           for b in self._edge_stale],
+            "shard_bounds": (None if self._shard_slices is None
+                             else [[s.start, s.stop]
+                                   for s in self._shard_slices]),
+            "inflight_reports": [[r, n] for r, n
+                                 in sorted(self._inflight_reports.items())],
+            "pending": pending,
+            "student": (None if self.student is None
+                        else self.student.state_dict()),
+            "scrub_total": int(self.scrub_total),
+            "scrub_clients": opt_array(self.scrub_clients),
+            "scrubbed_rounds": [[r, n] for r, n
+                                in sorted(self._scrubbed_rounds.items())],
+            "trust": opt_array(self.trust),
+            "quarantined_until": opt_array(self.quarantined_until),
+            "strikes": opt_array(self.strikes),
+            "round_outlier": [[r, opt_array(a)] for r, a
+                              in sorted(self._round_outlier.items())],
+            "quarantine_events": [
+                [r, [int(c) for c in ids]]
+                for r, ids in sorted(self._quarantine_events.items())],
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Overlay ``state_dict`` output (the port's or the reference's):
+        reports back on the server's device as float32 logits and bool
+        masks, trust and outlier scores float64, strikes int64."""
+        dev = self.device
+        load_rng_state(self.rng, sd["rng"])
+        self.bytes_received = int(sd["bytes_received"])
+        self.bytes_broadcast = int(sd["bytes_broadcast"])
+        self._stale = (None if sd["stale"] is None
+                       else StalenessBuffer.from_state_dict(sd["stale"], dev))
+        self._edge_stale = [
+            None if b is None else StalenessBuffer.from_state_dict(b, dev)
+            for b in (sd.get("edge_stale") or [])]
+        bounds = sd.get("shard_bounds")
+        self._shard_slices = (None if bounds is None
+                              else [slice(int(a), int(b))
+                                    for a, b in bounds])
+        self._inflight_reports = {int(r): int(n)
+                                  for r, n in sd.get("inflight_reports", [])}
+        self._pending = {}
+        for e in sd["pending"]:
+            r = int(e["round"])
+            if e["kind"] == "partials":
+                self._pending[r] = _PendingPartials(
+                    opt_tensor(e["nums"], dev, np.float32),
+                    opt_tensor(e["dens"], dev, np.float32),
+                    int(e["uploaded_bytes"]), float(e["mean_staleness"]),
+                    opt_array(e.get("outlier"), np.float64),
+                    opt_array(e.get("contrib"), bool))
+                continue
+            m = e["merged"]
+            merged = None if m is None else StaleMerge(
+                opt_tensor(m["logits"], dev, np.float32),
+                opt_tensor(m["masks"], dev, bool),
+                opt_array(m["client_weights"], np.float32),
+                float(m["mean_staleness"]), float(m["ages_sum"]),
+                int(m["num_contributing"]))
+            self._pending[r] = _PendingReports(
+                opt_array(e["participants"], bool),
+                opt_tensor(e["logits"], dev, np.float32),
+                opt_tensor(e["masks"], dev, bool), merged)
+        # the student's model is rebuilt from the config; only its
+        # parameters, optimizer state and stream come from the checkpoint
+        student = sd.get("student")
+        if student is not None and self.student is not None:
+            self.student.load_state_dict(student, source="server student")
+        self.scrub_total = int(sd.get("scrub_total", 0))
+        self.scrub_clients = opt_array(sd.get("scrub_clients"), np.int64)
+        self._scrubbed_rounds = {int(r): int(n)
+                                 for r, n in sd.get("scrubbed_rounds", [])}
+        self.trust = opt_array(sd.get("trust"), np.float64)
+        self.quarantined_until = opt_array(sd.get("quarantined_until"),
+                                           np.int64)
+        self.strikes = opt_array(sd.get("strikes"), np.int64)
+        self._round_outlier = {int(r): opt_array(a, np.float64)
+                               for r, a in sd.get("round_outlier", [])}
+        self._quarantine_events = {
+            int(r): [int(c) for c in ids]
+            for r, ids in sd.get("quarantine_events", [])}

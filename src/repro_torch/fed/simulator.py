@@ -35,12 +35,13 @@ overlapping rounds, partial participation with its three policies and the
 staleness buffer, churn, dropout, arrival traces, admission under
 ``max_pending_reports``, concurrent cohorts), and the server at full
 size: two-tier edge aggregators, the robust reducers, the payload-fault
-injector, the sanitize pass and trust/quarantine. ``run`` first refuses a
-malformed config with ``ValueError``, as the reference's does
-(``participation.validate_config``, then ``scheduler.validate_config``);
-``check_slice`` then refuses the rest (the watchdog, the multi-device
-mesh, token data on the cohort engine) with ``NotImplementedError``
-naming the ROADMAP item that brings it.
+injector, the sanitize pass and trust/quarantine, and the divergence
+watchdog (the scheduler's snapshot/restore; ``launch.fed_serve`` is the
+resumable service). ``run`` first refuses a malformed config with
+``ValueError``, as the reference's does (``participation.validate_config``,
+then ``scheduler.validate_config``); ``check_slice`` then refuses the rest
+(the multi-device mesh, token data on the cohort engine) with
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -115,8 +116,6 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
          "num_devices/model_shards", "10 (multi-device)"),
         (cfg.engine == "cohort" and SPECS[dataset_name].seq_len > 0,
          "token data on engine='cohort'", "5 (the cohort engine)"),
-        (cfg.watchdog, "watchdog",
-         "8 (state and service: the watchdog rolls back to a snapshot)"),
     ]
     for hit, what, item in refused:
         if hit:

@@ -23,10 +23,14 @@ age. The robustness flags reach the run too: ``--fault-mode``,
 ``--edge-aggregators`` (the two-tier server), ``--no-sanitize``, and
 ``--quarantine-threshold``, ``--quarantine-rounds`` and ``--trust-ewma``
 (trust and quarantine); a round's line shows its scrubbed rows and
-quarantined clients when there are any. Flags whose feature is not
-ported yet (``--watchdog``, ``--devices``, ``--model-shards``) raise
-``NotImplementedError`` naming the ROADMAP item that brings them
-(``fed.simulator.check_slice``).
+quarantined clients when there are any. ``--watchdog`` (with
+``--watchdog-acc-drop``, ``--watchdog-loss-factor`` and
+``--watchdog-max-rollbacks``) rolls a sick round back to the last healthy
+one and quarantines its suspects (``--json`` carries each round's
+``rollbacks``). Flags whose feature is not ported yet
+(``--devices``, ``--model-shards``) raise ``NotImplementedError`` naming
+the ROADMAP item that brings them (``fed.simulator.check_slice``);
+``launch.fed_serve`` is the resumable service over the same flags.
 """
 from __future__ import annotations
 

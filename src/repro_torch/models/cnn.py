@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common.pytree import init_conv, init_dense
+from repro_torch.common.pytree import (host_values, init_conv, init_dense,
+                                       targets)
 
 BN_EPS = 1e-5
 
@@ -54,11 +55,16 @@ class _Conv(nn.Module):
         x = torch.relu(F.conv2d(x, self.w, self.b, padding=self.padding))
         return F.max_pool2d(x, 2) if self.pool else x
 
-    def load(self, p: Dict) -> None:
+    def load(self, p: Dict, dst, buffers: bool) -> None:
         # the reference's HWIO weight -> OIHW
-        _load(self.w, np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)),
+        _load(dst(self.w), np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)),
               "conv w")
-        _load(self.b, p["b"], "conv b")
+        _load(dst(self.b), p["b"], "conv b")
+
+    def export(self, host: Dict[int, np.ndarray], buffers: bool) -> Dict:
+        # OIHW -> the reference's HWIO
+        return {"w": np.transpose(host[id(self.w)], (2, 3, 1, 0)),
+                "b": host[id(self.b)]}
 
 
 class _BatchNorm(nn.Module):
@@ -78,9 +84,23 @@ class _BatchNorm(nn.Module):
         return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                             training=False, eps=BN_EPS)
 
-    def load(self, p: Dict) -> None:
-        for name in ("scale", "bias", "mean", "var"):
-            _load(getattr(self, name), p[name], f"bn {name}")
+    def load(self, p: Dict, dst, buffers: bool) -> None:
+        for name in ("scale", "bias"):
+            _load(dst(getattr(self, name)), p[name], f"bn {name}")
+        if buffers:
+            for name in ("mean", "var"):
+                _load(getattr(self, name), p[name], f"bn {name}")
+
+    def export(self, host: Dict[int, np.ndarray], buffers: bool) -> Dict:
+        # the reference keeps the statistics among the parameters; their
+        # gradient is 0 (train mode reads the batch's), so their momentum
+        # is 0 too
+        stats = {name: (getattr(self, name).to("cpu", copy=True).numpy()
+                        if buffers else np.zeros(tuple(self.mean.shape),
+                                                 np.float32))
+                 for name in ("mean", "var")}
+        return {"scale": host[id(self.scale)], "bias": host[id(self.bias)],
+                **stats}
 
 
 class _Linear(nn.Module):
@@ -102,9 +122,12 @@ class _Linear(nn.Module):
         x = x @ self.w + self.b
         return torch.relu(x) if self.relu else x
 
-    def load(self, p: Dict) -> None:
-        _load(self.w, p["w"], "linear w")
-        _load(self.b, p["b"], "linear b")
+    def load(self, p: Dict, dst, buffers: bool) -> None:
+        _load(dst(self.w), p["w"], "linear w")
+        _load(dst(self.b), p["b"], "linear b")
+
+    def export(self, host: Dict[int, np.ndarray], buffers: bool) -> Dict:
+        return {"w": host[id(self.w)], "b": host[id(self.b)]}
 
 
 class CNNClassifier(nn.Module):
@@ -122,18 +145,29 @@ class CNNClassifier(nn.Module):
             x = layer(x)
         return x
 
-    def load_jax_params(self, params: List[Dict[str, np.ndarray]]
-                        ) -> "CNNClassifier":
+    def load_jax_params(self, params: List[Dict[str, np.ndarray]],
+                        into=None) -> "CNNClassifier":
         """Copy the reference's parameter list (one dict a layer: conv
         ``w`` HWIO and ``b``; BN ``scale``, ``bias``, ``mean``, ``var``;
-        dense ``w`` (d_in, d_out) and ``b``) into this module."""
+        dense ``w`` (d_in, d_out) and ``b``) into this module, or, with
+        ``into`` (tensors aligned with ``parameters()``, e.g. the SGD
+        momentum), into those tensors; BN's statistics, buffers here,
+        then go nowhere."""
         if len(params) != len(self.layers):
             raise ValueError(f"{len(params)} layers given, model has "
                              f"{len(self.layers)}")
+        dst = targets(self, into)
         with torch.no_grad():
             for layer, p in zip(self.layers, params):
-                layer.load(p)
+                layer.load(p, dst, into is None)
         return self
+
+    def jax_params(self, values=None) -> List[Dict[str, np.ndarray]]:
+        """The inverse of ``load_jax_params``: the reference's parameter
+        list as numpy, of this module's weights or of ``values`` (tensors
+        aligned with ``parameters()``), BN's statistics then zero."""
+        host = host_values(self, values)
+        return [layer.export(host, values is None) for layer in self.layers]
 
 
 class Spec:
@@ -276,15 +310,24 @@ class MLPClassifier(nn.Module):
                 x = torch.relu(x)
         return x
 
-    def load_jax_params(self, params: List[Dict[str, np.ndarray]]
-                        ) -> "MLPClassifier":
+    def load_jax_params(self, params: List[Dict[str, np.ndarray]],
+                        into=None) -> "MLPClassifier":
         """Copy the reference's ``[{'w': (d_in, d_out), 'b': (d_out,)}, …]``
-        parameter list into this module (no transposes)."""
+        parameter list into this module (no transposes), or, with ``into``
+        (tensors aligned with ``parameters()``), into those tensors."""
         if len(params) != len(self.weights):
             raise ValueError(f"{len(params)} layers given, model has "
                              f"{len(self.weights)}")
+        dst = targets(self, into)
         with torch.no_grad():
             for w, b, p in zip(self.weights, self.biases, params):
-                w.copy_(torch.from_numpy(np.array(p["w"], np.float32)))
-                b.copy_(torch.from_numpy(np.array(p["b"], np.float32)))
+                _load(dst(w), p["w"], "linear w")
+                _load(dst(b), p["b"], "linear b")
         return self
+
+    def jax_params(self, values=None) -> List[Dict[str, np.ndarray]]:
+        """The inverse of ``load_jax_params``: the reference's parameter
+        list as numpy, of this module's weights or of ``values``."""
+        host = host_values(self, values)
+        return [{"w": host[id(w)], "b": host[id(b)]}
+                for w, b in zip(self.weights, self.biases)]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.common.pytree import host_values, targets
 from repro_torch.common.types import ArchConfig, AttentionKind
 from repro_torch.models import layers as L
 
@@ -87,16 +88,21 @@ class Transformer(nn.Module):
         return torch.mean(self.embed[tokens], dim=1)
 
     # ------------------------------------------------------------ weights
-    def load_jax_params(self, params: Dict[str, Any]) -> "Transformer":
+    def load_jax_params(self, params: Dict[str, Any],
+                        into=None) -> "Transformer":
         """Copy the reference's ``init_params`` pytree, as numpy arrays,
-        into this module (no transposes): ``blocks`` leaves carry a leading
-        layer axis, which is split across the per-layer modules."""
+        into this module (no transposes), or, with ``into`` (tensors
+        aligned with ``parameters()``, e.g. the SGD momentum), into those
+        tensors: ``blocks`` leaves carry a leading layer axis, which is
+        split across the per-layer modules."""
         blocks = params["blocks"]
+        dst = targets(self, into)
         with torch.no_grad():
-            _copy(self.embed, params["embed"])
-            _copy(self.final_norm["scale"], params["final_norm"]["scale"])
+            _copy(dst(self.embed), params["embed"])
+            _copy(dst(self.final_norm["scale"]),
+                  params["final_norm"]["scale"])
             if self.lm_head is not None:
-                _copy(self.lm_head, params["lm_head"])
+                _copy(dst(self.lm_head), params["lm_head"])
             for i, blk in enumerate(self.blocks):
                 for part, leaves in blk.items():
                     if set(leaves.keys()) != set(blocks[part]):
@@ -105,22 +111,22 @@ class Transformer(nn.Module):
                             f"{sorted(blocks[part])}, model has "
                             f"{sorted(leaves.keys())}")
                     for name, p in leaves.items():
-                        _copy(p, np.asarray(blocks[part][name])[i])
+                        _copy(dst(p), np.asarray(blocks[part][name])[i])
         return self
 
-    def export_params(self) -> Dict[str, Any]:
-        """The inverse of ``load_jax_params``: this module's weights as
-        the reference's pytree of numpy arrays (blocks stacked on a leading
+    def jax_params(self, values=None) -> Dict[str, Any]:
+        """The inverse of ``load_jax_params``: this module's weights, or
+        ``values`` (tensors aligned with ``parameters()``), as the
+        reference's pytree of numpy arrays (blocks stacked on a leading
         layer axis)."""
-        def host(t):
-            return t.detach().cpu().numpy()
-        out: Dict[str, Any] = {"embed": host(self.embed),
-                               "final_norm": {"scale": host(
-                                   self.final_norm["scale"])}}
+        host = host_values(self, values)
+        out: Dict[str, Any] = {"embed": host[id(self.embed)],
+                               "final_norm": {"scale": host[id(
+                                   self.final_norm["scale"])]}}
         if self.lm_head is not None:
-            out["lm_head"] = host(self.lm_head)
+            out["lm_head"] = host[id(self.lm_head)]
         out["blocks"] = {
-            part: {name: np.stack([host(blk[part][name])
+            part: {name: np.stack([host[id(blk[part][name])]
                                    for blk in self.blocks])
                    for name in leaves.keys()}
             for part, leaves in self.blocks[0].items()}

@@ -69,6 +69,7 @@ from repro.data.synthetic import make_dataset as ref_make_dataset
 from repro.fed import simulator as ref_simulator
 from repro_torch.common.types import FedConfig
 from repro_torch.core import protocol
+from repro_torch.core.methods import get_method
 from repro_torch.data.synthetic import dataset_from_arrays
 from repro_torch.fed import simulator
 
@@ -137,9 +138,12 @@ class _Result:
         return self.rounds[-1].mean_acc
 
 
-def run_reference(kw: dict, dataset: str = "mnist_feat",
-                  n_train: int = N_TRAIN, n_test: int = N_TEST,
-                  sim_phase_costs=None) -> Reference:
+def build_reference(kw: dict, dataset: str = "mnist_feat",
+                    n_train: int = N_TRAIN, n_test: int = N_TEST,
+                    sim_phase_costs=None):
+    """The reference's experiment built (its DREs fit) but not run: its
+    ``RoundScheduler`` and the ``Reference`` record of the arrays the port
+    is built from (``result`` still None)."""
     cfg = RefFedConfig(**kw)
     method = ref_get_method(cfg.method)
     ds = ref_make_dataset(dataset, n_train=n_train, n_test=n_test,
@@ -167,28 +171,55 @@ def run_reference(kw: dict, dataset: str = "mnist_feat",
     engine = ref_engine_from_config(clients, cfg)
     if method.client_filter != "none":
         engine.learn_dres(jax.random.PRNGKey(cfg.seed))
-    sched = RefRoundScheduler(engine, server, method, cfg, x_test, y_test,
-                              sim_phase_costs=sim_phase_costs)
-    res = _Result(sched.run_rounds(0, cfg.rounds))
-    if engine is not clients and hasattr(engine, "sync_to_clients"):
-        engine.sync_to_clients()
     aux = (None if method.client_filter != "kulsif"
            else [np.asarray(c.dre.aux) for c in clients])
-    return Reference(res, clients, server, trace=list(sched.trace),
-                     faults=sched.faults, dataset=ds, params=params,
-                     kmeans_inits=inits, kulsif_aux=aux,
-                     student_params=student)
+    sched = RefRoundScheduler(engine, server, method, cfg, x_test, y_test,
+                              sim_phase_costs=sim_phase_costs)
+    return sched, Reference(None, clients, server, faults=sched.faults,
+                            dataset=ds, params=params, kmeans_inits=inits,
+                            kulsif_aux=aux, student_params=student)
 
 
-def run_port(kw: dict, ref: Reference, sim_phase_costs=None) -> Run:
+def run_reference(kw: dict, dataset: str = "mnist_feat",
+                  n_train: int = N_TRAIN, n_test: int = N_TEST,
+                  sim_phase_costs=None) -> Reference:
+    sched, ref = build_reference(kw, dataset, n_train, n_test,
+                                 sim_phase_costs)
+    ref.result = _Result(sched.run_rounds(0, kw["rounds"]))
+    if hasattr(sched.engine, "sync_to_clients"):
+        sched.engine.sync_to_clients()
+    ref.trace = list(sched.trace)
+    return ref
+
+
+def port_experiment(kw: dict, ref: Reference):
+    """The port's experiment built from the reference's arrays, on the
+    CPU: (clients, server, x_test, y_test)."""
     cfg = FedConfig(**kw)
     ds = ref.dataset
     dataset = dataset_from_arrays(ds.x, ds.y, ds.x_test, ds.y_test,
                                   ds.num_classes)
-    clients, server, x_test, y_test = simulator.build_experiment(
+    return simulator.build_experiment(
         cfg, device="cpu", dataset=dataset, init_params=ref.params,
         kmeans_inits=ref.kmeans_inits, kulsif_aux=ref.kulsif_aux,
         student_params=ref.student_params)
+
+
+def port_scheduler(kw: dict, ref: Reference, sim_phase_costs=None):
+    """``port_experiment``'s ``RoundScheduler``, its DREs fit, not run."""
+    cfg = FedConfig(**kw)
+    clients, server, x_test, y_test = port_experiment(kw, ref)
+    engine = protocol.engine_from_config(clients, cfg)
+    method = get_method(cfg.method)
+    if method.client_filter != "none":
+        engine.learn_dres(cfg.seed)
+    return protocol.make_scheduler(engine, server, method, cfg, x_test,
+                                   y_test, sim_phase_costs=sim_phase_costs)
+
+
+def run_port(kw: dict, ref: Reference, sim_phase_costs=None) -> Run:
+    cfg = FedConfig(**kw)
+    clients, server, x_test, y_test = port_experiment(kw, ref)
     with _keep_scheduler() as made:
         res = protocol.run_experiment(clients, server, cfg.method, cfg,
                                       x_test, y_test,
@@ -200,17 +231,17 @@ def run_port(kw: dict, ref: Reference, sim_phase_costs=None) -> Run:
 def _keep_scheduler():
     """Collect the schedulers ``protocol.run_experiment`` builds, so that a
     test can read the port's fault injector after the run."""
-    made, build = [], protocol._scheduler
+    made, build = [], protocol.make_scheduler
 
     def keep(*args, **kwargs):
         made.append(build(*args, **kwargs))
         return made[-1]
 
-    protocol._scheduler = keep
+    protocol.make_scheduler = keep
     try:
         yield made
     finally:
-        protocol._scheduler = build
+        protocol.make_scheduler = build
 
 
 def _statistic(dre, px):

@@ -143,11 +143,19 @@ def test_cohorts_group_by_arch_key_and_refuse_mismatched_members():
 
 
 def test_cohort_refuses_what_is_not_ported():
+    """Token clients on the cohort engine still raise, naming their ROADMAP
+    item; ``state_dict`` (item 8) is ported: the per-client layout, and a
+    load that refuses another fleet."""
     cfg = FedConfig(num_clients=2, rounds=1, engine="cohort")
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        simulator.check_slice(cfg, "lm_tokens")
     clients, *_ = simulator.build_experiment(cfg, n_train=200, n_test=50,
                                              device="cpu")
     engine = CohortEngine(clients)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        engine.state_dict()
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        engine.load_state_dict({})
+    sd = engine.state_dict()
+    assert [e["cid"] for e in sd["clients"]] == [0, 1]
+    assert set(sd["clients"][0]["params"]) == {
+        f"{i}/{k}" for i in range(3) for k in ("w", "b")}
+    engine.load_state_dict(sd)
+    with pytest.raises(ValueError, match="holds 1 clients"):
+        engine.load_state_dict({"clients": sd["clients"][:1]})

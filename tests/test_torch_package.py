@@ -217,12 +217,22 @@ def test_scheduler_flags_run_on_the_cpu(flags, tmp_path):
     (["--engine", "cohort", "--devices", "2"], "item 10"),
     (["--engine", "cohort", "--model-shards", "2"], "item 10"),
     (["--devices", "2"], "item 10"),
-    (["--watchdog"], "item 8"),
-    (["--watchdog", "--engine", "cohort", "--fault-mode", "nan"], "item 8"),
 ])
 def test_flags_outside_the_slice_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
         fed_train.main(SMALL + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--watchdog"],
+    ["--watchdog", "--engine", "cohort", "--fault-mode", "nan"],
+])
+def test_watchdog_flags_run(flags):
+    """``--watchdog`` (ROADMAP queue A item 8, once refused) runs to the
+    end, and every round's log carries the rollbacks so far."""
+    res = fed_train.main(SMALL + ["--device", "cpu"] + flags)
+    assert len(res.rounds) >= 1
+    assert all(r.rollbacks >= 0 for r in res.rounds)
 
 
 ROBUST_FLAGS = {

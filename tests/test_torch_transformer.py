@@ -276,7 +276,7 @@ def test_client_model_is_the_last_position_and_round_trips_weights():
     assert got.shape == (6, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(ref.apply(params, tokens)), **F32)
-    exported = model.export_params()
+    exported = model.jax_params()
     assert (jax.tree.structure(exported)
             == jax.tree.structure(jax.tree.map(np.asarray, params)))
     for a, b in zip(jax.tree.leaves(exported), jax.tree.leaves(params)):
