@@ -35,7 +35,12 @@ Phases, in order; any failure raises and exits non-zero:
      weights, an all-zero lane) against the plain version and each
      client's 2-D launch bitwise, and through a 16-step distill phase
      with a lane whose weights are zero at every step (a sampled-out
-     lane: its loss and gradient 0, its weights bitwise unchanged); and
+     lane: its loss and gradient 0, its weights bitwise unchanged); flash
+     attention under vmap at the token cohort's training step (10
+     clients, (64, 32/8, 16, 128), the model's layout): one launch on the
+     folded batch, each client's slice bitwise its own launch, forward
+     and q/k/v gradients against the vmapped plain version, and a folded
+     batch past grid axis z's 65535 launched in chunks; and
      benchmarks/scale.py's fleet shapes, 1024 clients a launch: B1 at
      (16, 50, 10), B2's report at (64, 50, 10) and calibration at (16, 50,
      10), the fused loss at (16, 10), then a 1024-lane grid on every
@@ -53,7 +58,10 @@ Phases, in order; any failure raises and exits non-zero:
      check that the entry point pins fp32) on the card against the same
      runs on the CPU (which takes the plain versions), and a small
      lm_tokens edgefd run (the reduced granite backbone) on the card
-     against the CPU from the same initial weights; small cohort-engine
+     against the CPU from the same initial weights, on the loop engine
+     and on the cohort engine (4 clients: every flash-attention launch's
+     batch a multiple of the 4 lanes, and a second card run bitwise equal
+     to the first, wall_s and phase_s apart); small cohort-engine
      runs card vs CPU (edgefd, selective-fd and fkd strong, the mixed zoo
      over 6 clients, and over 9 in waves of 2); partial-participation
      overlap runs on both engines (fraction 0.5, fixed phase costs) card
@@ -96,6 +104,11 @@ Phases, in order; any failure raises and exits non-zero:
      unwaved, in waves of 16 and on the loop engine, held to each other;
      mnist_like edgefd strong and weak (ten one-client cohorts) each held
      to a loop run, both engines with cuDNN's deterministic algorithms;
+     lm_tokens edgefd strong at granite-8b's widths, its 10 clients
+     stacked on the card unwaved, held to the loop run (its peak device
+     memory, round and phase seconds beside the loop's, flash attention's
+     launches by folded batch: a whole number of forwards of the layers,
+     every batch a multiple of 10);
      asserting one Lloyd launch an iteration a uniform cohort, one
      min-distance launch a cohort a report and a calibration, two RBF
      launches a cohort a report, one fused-loss launch a cohort a distill
@@ -146,7 +159,9 @@ Phases, in order; any failure raises and exits non-zero:
      four routes in turns (fused kernel, the per-sample kernels under
      autograd, plain, library) beside an empty kernel's launch and the
      autograd engine's floor; each route over clients at the cohort's
-     shapes, beside C launches of its 2-D route; B1, B2's report and the
+     shapes, beside C launches of its 2-D route (flash attention on the
+     token cohort's folded batch of 640, also through the vmap rule and
+     beside scaled_dot_product_attention); B1, B2's report and the
      fused loss at the fleet's shapes (1024 clients a launch).
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
@@ -788,6 +803,103 @@ def check_flash_grads(b, n, nkv, s, h, seed=0):
         + ", ".join(errs) + " (rtol 1e-4, atol 1e-5)")
 
 
+# B6 over a cohort: granite-8b's attention at a training step's batch for
+# 10 clients (the full-width cohort run's), and the reduced backbone's at
+# 129 clients x eval batch 512, a folded batch past grid axis z's 65535
+COHORT_ATTN = (10,) + MAIN_ATTN
+CHUNKED_ATTN = (129, 512, 4, 1, 16, 16)
+
+
+def attn_clients_inputs(c, b, n, nkv, s, h, seed):
+    """q (C, B, S, N, h) and k, v (C, B, S, Nkv, h) on the card, the
+    cohort's stacked activations in the model's layout (the attention
+    reads (C, B, N, S, h) views of them), and an output gradient."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((c, b, s, heads, h), generator=g).cuda()
+               for heads in (n, nkv, nkv))
+    go = torch.randn((c, b, n, s, h), generator=g).cuda()
+    return q, k, v, go
+
+
+def check_flash_clients(c, b, n, nkv, s, h, seed=0):
+    """B6 under ``vmap`` (the cohort's ``vmap`` over ``functional_call``):
+    one launch for the whole client axis, folded into the batch; each
+    client's slice bitwise its own launch on its own tensors; forward and
+    q/k/v gradients against autograd of the vmapped plain version.
+    Returns the forward's max abs error."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels.flash_attention import ops, ref
+    base = attn_clients_inputs(c, b, n, nkv, s, h, seed)
+    go = base[3]
+    kern = [t.clone().requires_grad_(True) for t in base[:3]]
+    plain = [t.clone().requires_grad_(True) for t in base[:3]]
+
+    def attn(q, k, v):
+        return ops.FlashAttentionFunction.apply(q, k, v, True)
+
+    def attn_plain(q, k, v):
+        return ref.attention_gqa(q, k, v, causal=True)
+    before = ops.flash_attention_cuda.launches
+    got = vmap(attn)(*(t.transpose(2, 3) for t in kern))
+    launched = ops.flash_attention_cuda.launches - before
+    label = (f"flash_attention under vmap, C={c} ({b}, {n}, {s}, {h}) kv "
+             f"{nkv}")
+    if launched != 1:
+        raise AssertionError(f"{label}: {launched} launches, not one")
+    want = vmap(attn_plain)(*(t.transpose(2, 3) for t in plain))
+    for i in range(c):
+        # client i's own (B, S, N, h) tensors, as its loop-engine forward
+        # hands them over
+        mine = ops.flash_attention_cuda(
+            *(own(t[i]).transpose(1, 2) for t in base[:3]), True)
+        if not torch.equal(got[i], mine):
+            raise AssertionError(f"{label}: client {i}'s slice differs from "
+                                 "its own launch")
+    torch.testing.assert_close(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    got.backward(go)
+    want.backward(go)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, w in zip("qkv", kern, plain):
+        torch.testing.assert_close(a.grad, w.grad, rtol=1e-4, atol=1e-5)
+        errs.append(f"d{name} {float((a.grad - w.grad).abs().max()):.3e}")
+    err = float((got - want).detach().abs().max())
+    log(f"  {label}: one launch of batch {c * b}, each client's slice "
+        f"bitwise its own launch; max|err| {err:.3e} (rtol {ATTN_RTOL:g}, "
+        f"atol {ATTN_ATOL:g}), grads " + ", ".join(errs)
+        + " (rtol 1e-4, atol 1e-5)")
+    return err
+
+
+def check_flash_chunked(c, b, n, nkv, s, h, seed=0):
+    """A folded batch past grid axis z (``MAX_GRID_YZ``): launched in
+    chunks, each a launch, against the plain version."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, _ = attn_clients_inputs(c, b, n, nkv, s, h, seed)
+    views = [t.transpose(2, 3) for t in (q, k, v)]
+    before = ops.flash_attention_cuda.launches
+    got = vmap(lambda a, bb, cc: ops.FlashAttentionFunction.apply(
+        a, bb, cc, True))(*views)
+    launched = ops.flash_attention_cuda.launches - before
+    chunks = -(-c * b // ops.MAX_GRID_YZ)
+    if c * b <= ops.MAX_GRID_YZ or launched != chunks:
+        raise AssertionError(f"folded batch {c * b}: {launched} launches, "
+                             f"not {chunks} chunks of <= {ops.MAX_GRID_YZ}")
+    want = ref.attention_gqa(*(t.reshape(c * b, *t.shape[2:])
+                               for t in views), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.reshape(want.shape), want,
+                               rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    log(f"  flash_attention under vmap, C={c} ({b}, {n}, {s}, {h}) kv "
+        f"{nkv}: folded batch {c * b} > {ops.MAX_GRID_YZ} launched in "
+        f"{launched} chunks, max|err| "
+        f"{float((got.reshape(want.shape) - want).abs().max()):.3e}")
+
+
 # ---- the cohort engine's routes: every kernel over a client axis, each
 # client's slice bit for bit its own launch's
 def own(t):
@@ -1113,6 +1225,8 @@ def check_cohort_kernels():
     for c, n, k in COHORT_KL:
         errs["kl"][(c, n, k)] = check_kl_loss_clients(c, n, k)
     check_kl_loss_zero_lane_phase()
+    errs["flash"] = check_flash_clients(*COHORT_ATTN)
+    check_flash_chunked(*CHUNKED_ATTN)
     errs["fleet"] = check_fleet_kernels()
     return errs
 
@@ -1481,6 +1595,57 @@ def check_small_run():
     cpu = run_experiment(*cpu_exp[:2], cfg.method, cfg, *cpu_exp[2:])
     compare_runs(f"lm_tokens edgefd weak, reduced backbone ({launched} "
                  "flash_attention launches on the card)", gpu, cpu, 200)
+    check_small_token_cohort(cfg, sizes)
+
+
+def check_small_token_cohort(cfg, sizes):
+    """Phase 5's token cohort: lm_tokens edgefd weak, the reduced backbone,
+    on the cohort engine (4 clients, 2 rounds), the card's run from the
+    CPU run's initial weights held to the CPU's; B6 launched, every
+    launch's folded batch a multiple of the cohort's 4 lanes; a second
+    card run bitwise equal to the first (``wall_s`` and ``phase_s``
+    apart): the embedding's gradient sums in a fixed order."""
+    import dataclasses
+    from repro_torch.core.protocol import run_experiment
+    from repro_torch.fed.simulator import build_experiment
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg = dataclasses.replace(cfg, engine="cohort")
+    cpu_exp = build_experiment(cfg, "lm_tokens", device="cpu", **sizes)
+    init = [c.model.jax_params() for c in cpu_exp[0]]
+
+    def on_card():
+        exp = build_experiment(cfg, "lm_tokens", device="cuda",
+                               init_params=init, **sizes)
+        with attn_launches(fa_ops) as attn:
+            # fixed phase costs: the simulated timeline is then
+            # deterministic too
+            res = run_experiment(*exp[:2], cfg.method, cfg, *exp[2:],
+                                 sim_phase_costs=ASYNC_COSTS)
+        return res, dict(sorted(attn.by_key.items()))
+    gpu, batches = on_card()
+    lanes = cfg.num_clients
+    if not batches or any(b % lanes for b in batches):
+        raise AssertionError(f"token cohort: flash_attention launches by "
+                             f"batch {batches}, not multiples of {lanes}")
+    cpu = run_experiment(*cpu_exp[:2], cfg.method, cfg, *cpu_exp[2:])
+    compare_runs(f"lm_tokens edgefd weak, reduced backbone, cohort engine "
+                 f"({sum(batches.values())} flash_attention launches on "
+                 f"the card by folded batch {batches})", gpu, cpu, 200)
+    again, _ = on_card()
+    a, b = strip_measured(gpu), strip_measured(again)
+    if a != b:
+        raise AssertionError("token cohort: two card runs differ: "
+                             f"{first_difference(a, b)}")
+    log(f"  lm_tokens edgefd weak cohort: a second card run's round logs "
+        f"bitwise equal to the first's over {len(a)} rounds (wall_s and "
+        "phase_s apart)")
+
+
+def strip_measured(res):
+    """A run's round logs without the host-measured fields."""
+    import dataclasses
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if k not in MEASURED} for r in res.rounds]
 
 
 def launch_counts():
@@ -1727,10 +1892,11 @@ def lm_full_width_arch():
                                vocab_size=32)
 
 
-def run_lm_full_width():
+def run_lm_full_width(engine="loop"):
     """lm_tokens edgefd strong at granite-8b's widths through
     ``simulator.run`` (``fed_train`` builds the reduced backbone; the
-    width is the ``transformer_cfg`` keyword). The learning rate is 5e-4,
+    width is the ``transformer_cfg`` keyword), on ``engine`` (the cohort
+    engine: the 10 clients stacked, unwaved). The learning rate is 5e-4,
     not the default 1e-2, which suits the reduced backbone's d_model 64:
     under plain SGD the change one step makes to a layer's output grows
     with the width of its input."""
@@ -1741,14 +1907,15 @@ def run_lm_full_width():
     arch = lm_full_width_arch()
     cfg = FedConfig(method="edgefd", scenario="strong", num_clients=10,
                     rounds=LM_ROUNDS, batch_size=64, proxy_batch=256,
-                    lr=LM_LR, seed=0)
+                    lr=LM_LR, seed=0, engine=engine)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = simulator.run(cfg, "lm_tokens", n_train=6000, n_test=1000,
                         device="cuda", transformer_cfg=arch,
                         progress=lambda lg: print_round(lg, cfg.num_clients))
     peak = torch.cuda.max_memory_allocated()
-    log(f"  lm_tokens edgefd strong at granite-8b widths: d_model "
+    log(f"  lm_tokens edgefd strong at granite-8b widths ({engine} "
+        f"engine): d_model "
         f"{arch.d_model}, heads {arch.num_heads}/{arch.num_kv_heads} of "
         f"{arch.resolved_head_dim}, d_ff {arch.d_ff}, {arch.num_layers} "
         f"layers, vocab {arch.vocab_size}: {arch.param_count() / 1e6:.1f} M "
@@ -1782,6 +1949,14 @@ class CountedCalls:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def attn_launches(fa_ops):
+    """B6's launches by the batch its autograd function hands the launch
+    (a cohort's folded batch), each call weighing its chunks' launches."""
+    return CountedCalls(fa_ops, "_launch", key=lambda q, *_: q.shape[0],
+                        weight=lambda q, *_: -(-q.shape[0]
+                                               // fa_ops.MAX_GRID_YZ))
 
 
 def dist_class(x, cents, threshold):
@@ -2049,6 +2224,45 @@ COHORT_RUNS = (("edgefd", "strong"), ("edgefd", "weak"),
 SCALE_CLIENTS, SCALE_WAVE = 100, 16
 
 
+# the token cohort at full width: phase 6's lm_tokens run on the cohort
+# engine, its 10 clients stacked on the card, unwaved
+LM_COHORT = "cohort lm_tokens edgefd strong, granite-8b widths"
+
+
+def check_lm_cohort(launches, steps, by_c, attn_by_batch):
+    """The full-width token cohort's launches: B6 a whole number of
+    forwards of the backbone's layers, every launch's folded batch a
+    multiple of the 10 lanes; the per-client KMeans-DRE fits (the strong
+    split's private sets are ragged) on B1, B2 over the cohort, one fused
+    loss launch a distill step and no 2-D or per-sample KL launch."""
+    layers, lanes = lm_full_width_arch().num_layers, 10
+    n = launches["flash_attention"]
+    if not n or n % layers or sum(attn_by_batch.values()) != n:
+        raise AssertionError(f"{LM_COHORT}: {n} flash_attention launches "
+                             f"({attn_by_batch} by batch), not a multiple "
+                             f"of {layers} layers")
+    if any(b % lanes for b in attn_by_batch):
+        raise AssertionError(f"{LM_COHORT}: flash_attention batches "
+                             f"{attn_by_batch}, not multiples of {lanes}")
+    for name in ("lloyd_step", "min_dist_and_mask_clients",
+                 "kd_kl_loss_clients"):
+        if not launches[name]:
+            raise AssertionError(f"{LM_COHORT} never launched {name}")
+    if launches["kd_kl_loss_clients"] != steps:
+        raise AssertionError(f"{LM_COHORT}: {launches['kd_kl_loss_clients']}"
+                             f" batched KL launches for {steps} cohort "
+                             "distill steps")
+    for name in ("kd_kl_loss", "kd_kl_fwd", "kd_kl_bwd_ds", "kd_kl_bwd_dt"):
+        if launches[name]:
+            raise AssertionError(f"{LM_COHORT} launched {name} "
+                                 f"{launches[name]} times")
+    log(f"  {LM_COHORT}: flash_attention {n} launches ({n // layers} "
+        f"forwards of {layers} layers) by folded batch {attn_by_batch}; "
+        f"Lloyd launches by C {by_c[0]}, B2 calls by (class, C) {by_c[1]}, "
+        f"fused loss {launches['kd_kl_loss_clients']} launches for {steps} "
+        "distill steps")
+
+
 def deterministic(drive):
     """``drive()`` with cuDNN's deterministic algorithms (restored after)."""
     import torch
@@ -2065,7 +2279,8 @@ def run_cohort_path(loop_results):
     feature runs against ``loop_results`` (phase 6's loop runs), the
     100-client scale run three ways, and mnist_like edgefd strong and weak
     (ten one-client cohorts) against loop runs, each pair with cuDNN's
-    deterministic algorithms. Asserts that each cohort's
+    deterministic algorithms, and the token cohort at granite-8b's widths
+    against ``loop_results``' lm_tokens run (``check_lm_cohort``). Asserts that each cohort's
     Lloyd launches go one an iteration for the cohort (C > 1 in a uniform
     cohort), B2 one launch a cohort a report and a calibration, B5 one
     launch a Gram matrix a cohort a report, the fused loss one launch a
@@ -2073,6 +2288,7 @@ def run_cohort_path(loop_results):
     client count C of B1, B2 and B5's batched routes)."""
     from repro_torch.common.types import FedConfig
     from repro_torch.fed.batching import steps_per_epoch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_dist import ops as kd_ops
     from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
     cfg0 = FedConfig()
@@ -2105,6 +2321,7 @@ def run_cohort_path(loop_results):
                  (f"cohort mnist_like edgefd {sc}, deterministic cuDNN", 10,
                   lambda flags=flags: deterministic(lambda: fed_train(
                       flags + ["--engine", "cohort"])))]
+    runs.append((LM_COHORT, 1, lambda: run_lm_full_width("cohort")))
     log("[6] the cohort engine's path: " + ", ".join(r[0] for r in runs)
         + f" (scale: the mixed zoo, {SCALE_CLIENTS} clients, iid, n_train "
         "60000; the rest 10 clients at the main path's sizes)")
@@ -2123,11 +2340,13 @@ def run_cohort_path(loop_results):
                             else "report", c.shape[0] if c.ndim == 3 else 1))
     rbf = CountedCalls(rbf_ops, "rbf_matrix",
                        key=lambda a, b, s: b.shape[0] if b.ndim == 3 else 1)
+    # B6's launches by (folded) batch
+    flash = attn_launches(fa_ops)
     by_run = {}
     for label, cohorts, drive in runs:
-        for cc in (lloyd, dist, rbf):
+        for cc in (lloyd, dist, rbf, flash):
             cc.by_key = {}
-        with lloyd, dist, rbf:
+        with lloyd, dist, rbf, flash:
             run_one(label, drive, wrappers, results, per_run, steps, attn,
                     kl_name="kd_kl_loss" if label.startswith("loop")
                     else "kd_kl_loss_clients")
@@ -2136,6 +2355,10 @@ def run_cohort_path(loop_results):
         log(f"  {label}: Lloyd launches by C {by_run[label][0]}, B2 calls "
             f"by (class, C) {by_run[label][1]}, B5 calls by C "
             f"{by_run[label][2]}")
+        if label == LM_COHORT:
+            check_lm_cohort(per_run[label], steps[label], by_run[label],
+                            dict(flash.by_key))
+            continue
         if label.startswith("loop"):
             continue
         launches = per_run[label]
@@ -2177,7 +2400,8 @@ def run_cohort_path(loop_results):
                 raise AssertionError(f"{label}: a per-client fit (Lloyd "
                                      f"by C {l_by_c}, calibrations {calib})")
     for name in ("lloyd_step", "min_dist_and_mask_clients",
-                 "kd_kl_loss_clients", "rbf_matrix_clients"):
+                 "kd_kl_loss_clients", "rbf_matrix_clients",
+                 "flash_attention"):
         if sum(per_run[r[0]][name] for r in runs) == 0:
             raise AssertionError(f"the cohort path never launched {name}")
     counts = {n: w.launches for n, w in wrappers.items()}
@@ -2185,6 +2409,15 @@ def run_cohort_path(loop_results):
         compare_runs(f"cohort {m} {sc} against the loop engine",
                      results[f"cohort {m} {sc}"], loop_results[f"{m} {sc}"],
                      10000, names=("cohort", "loop"))
+    lm_c, lm_l = results[LM_COHORT], loop_results["lm_tokens edgefd strong"]
+    compare_runs(f"{LM_COHORT} against the loop engine", lm_c, lm_l, 1000,
+                 names=("cohort", "loop"))
+    for name, res in (("cohort", lm_c), ("loop", lm_l)):
+        log(f"  lm_tokens edgefd strong at granite-8b widths, {name} "
+            f"engine: round wall seconds "
+            + " ".join(f"{r.wall_s:.3f}" for r in res.rounds)
+            + f" (sum {sum(r.wall_s for r in res.rounds):.3f}); phase "
+            f"seconds {phase_seconds(res)}")
     un, wv = (results["cohort scale, unwaved"],
               results["cohort scale, waves of 16"])
     compare_runs("scale: waves of 16 against unwaved", wv, un, 10000,
@@ -3592,7 +3825,59 @@ def measure_cohort(counts, lloyd_c, cohort_err):
             "max_abs_err": max(cohort_err["kl"].values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
+    rows["flash_attention_clients"] = measure_flash_clients(
+        counts, cohort_err["flash"])
     return list(rows.values())
+
+
+def measure_flash_clients(counts, err):
+    """B6 over a cohort at the full-width cohort run's training step (10
+    clients' batches of 64 folded into 640, the model's layout): the
+    kernel per call and device only, the call through the ``vmap`` rule
+    (the cohort's route), the plain version, PyTorch's
+    scaled_dot_product_attention on the folded batch (timed only; the
+    port never calls it) and 10 launches of one client's batch."""
+    import torch.nn.functional as F
+    from torch.func import vmap
+    from repro_torch.kernels.flash_attention import ops, ref
+    c, b, n, nkv, s, h = COHORT_ATTN
+    q5, k5, v5, _ = attn_clients_inputs(c, b, n, nkv, s, h, seed=1)
+    views = [t.transpose(2, 3) for t in (q5, k5, v5)]
+    q, k, v = (t.reshape(c * b, *t.shape[2:]) for t in views)
+    moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = c * b * n * (s * (s + 1) // 2) * (4 * h + 5)
+    ms, plain_ms, b_ms, b_by, dev = time_row(
+        f"flash_attention clients C={c} ({b}, {n}, {s}, {h}) kv {nkv}, "
+        f"folded batch {c * b}, model layout (one launch)",
+        lambda: ops.flash_attention_cuda(q, k, v, True),
+        lambda: ref.attention_gqa(q, k, v, causal=True), moved, flops)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = time_ms(library)
+    rule = vmap(lambda a, bb, cc: ops.FlashAttentionFunction.apply(
+        a, bb, cc, True))
+    log(f"    library (scaled_dot_product_attention, folded batch) "
+        f"{lib_ms:.5f}, device only {fmt(device_ms(library))}; through the "
+        f"vmap rule {time_ms(lambda: rule(*views)):.5f}, device only "
+        f"{fmt(device_ms(lambda: rule(*views)))}; share of the byte bound, "
+        f"device only: "
+        + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+    parts = [[own(t[i]).transpose(1, 2) for t in (q5, k5, v5)]
+             for i in range(c)]
+
+    def per_client():
+        return [ops.flash_attention_cuda(*p, True) for p in parts]
+    log(f"    flash_attention C={c}: the 2-D route C times "
+        f"{time_ms(per_client):.5f}, device only "
+        f"{fmt(device_ms(per_client))}")
+    return {"name": "flash_attention_clients", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+            "launches": counts["flash_attention"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 def measure_fleet(at_wave, fleet_err):

@@ -11,9 +11,8 @@ plain version only for a tensor on the CPU.
 Ported so far: the paper's experiment and its Table III baselines,
 ``launch.fed_train --method <any of core.methods.METHODS>`` with sync
 rounds on the loop and cohort engines, on feature data (the shared MLP or
-the mixed MLP zoo) and image data (the Tables I/II CNN zoo), and
-transformer clients on token data on the loop engine (see ``ROADMAP.md``
-for what is still to come).
+the mixed MLP zoo), image data (the Tables I/II CNN zoo) and token data
+(transformer clients) (see ``ROADMAP.md`` for what is still to come).
 """
 import torch as _torch
 

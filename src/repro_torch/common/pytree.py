@@ -1,4 +1,4 @@
-"""Parameter-init helpers, the stacked-parameter helpers of the cohort
+"""Parameter-init helpers, the stacked-parameter helper of the cohort
 engine, and the parameter-aligned helpers of the models' reference-layout
 export and import (``jax_params`` / ``load_jax_params``).
 
@@ -45,24 +45,12 @@ def init_conv(c_in: int, c_out: int, k: int, *,
     return {"w": w.to(device), "b": torch.zeros((c_out,), device=device)}
 
 
-# ---- stacked clients (the reference's cohort.py _stack_trees,
-# _unstack_tree, _where_tree), over lists of tensors
-
-def stack_trees(trees: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
-    """C lists of tensors -> one list of (C, ...) tensors."""
-    return [torch.stack(leaves) for leaves in zip(*trees)]
-
+# ---- stacked clients (the reference's cohort.py _unstack_tree; the cohort
+# engine stacks and gates leaf by leaf, in place: ``fed.cohort``)
 
 def unstack_tree(tree: Sequence[torch.Tensor], i: int) -> List[torch.Tensor]:
     """Row ``i`` of every stacked tensor (views)."""
     return [leaf[i] for leaf in tree]
-
-
-def where_tree(flag: torch.Tensor, new: Sequence[torch.Tensor],
-               old: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Per client: ``new`` where ``flag`` (C,) is set, else ``old``."""
-    return [torch.where(flag.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
-            for a, b in zip(new, old)]
 
 
 # ---- reference-layout export and import

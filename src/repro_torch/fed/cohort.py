@@ -29,8 +29,8 @@ are no-ops, and a short last batch is padded with zero-weight slots. A
 step computes each client's loss separately (a weighted mean over its own
 batch), backpropagates their sum (the lanes are independent, so each
 stacked gradient slice is that client's gradient), and applies the
-update per lane where the step is valid (``where_tree``), as the
-reference's ``scan_steps`` does.
+update per lane where the step is valid (``torch.where``, leaf by leaf
+and in place), as the reference's ``scan_steps`` does.
 
 Kernels
 -------
@@ -67,13 +67,22 @@ would be alone. The per-cohort entry points (``cohort_positions``,
 ``cohort_local_train``, ``cohort_report``, ...) drive one cohort at a
 time for concurrent-cohort scheduling.
 
-``state_dict`` syncs the stacked state (or a waved cohort's host masters)
-back onto the clients and emits the loop engine's per-client checkpoint;
-``load_state_dict`` loads the clients and re-stacks every cohort from
-them, so a checkpoint moves between the engines and wave sizes.
+One copy of the state
+---------------------
+While an unwaved cohort owns the stacked state, its members' parameters
+and momentum are views of their rows of it (``adopt_member_state``), so
+the device holds the state once: ten granite-8b-wide token clients are
+16.3 GiB of parameters, and a second copy would not fit beside their
+momentum and gradients. ``state_dict`` syncs the stacked state (or a
+waved cohort's host masters) back onto the clients and emits the loop
+engine's per-client checkpoint; ``load_state_dict`` loads the clients and
+re-stacks every cohort from them, so a checkpoint moves between the
+engines and wave sizes.
 
-Not ported yet: the device mesh (ROADMAP queue A item 10) and token
-(transformer) clients on this engine (item 5).
+Token (transformer) clients run here like any other architecture: the
+flash-attention kernel's ``vmap`` rule folds the client axis into its
+batch, one launch a layer for the cohort. Not ported yet: the device mesh
+(ROADMAP queue A item 10).
 """
 from __future__ import annotations
 
@@ -84,7 +93,7 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
-from repro_torch.common.pytree import stack_trees, unstack_tree, where_tree
+from repro_torch.common.pytree import unstack_tree
 from repro_torch.core import distill as D
 from repro_torch.core.dre import (KMeansDRE, KuLSIFDRE, kmeans_id_masks,
                                   kulsif_id_masks, learn_kmeans_batched)
@@ -198,32 +207,60 @@ class _Cohort:
 
     # ------------------------------------------------------- stacked state
     def adopt_member_state(self) -> None:
-        """Stack the members' parameters and optimizer state (host masters
-        in waved mode, device tensors otherwise) — at construction, and as
-        the inverse of ``sync_to_clients``."""
-        params = stack_trees([[p.detach() for p in c.params]
-                              for c in self.members])
-        mu = stack_trees([c.opt_state["mu"] for c in self.members])
+        """Stack the members' parameters and optimizer state leaf by leaf —
+        at construction, and as the inverse of ``sync_to_clients`` (after
+        ``load_state_dict``). In waved mode the stacked masters are host
+        numpy and the members keep their own tensors. Unwaved, each
+        member's parameters and momentum are rebound to views of its row
+        of the stacked device tensors, so the device holds one copy of the
+        state, and stacking peaks at the state plus one leaf of parameters
+        and one of momentum."""
+        C = len(self.members)
         step = torch.tensor([c.opt_state["step"] for c in self.members],
                             dtype=torch.int64, device=self.device)
+
+        def stack(leaves):
+            if self._waved:
+                return np.stack([_np(t) for t in leaves])
+            out = torch.empty((C, *leaves[0].shape), dtype=leaves[0].dtype,
+                              device=self.device)
+            with torch.no_grad():
+                for i, t in enumerate(leaves):
+                    out[i].copy_(t)
+            return out
+        params, mu = [], []
+        for j in range(len(self.names)):
+            params.append(stack([c.params[j].detach() for c in self.members]))
+            mu.append(stack([c.opt_state["mu"][j] for c in self.members]))
+            if not self._waved:
+                # the members' own tensors of leaf j are freed here
+                for i, c in enumerate(self.members):
+                    c.params[j].data = params[j][i]
+                    c.opt_state["mu"][j] = mu[j][i]
         if self._waved:
-            self.params = [_np(p) for p in params]
-            self.opt_state = {"mu": [_np(v) for v in mu], "step": _np(step)}
+            self.params = params
+            self.opt_state = {"mu": mu, "step": _np(step)}
         else:
             self.params = [p.requires_grad_(True) for p in params]
             self.opt_state = {"mu": mu, "step": step}
 
     def sync_to_clients(self) -> None:
         """Write the stacked parameters and optimizer state back onto the
-        member ``Client`` objects."""
+        member ``Client`` objects (unwaved: rebind them to views of the
+        stacked state, which copies nothing)."""
         with torch.no_grad():
             for i, c in enumerate(self.members):
-                for p, s in zip(c.params, unstack_tree(self.params, i)):
-                    p.copy_(torch.as_tensor(s))
-                c.opt_state = {
-                    "mu": [torch.as_tensor(v[i]).to(self.device).clone()
-                           for v in self.opt_state["mu"]],
-                    "step": int(self.opt_state["step"][i])}
+                if self._waved:
+                    for p, s in zip(c.params, unstack_tree(self.params, i)):
+                        p.copy_(torch.as_tensor(s))
+                    mu = [torch.as_tensor(v[i]).to(self.device).clone()
+                          for v in self.opt_state["mu"]]
+                else:
+                    for p, s in zip(c.params, self.params):
+                        p.data = s.detach()[i]
+                    mu = unstack_tree(self.opt_state["mu"], i)
+                c.opt_state = {"mu": mu,
+                               "step": int(self.opt_state["step"][i])}
 
     # ------------------------------------------------------ wave streaming
     def _waves(self):
@@ -327,14 +364,26 @@ class _Cohort:
         return [float(t / c) if c else 0.0 for t, c in zip(tot, cnt)]
 
     def _apply(self, params, opt, grads, v: torch.Tensor):
-        """One optimizer step, applied to the lanes where ``v`` is set."""
-        upd, new = self.opt.update(grads, opt, params)
+        """One optimizer step, applied to the lanes where ``v`` is set,
+        leaf by leaf and in place: ``sgd``'s update is elementwise within a
+        leaf, so one leaf's update is the whole tree's at that leaf, with
+        the same arithmetic. Each gradient (an entry of the list
+        ``grads``) is released as it is used. In place, a step holds one
+        leaf's new momentum and update at a time, not a new momentum tree
+        and an update tree: two full trees fewer at the peak."""
+        step = opt["step"]
         with torch.no_grad():
-            for p, u in zip(params, upd):
-                p.copy_(torch.where(
-                    v.reshape((-1,) + (1,) * (p.ndim - 1)), p + u, p))
-        opt["mu"] = where_tree(v, new["mu"], opt["mu"])
-        opt["step"] = torch.where(v, new["step"], opt["step"])
+            for j, (p, m) in enumerate(zip(params, opt["mu"])):
+                g, grads[j] = grads[j], None
+                (u,), new = self.opt.update([g], {"mu": [m], "step": step},
+                                            [p])
+                del g
+                keep = v.reshape((-1,) + (1,) * (p.ndim - 1))
+                p.copy_(torch.where(keep, p + u, p))
+                m.copy_(torch.where(keep, new["mu"][0], m))
+                new_step = new["step"]        # the same for every leaf
+                del u, new
+        opt["step"] = torch.where(v, new_step, step)
 
     def _private(self, lo: int, hi: int):
         """A wave's private data: (x, y, the lanes' indices (lanes, 1))."""
@@ -365,7 +414,7 @@ class _Cohort:
                     continue           # a no-op step for every lane
                 loss = batch_loss(wave_data, inputs, ib_all[:, s],
                                   wb_all[:, s])
-                grads = torch.autograd.grad(loss.sum(), inputs)
+                grads = list(torch.autograd.grad(loss.sum(), inputs))
                 if one:
                     grads = [g[None] for g in grads]
                 # dummy lanes of a padded wave never validate

@@ -29,8 +29,8 @@ live reference run.
 Only the ported slice runs: every method of Table III on the image,
 feature and token datasets, the CNN zoo and the shared and mixed MLP zoos
 (``zoo="mixed"``: three widths by ``cid % 3``, one optimizer and one
-``arch_key`` a width), the loop engine and, on image and feature data,
-the cohort engine (with wave streaming), every scheduler knob (sync and
+``arch_key`` a width), the loop engine and, on image, feature and token
+data, the cohort engine (with wave streaming), every scheduler knob (sync and
 overlapping rounds, partial participation with its three policies and the
 staleness buffer, churn, dropout, arrival traces, admission under
 ``max_pending_reports``, concurrent cohorts), and the server at full
@@ -40,8 +40,8 @@ watchdog (the scheduler's snapshot/restore; ``launch.fed_serve`` is the
 resumable service). ``run`` first refuses a malformed config with
 ``ValueError``, as the reference's does (``participation.validate_config``,
 then ``scheduler.validate_config``); ``check_slice`` then refuses the rest
-(the multi-device mesh, token data on the cohort engine) with
-``NotImplementedError`` naming the ROADMAP item that brings it.
+(the multi-device mesh) with ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -58,8 +58,7 @@ from repro_torch.core.methods import get_method
 from repro_torch.core.protocol import ExperimentResult, run_experiment
 from repro_torch.data.partition import partition
 from repro_torch.data.proxy import build_proxy
-from repro_torch.data.synthetic import (SPECS, Dataset, check_dataset,
-                                        make_dataset)
+from repro_torch.data.synthetic import Dataset, check_dataset, make_dataset
 from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
 from repro_torch.fed.server import Server
@@ -114,8 +113,6 @@ def check_slice(cfg: FedConfig, dataset_name: str) -> None:
     refused = [
         (cfg.num_devices != 0 or cfg.model_shards != 0,
          "num_devices/model_shards", "10 (multi-device)"),
-        (cfg.engine == "cohort" and SPECS[dataset_name].seq_len > 0,
-         "token data on engine='cohort'", "5 (the cohort engine)"),
     ]
     for hit, what, item in refused:
         if hit:

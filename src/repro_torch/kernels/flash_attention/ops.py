@@ -1,11 +1,14 @@
 """Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
 
 ``flash_attention`` is the public, differentiable op: for a CUDA tensor it
-runs ``FlashAttentionFunction`` (kernel forward), for a CPU tensor the
-plain version (``ref.attention_gqa``) under autograd, and it refuses
-anything else. ``flash_attention_cuda`` checks its operands, allocates the
-output with ``torch.empty_like``, launches on the current stream and
-counts its launches in ``flash_attention_cuda.launches``.
+runs ``FlashAttentionFunction`` (kernel forward; under ``torch.func.vmap``
+one launch for every vmapped slice, the vmapped axes folded into the
+batch), for a CPU tensor the plain version (``ref.attention_gqa``) under
+autograd, and it refuses anything else. ``flash_attention_cuda`` checks
+its operands, allocates the output with ``torch.empty_like``, launches on
+the current stream and counts its launches in
+``flash_attention_cuda.launches``; a batch above ``MAX_GRID_YZ`` goes out
+in chunks, each a launch.
 
 The backward recomputes through the plain version, as the reference's
 ``custom_vjp`` does (``repro.kernels.flash_attention.ops._attn_bwd``): the
@@ -123,15 +126,53 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: f32, with a contiguous last axis, a
+    16-byte aligned pointer and strides that are multiples of 4 (as it is
+    when it already is, else a fresh copy: ``contiguous()`` would keep a
+    misaligned pointer). Reads the pointer, so it runs on real tensors,
+    below any ``vmap`` level."""
+    t = t.to(torch.float32)
+    if t.stride(-1) == 1 and vector_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """``flash_attention_cuda`` on aligned operands, in chunks of at most
+    ``MAX_GRID_YZ`` batch rows when the batch (grid axis z) is larger: a
+    cohort folds its client axis into the batch. Batch rows are
+    independent, so a chunk's rows are bitwise those of one launch."""
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    b = q.shape[0]
+    if b <= MAX_GRID_YZ:
+        return flash_attention_cuda(q, k, v, causal)
+    return torch.cat([flash_attention_cuda(q[lo:lo + MAX_GRID_YZ],
+                                           k[lo:lo + MAX_GRID_YZ],
+                                           v[lo:lo + MAX_GRID_YZ], causal)
+                      for lo in range(0, b, MAX_GRID_YZ)])
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with the kernel forward and a backward that recomputes
-    through the plain version (no probabilities are kept)."""
+    through the plain version (no probabilities are kept).
+
+    Under ``torch.func.vmap`` (the cohort engine's client axis) the
+    ``vmap`` rule folds every batched dimension into the kernel's batch
+    axis, (C, B, N, S, h) -> (C·B, N, S, h), and calls the function once:
+    one launch for the whole cohort (chunked past ``MAX_GRID_YZ`` rows),
+    each client's rows bitwise what its own launch gives."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(q, k, v, causal: bool):
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        return flash_attention_cuda(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):
@@ -142,22 +183,25 @@ class FlashAttentionFunction(torch.autograd.Function):
             dq, dk, dv = torch.autograd.grad(out, inputs, g)
         return dq, dk, dv, None
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        def fold(t, dim):
+            t = (t.unsqueeze(0).expand(info.batch_size, *t.shape)
+                 if dim is None else t.movedim(dim, 0))
+            return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+        qd, kd, vd = in_dims[:3]
+        o = FlashAttentionFunction.apply(fold(q, qd), fold(k, kd),
+                                         fold(v, vd), causal)
+        return o.reshape(info.batch_size, -1, *o.shape[1:]), 0
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Differentiable attention: q (B, N, Sq, h), k and v (B, Nkv, Sk, h)
     with Nkv dividing N (GQA: query head n reads kv head n // (N/Nkv)).
-    Returns (B, N, Sq, h) f32."""
+    Returns (B, N, Sq, h) f32. Runs under ``torch.func.vmap`` too, one
+    launch for every vmapped slice (``FlashAttentionFunction.vmap``)."""
     if q.device.type == "cpu":
         return ref.attention_gqa(q, k, v, causal=causal)
     require_cuda(q, "flash_attention")
-
-    def operand(t):
-        t = t.to(torch.float32)
-        if t.stride(-1) == 1 and vector_aligned(t):
-            return t
-        # a fresh copy: contiguous() would keep a misaligned pointer
-        return t.clone(memory_format=torch.contiguous_format)
-
-    return FlashAttentionFunction.apply(operand(q), operand(k), operand(v),
-                                        bool(causal))
+    return FlashAttentionFunction.apply(q, k, v, bool(causal))

@@ -68,7 +68,7 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) int -> logits (B, S, V)."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = self.lookup(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         for blk in self.blocks:
             h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
@@ -85,7 +85,24 @@ class Transformer(nn.Module):
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
         """Pooled input embeddings (B, d): the reference's
         model-independent filter space for token data."""
-        return torch.mean(self.embed[tokens], dim=1)
+        return torch.mean(self.lookup(tokens), dim=1)
+
+    def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` (..., S) -> (..., S, d), as a
+        product with the tokens' one-hot rows. The forward is exact (each
+        output is one weight times 1 plus zeros, for finite weights), and
+        the backward is a matrix product, which sums in a fixed order: the
+        same gradient bits from run to run, on the CPU at any one thread
+        count and on the card, under ``vmap`` and without it.
+        ``embed[tokens]``'s backward accumulates rows in an order that
+        changes from run to run on more than one thread.
+        The one-hot operand is (..., S, V): cheap at the token scenario's
+        vocab of 32 labels, not meant for a vocab of tens of thousands.
+        (The comparison, unlike ``F.one_hot``, needs no range check on
+        the host, so it runs under ``vmap``.)"""
+        vocab = torch.arange(self.embed.shape[0], device=tokens.device)
+        onehot = (tokens[..., None] == vocab).to(self.embed.dtype)
+        return onehot @ self.embed
 
     # ------------------------------------------------------------ weights
     def load_jax_params(self, params: Dict[str, Any],

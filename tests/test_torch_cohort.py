@@ -143,12 +143,15 @@ def test_cohorts_group_by_arch_key_and_refuse_mismatched_members():
 
 
 def test_cohort_refuses_what_is_not_ported():
-    """Token clients on the cohort engine still raise, naming their ROADMAP
-    item; ``state_dict`` (item 8) is ported: the per-client layout, and a
-    load that refuses another fleet."""
+    """Only the mesh still raises, naming its ROADMAP item: token clients
+    (item 5) pass ``check_slice`` on the cohort engine; ``state_dict``
+    (item 8) is ported: the per-client layout, and a load that refuses
+    another fleet."""
     cfg = FedConfig(num_clients=2, rounds=1, engine="cohort")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        simulator.check_slice(cfg, "lm_tokens")
+    simulator.check_slice(cfg, "lm_tokens")
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        simulator.check_slice(FedConfig(num_clients=2, engine="cohort",
+                                        num_devices=2), "lm_tokens")
     clients, *_ = simulator.build_experiment(cfg, n_train=200, n_test=50,
                                              device="cpu")
     engine = CohortEngine(clients)

@@ -9,8 +9,8 @@ counts equal; distances by the matmul form's cancelled terms; the KL loss
 and its gradient within rtol 1e-5, atol 1e-6). Against the port's 2-D
 plain version, client by client, the results are equal bit for bit: on
 the CPU each client's slice of a batched product is its own product.
-Also: ``padded_epoch_plan`` bit for bit, the stacked-parameter helpers,
-and SGD's update on stacked tensors, elementwise.
+Also: ``padded_epoch_plan`` bit for bit, the cohort's stacking and gated
+step, and SGD's update on stacked tensors, elementwise.
 """
 import jax
 import jax.numpy as jnp
@@ -25,10 +25,13 @@ from repro.core.kmeans import min_dist_to_centroids as ref_min_dist
 from repro.fed.batching import padded_epoch_plan as ref_padded_epoch_plan
 from repro.kernels import dispatch as ref_dispatch
 from repro.optim.optimizers import sgd as ref_sgd
-from repro_torch.common.pytree import stack_trees, unstack_tree, where_tree
+from repro_torch.common.pytree import unstack_tree
+from repro_torch.common.types import FedConfig
 from repro_torch.core.distill import ce_loss, ce_loss_clients
 from repro_torch.core.dre import KMeansDRE, learn_kmeans_batched
 from repro_torch.core.kmeans import kmeans_fit, kmeans_fit_batched
+from repro_torch.fed import simulator
+from repro_torch.fed.cohort import CohortEngine
 from repro_torch.fed.batching import padded_epoch_plan
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.distill_kl import ref as kl_ref
@@ -197,20 +200,34 @@ def test_padded_epoch_plan_bit_for_bit(n, bs, epochs, steps):
         np.testing.assert_array_equal(got, want)
 
 
+def stack_trees(trees):
+    """C lists of tensors -> one list of (C, ...) tensors."""
+    return [torch.stack(leaves) for leaves in zip(*trees)]
+
+
 def test_stack_helpers_round_trip_and_gate_per_client():
-    trees = [[torch.full((2, 3), float(i)), torch.full((4,), -float(i))]
-             for i in range(3)]
-    stacked = stack_trees(trees)
-    assert [tuple(t.shape) for t in stacked] == [(3, 2, 3), (3, 4)]
+    """The cohort stacks its members' state leaf by leaf (the reference's
+    ``_stack_trees``), ``unstack_tree`` reads a member's row back, and a
+    gated step (its ``_where_tree``, leaf by leaf and in place) moves only
+    the flagged lanes, releasing each gradient as it goes."""
+    clients, *_ = simulator.build_experiment(
+        FedConfig(num_clients=3, rounds=1, engine="cohort"), n_train=300,
+        n_test=50, device="cpu")
+    before = [[p.detach().clone() for p in c.params] for c in clients]
+    cohort = CohortEngine(clients).cohorts[0]
     for i in range(3):
         assert all(torch.equal(a, b) for a, b in
-                   zip(unstack_tree(stacked, i), trees[i]))
-    new = [t + 10 for t in stacked]
+                   zip(unstack_tree(cohort.params, i), before[i]))
+    stacked = [p.detach().clone() for p in cohort.params]
+    grads = [torch.ones_like(p) for p in stacked]
     flag = torch.tensor([True, False, True])
-    gated = where_tree(flag, new, stacked)
+    cohort._apply(cohort.params, cohort.opt_state, grads, flag)
+    assert grads == [None] * len(stacked)
     for i in range(3):
-        want = new if flag[i] else stacked
-        assert all(torch.equal(g[i], v[i]) for g, v in zip(gated, want))
+        moved = [not torch.equal(p[i], s[i])
+                 for p, s in zip(cohort.params, stacked)]
+        assert all(moved) if flag[i] else not any(moved)
+    assert cohort.opt_state["step"].tolist() == [1, 0, 1]
 
 
 def test_sgd_update_on_stacked_clients_is_each_clients_update():

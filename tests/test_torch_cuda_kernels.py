@@ -246,6 +246,19 @@ def test_flash_attention_function_grads_match_plain_autograd(smoke, b, n,
     smoke.check_flash_grads(b, n, nkv, s, h)
 
 
+@pytest.mark.parametrize("c,b,n,nkv,s,h", [(10, 64, 32, 8, 16, 128),
+                                           (4, 16, 4, 1, 16, 16)])
+def test_flash_attention_under_vmap_launches_once_for_the_clients(
+        smoke, c, b, n, nkv, s, h):
+    """The token cohort's route: the ``vmap`` rule folds the client axis
+    into the batch, one launch, each client's slice bitwise its own."""
+    smoke.check_flash_clients(c, b, n, nkv, s, h)
+
+
+def test_flash_attention_folded_batch_past_grid_z_launches_in_chunks(smoke):
+    smoke.check_flash_chunked(*smoke.CHUNKED_ATTN)
+
+
 def test_flash_attention_refuses_misaligned_operands_the_op_copies(smoke):
     """The kernel's 16-byte copies need aligned pointers and strides in
     multiples of 4: the wrapper refuses anything else, and the public op

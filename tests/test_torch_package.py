@@ -131,12 +131,15 @@ def test_fed_train_runs_the_image_datasets_on_the_cpu(dataset):
     ["--zoo", "mixed", "--clients", "3"],
     ["--engine", "cohort", "--zoo", "mixed", "--clients", "6",
      "--wave-size", "1"],
-    ["--engine", "cohort", "--wave-size", "4", "--clients", "6"]],
+    ["--engine", "cohort", "--wave-size", "4", "--clients", "6"],
+    ["--engine", "cohort", "--dataset", "lm_tokens", "--proxy-batch",
+     "32"]],
     ids=["cohort", "mixed-zoo-loop", "cohort-mixed-waves-of-1",
-         "cohort-waves-of-4"])
+         "cohort-waves-of-4", "cohort-lm-tokens"])
 def test_fed_train_runs_the_cohort_engine_on_the_cpu(flags):
-    """The cohort engine, the mixed MLP zoo and wave streaming through the
-    entry point (the refusals they replace named ROADMAP item 5)."""
+    """The cohort engine, the mixed MLP zoo, wave streaming and token
+    clients on the cohort engine through the entry point (the refusals
+    they replace named ROADMAP item 5)."""
     res = fed_train.main(SMALL + ["--device", "cpu"] + flags)
     log = res.rounds[0]
     assert set(log.phase_s) == {"local_train", "report", "aggregate",
@@ -213,7 +216,6 @@ def test_scheduler_flags_run_on_the_cpu(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "cohort", "--dataset", "lm_tokens"], "item 5"),
     (["--engine", "cohort", "--devices", "2"], "item 10"),
     (["--engine", "cohort", "--model-shards", "2"], "item 10"),
     (["--devices", "2"], "item 10"),
