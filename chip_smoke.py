@@ -80,7 +80,7 @@ Phases, in order; any failure raises and exits non-zero:
      watchdog card vs CPU (rollbacks, quarantined clients and finiteness
      equal);
   6. the main path: fed_train, 10 clients with MNIST's split sizes
-     (n_train 60000, n_test 10000), 3 rounds, proxy batch 512 — edgefd and
+     (n_train 60000, n_test 10000), 2 rounds, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
      of their own (fedmd, feded, dsfl, fkd, pls, indlearn, server_distill),
      strong — the image path at the same sizes with the Tables I/II CNN
@@ -92,7 +92,7 @@ Phases, in order; any failure raises and exits non-zero:
      granite-8b's widths
      (d_model 4096, 32/8 heads of 128, d_ff 14336; depth cut to 2 layers
      and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
-     n_train 6000, n_test 1000, 3 rounds, batch 64, proxy batch 256, with
+     n_train 6000, n_test 1000, 2 rounds, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
      just before and read just after), the Lloyd kernel's launches by
      (d, k) and by route, the min-distance kernel's by class (calibration
@@ -146,6 +146,22 @@ Phases, in order; any failure raises and exits non-zero:
      quarantine, finite logs, pre-burst rounds equal); each checkpoint's
      bytes and write seconds, the resume's rebuild and overlay seconds, a
      fresh start's build and the watchdog's snapshot seconds printed;
+     then the device mesh (``--mesh-child`` ranks of a torch.distributed
+     group on a file store, the card's name and power limit beside each
+     run): (a) a world of one over NCCL, a small mnist_feat cohort run on
+     num_devices=1 and on (1, 1) bitwise the unsharded engine's; lm_tokens
+     edgefd strong at granite-8b's widths, 4 clients, 2 rounds, unsharded,
+     then (b) on two ranks of the one card over gloo on the 1-D client
+     mesh and (c) on the (1, 2) mesh (each client's heads, ff and vocab
+     split over the ranks), each held to the unsharded run (losses rtol
+     1e-3, accuracies within a test sample), every rank's logs equal, each
+     rank's state bytes and allocator peak printed beside the unsharded
+     run's and held at (c) to 0.55 and 0.77 of it, (c)'s state then
+     gathered to each rank's host (``sync_to_clients``, timed), alike on
+     both ranks and each leaf's norm within rtol 1e-3 of the unsharded
+     run's, B6 launched at (c)'s local 16/4 heads and checked there
+     against its plain version; each rank opens its group through the
+     port's ``fed.mesh.init_distributed``;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -162,7 +178,8 @@ Phases, in order; any failure raises and exits non-zero:
      shapes, beside C launches of its 2-D route (flash attention on the
      token cohort's folded batch of 640, also through the vmap rule and
      beside scaled_dot_product_attention); B1, B2's report and the
-     fused loss at the fleet's shapes (1024 clients a launch).
+     fused loss at the fleet's shapes (1024 clients a launch); B6 at the
+     (1, 2) mesh's local heads, a rank's folded batch of 256.
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -170,6 +187,8 @@ non-zero and prints no result.
     python3 chip_smoke.py --time-flash [--src DIR]
     python3 chip_smoke.py --time-kernels [--src DIR]
     python3 chip_smoke.py --serve FED_SERVE_ARGS...
+    python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --mesh-child OUT SPEC
 
 time only B6 at the transformer path's shapes, per call and device only,
 in both layouts, or only B1 (k = 1, 2, 3, 10, 64, and its wide route at
@@ -179,7 +198,9 @@ at the image widths), beside an empty kernel, from the package under DIR
 (default: this checkout's src/); run one for two trees in turns to compare
 them on one card. ``--serve`` runs ``python -m repro_torch.launch.fed_serve
 FED_SERVE_ARGS`` in-process with the launch counters and timers of phase 6
-around it (a ``serve-stats {json}`` line after every node).
+around it (a ``serve-stats {json}`` line after every node). ``--mesh``
+runs phases 1 and 2 and the mesh path alone (with its phase-7 row);
+``--mesh-child`` is one rank of the mesh path (``mesh_child``).
 """
 from __future__ import annotations
 
@@ -267,12 +288,16 @@ ATTN_SHAPES = (MAIN_ATTN,
 # the transformer path's launch shapes: a training or distill step, a
 # report's proxy batch, an eval batch (timed also in the model's layout)
 PATH_ATTN = (MAIN_ATTN, (256, 32, 8, 16, 128), (512, 32, 8, 16, 128))
-LM_ROUNDS = 3
+# depth cut to keep the script inside its time with the mesh path: the
+# main path's and the cohort path's runs and the full-width lm_tokens runs
+# take 2 rounds (were 3)
+MAIN_ROUNDS = 2
+LM_ROUNDS = 2
 LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
                            "indlearn", "server_distill")
 # the image path at the paper's split sizes: (dataset, method, scenario,
-# n_train), 10 clients, n_test 10000, 3 rounds, proxy batch 512
+# n_train), 10 clients, n_test 10000, MAIN_ROUNDS rounds, proxy batch 512
 IMAGE_RUNS = (("mnist_like", "edgefd", "strong", "60000"),
               ("mnist_like", "edgefd", "weak", "60000"),
               ("mnist_like", "selective-fd", "strong", "60000"),
@@ -1996,8 +2021,8 @@ def run_main_path():
     mlp_runs = ([("edgefd", sc) for sc in ("strong", "weak")]
                 + [("selective-fd", sc) for sc in ("strong", "weak")]
                 + [(m, "strong") for m in METHODS_WITHOUT_KERNELS])
-    common = ["--clients", "10", "--rounds", "3", "--n-test", "10000",
-              "--proxy-batch", "512", "--device", "cuda"]
+    common = ["--clients", "10", "--rounds", str(MAIN_ROUNDS), "--n-test",
+              "10000", "--proxy-batch", "512", "--device", "cuda"]
     runs = [(f"{m} {sc}", lambda m=m, sc=sc: fed_train(
         ["--method", m, "--scenario", sc, "--n-train", "60000"] + common))
         for m, sc in mlp_runs]
@@ -2006,7 +2031,7 @@ def run_main_path():
         + common)) for ds, m, sc, n in IMAGE_RUNS]
     runs.append(("lm_tokens edgefd strong", run_lm_full_width))
     log("[6] main path: fed_train, 10 clients, n_train 60000, n_test 10000, "
-        "3 rounds, proxy batch 512: "
+        f"{MAIN_ROUNDS} rounds, proxy batch 512: "
         + ", ".join(f"{m} {sc}" for m, sc in mlp_runs)
         + "; the image path (the Tables I/II CNN zoo) at the same sizes "
         "(cifar_like n_train 50000): "
@@ -2292,8 +2317,8 @@ def run_cohort_path(loop_results):
     from repro_torch.kernels.kmeans_dist import ops as kd_ops
     from repro_torch.kernels.kulsif_rbf import ops as rbf_ops
     cfg0 = FedConfig()
-    common = ["--rounds", "3", "--n-test", "10000", "--proxy-batch", "512",
-              "--device", "cuda"]
+    common = ["--rounds", str(MAIN_ROUNDS), "--n-test", "10000",
+              "--proxy-batch", "512", "--device", "cuda"]
     feat = ["--clients", "10", "--n-train", "60000"] + common
     scale = ["--method", "edgefd", "--scenario", "iid", "--zoo", "mixed",
              "--clients", str(SCALE_CLIENTS), "--n-train", "60000"] + common
@@ -2309,7 +2334,7 @@ def run_cohort_path(loop_results):
     ]
     # the image path, engine against engine, both with cuDNN's
     # deterministic algorithms: its defaults add the convolutions' weight
-    # gradients in an order that changes from run to run, and over three
+    # gradients in an order that changes from run to run, and over
     # full-size rounds (the strong split's through its divergence, ROADMAP
     # C8) two runs of one engine part by more than the tolerances
     for sc in ("strong", "weak"):
@@ -2375,7 +2400,7 @@ def run_cohort_path(loop_results):
                                      f"{launches[name]} times")
         if "fkd" not in label:   # distill on the proxy batch: per cohort
             waves = cohorts
-            want = (waves * 3 * cfg0.distill_epochs
+            want = (waves * MAIN_ROUNDS * cfg0.distill_epochs
                     * steps_per_epoch(512, cfg0.batch_size))
             if steps[label] != want:
                 raise AssertionError(f"{label}: {steps[label]} distill "
@@ -2385,10 +2410,10 @@ def run_cohort_path(loop_results):
         reports = sum(v for (kind, _), v in d_by_c.items()
                       if kind == "report")
         if "selective-fd" in label:
-            if r_by_c.get(10, 0) != 2 * 3:
+            if r_by_c.get(10, 0) != 2 * MAIN_ROUNDS:
                 raise AssertionError(f"{label}: B5 over clients {r_by_c}, "
                                      "not two Gram matrices a report")
-        elif "fkd" not in label and reports != 3 * cohorts:
+        elif "fkd" not in label and reports != MAIN_ROUNDS * cohorts:
             raise AssertionError(f"{label}: {reports} B2 report launches, "
                                  f"not one a cohort wave a round")
         if "scale" in label:
@@ -2676,11 +2701,12 @@ def check_small_resume_runs():
 # uniform fraction 0.5, decay 0.5, bursty arrivals over 60 s, churn and
 # dropout 0.05, sync rounds, waves of a quarter of the fleet, 4 edge
 # aggregators) on BENCH_async's 128 clients, held to a flat server's run
-FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=10,
+# depth cut for time: 3 rounds, was 10
+FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=3,
              proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
              participation_fraction=0.5, participation_policy="uniform",
              staleness_decay=0.5, straggler_factor=4.0, max_inflight=2)
-ZOO = dict(method="edgefd", scenario="iid", num_clients=30, rounds=10,
+ZOO = dict(method="edgefd", scenario="iid", num_clients=30, rounds=3,
            proxy_batch=256, batch_size=32, lr=1e-2, seed=0, engine="cohort",
            zoo="mixed", round_mode="overlap", straggler_factor=1.0)
 HEAVY = dict(method="edgefd", scenario="iid", num_clients=128, rounds=5,
@@ -2848,9 +2874,10 @@ def run_scheduler_path():
 
 # ----------------------------------------------------- phase 6, robustness
 # (e) benchmarks/robust_agg.py's accuracy knobs at the main path's split:
-# edgefd iid, 10 clients, 6 rounds, proxy batch 96, batch 32, lr 1e-2,
-# mnist_feat with n_train 60000 and n_test 10000, cohort engine
-ROBUST_ACC = dict(method="edgefd", scenario="iid", num_clients=10, rounds=6,
+# edgefd iid, 10 clients, 3 rounds (was 6: a depth cut for time),
+# proxy batch 96, batch 32, lr 1e-2, mnist_feat with n_train 60000 and
+# n_test 10000, cohort engine
+ROBUST_ACC = dict(method="edgefd", scenario="iid", num_clients=10, rounds=3,
                   proxy_batch=96, batch_size=32, lr=1e-2, seed=0,
                   engine="cohort")
 FLIP = dict(fault_mode="colluding_flip", byzantine_frac=0.3)
@@ -3405,6 +3432,403 @@ def run_service_path():
         f"{ {n: v for n, v in total.items() if v} }; the path took "
         f"{time.perf_counter() - t0:.1f} s")
     return total
+
+
+# ---------------------------------------------------------- phase 6, the mesh
+# the device mesh (ROADMAP A10): chip_smoke.py --mesh-child processes, each
+# a rank of a torch.distributed group over a file store. (b) and (c) put
+# two ranks on the one card, which NCCL refuses, so they take gloo
+# (REPRO_DIST_BACKEND=gloo: every collective staged through host memory)
+MESH_CLIENTS, MESH_ROUNDS = 4, 2
+# depth cut for time: a third of the transformer path's private set a
+# client (its 6000 over 10), a quarter of its test set
+MESH_N_TRAIN, MESH_N_TEST = 800, 256
+# (c)'s training step on a rank: 4 clients' batches of 64 folded, 16 of
+# granite-8b's 32 query heads and 4 of its 8 kv heads
+MESH_LOCAL_ATTN = (4 * 64, 16, 4, 16, 128)
+MESH_STATE_MAX, MESH_PEAK_MAX = 0.55, 0.77
+
+
+def mesh_kw(devices, shards, dataset="lm_tokens"):
+    if dataset == "lm_tokens":
+        return dict(method="edgefd", scenario="strong",
+                    num_clients=MESH_CLIENTS, rounds=MESH_ROUNDS,
+                    batch_size=64, proxy_batch=256, lr=LM_LR, seed=0,
+                    engine="cohort", num_devices=devices,
+                    model_shards=shards)
+    return dict(method="edgefd", scenario="strong", num_clients=4, rounds=2,
+                proxy_batch=256, seed=0, engine="cohort",
+                num_devices=devices, model_shards=shards)
+
+
+def mesh_run(spec):
+    """One ``simulator.run`` of ``spec`` on this process's card (a rank's
+    under a mesh; ``costs``: fixed phase costs, else measured): its round
+    logs without the measured fields, the
+    stacked state's bytes on this rank (parameters and momentum, from the
+    engine's tensors), the allocator's peak, the process's host peak
+    (RSS so far), the wall seconds and the kernels' launches (B6's by
+    query and kv heads), counts from 0. With ``sync``, then the engine's
+    ``sync_to_clients`` (over a mesh, the gather of every rank's rows and
+    slices to the host), timed, and every client's leaves' norms after
+    it."""
+    import dataclasses
+    import gc
+    import resource
+    import torch
+    from repro_torch.common.types import FedConfig
+    from repro_torch.core import protocol
+    from repro_torch.fed import simulator
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg = FedConfig(**spec["kw"])
+    lm = spec["dataset"] == "lm_tokens"
+    engines, marks = [], {}
+    build, make = protocol.engine_from_config, protocol.make_scheduler
+
+    def keep(*a, **kw):
+        engines.append(build(*a, **kw))
+        return engines[-1]
+
+    def keep_sched(*a, **kw):
+        # set-up ends here (experiment, engine, DRE fits); the rounds'
+        # seconds are timed around run_rounds, the rest is what follows
+        marks["setup_s"] = time.perf_counter() - t0
+        sched = make(*a, **kw)
+        run = sched.run_rounds
+
+        def timed(*a2, **kw2):
+            t = time.perf_counter()
+            out = run(*a2, **kw2)
+            torch.cuda.synchronize()
+            marks["rounds_s"] = time.perf_counter() - t
+            return out
+        sched.run_rounds = timed
+        return sched
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    # an earlier run's engine and clients hold one another: collect them,
+    # so that this run's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    protocol.engine_from_config = keep
+    protocol.make_scheduler = keep_sched
+    t0 = time.perf_counter()
+    try:
+        with CountedCalls(fa_ops, "_launch",
+                          key=lambda q, k, *_: f"{q.shape[1]}/{k.shape[1]}"
+                          ) as heads:
+            res = simulator.run(
+                cfg, spec["dataset"], n_train=spec["n_train"],
+                n_test=spec["n_test"], device="cuda",
+                transformer_cfg=lm_full_width_arch() if lm else None,
+                sim_phase_costs=spec.get("costs"))
+    finally:
+        protocol.engine_from_config = build
+        protocol.make_scheduler = make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = engines[0]
+    state = sum(t.numel() * t.element_size() for c in eng.cohorts
+                for t in list(c.params) + list(c.opt_state["mu"]))
+    mesh = getattr(eng, "mesh", None)
+    synced = {}
+    if spec.get("sync"):
+        t = time.perf_counter()
+        eng.sync_to_clients()
+        torch.cuda.synchronize()
+        synced = {"sync_s": time.perf_counter() - t,
+                  "sync_peak_bytes": torch.cuda.max_memory_allocated(),
+                  "norms": [[float(p.detach().double().norm())
+                             for p in c.params] for c in eng.clients]}
+    phases = {}
+    for r in res.rounds:
+        for ph, sec in r.phase_s.items():
+            phases[ph] = phases.get(ph, 0.0) + sec
+    return {"logs": [{k: v for k, v in dataclasses.asdict(r).items()
+                      if k not in MEASURED} for r in res.rounds],
+            "wall_s": wall, "phase_s": phases,
+            "rest_s": wall - marks["setup_s"] - marks["rounds_s"],
+            **marks, **synced, "state_bytes": state, "peak_bytes": peak,
+            "host_peak_bytes": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "attn_heads": heads.by_key,
+            "mesh": None if mesh is None else dict(mesh.shape)}
+
+
+def mesh_child(args) -> int:
+    """``python3 chip_smoke.py --mesh-child OUT SPEC``: one rank (RANK,
+    WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and REPRO_DIST_BACKEND from
+    the environment) of a process group that the port's
+    ``fed.mesh.init_distributed`` opens over the file store SPEC names
+    (its backend resolution, NCCL check, card and timeout); every run of
+    SPEC through ``mesh_run``, the results written to OUT as JSON. The
+    kernels are built by the parent: this process loads them."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.fed import mesh as fed_mesh
+    out, spec = args
+    with open(spec) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    fed_mesh.init_distributed("cuda", init_method=f"file://{spec['store']}")
+    backend = dist.get_backend()
+    if (backend, world, dist.get_rank()) != (
+            os.environ["REPRO_DIST_BACKEND"], dist.get_world_size(), rank):
+        raise AssertionError(f"rank {rank}: group {backend}, world "
+                             f"{dist.get_world_size()}, rank "
+                             f"{dist.get_rank()}")
+    try:
+        if backend == "nccl":
+            one = torch.ones(4, device="cuda") * (rank + 1)
+            dist.all_reduce(one)
+            assert float(one.sum()) == 4 * world * (world + 1) / 2
+        results = [mesh_run(run) for run in spec["runs"]]
+        if world > 1:
+            # the port's all-reduce of a 64 MB card tensor (a rank's
+            # folded training batch of activations at granite-8b's width)
+            mesh = fed_mesh.build_client_mesh(world, device="cuda")
+            t = torch.ones(MESH_LOCAL_ATTN[0] * 16 * 4096, device="cuda")
+            mesh.all_reduce(t)
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mesh.all_reduce(t)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            results[-1]["allreduce_64mb_ms"] = ms
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def mesh_world(world, backend, runs, tmp, timeout=600):
+    """Spawn ``world`` ``--mesh-child`` ranks; every rank's results, in
+    rank order. A rank that fails or outlives ``timeout`` fails the
+    phase, and every rank is stopped."""
+    import torch
+    torch.cuda.empty_cache()
+    tag = f"w{world}-{backend}-{time.monotonic_ns()}"
+    spec = os.path.join(tmp, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"store": os.path.join(tmp, f"{tag}.store"),
+                   "runs": runs}, f)
+    procs, outs = [], []
+    for r in range(world):
+        env = dict(os.environ, PYTHONPATH=str(SRC), RANK=str(r),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), REPRO_DIST_BACKEND=backend)
+        outs.append(os.path.join(tmp, f"{tag}.{r}.out"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
+             outs[-1], spec], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if len(texts) < world or any(p.returncode for p in procs):
+        tails = "\n".join(f"--- rank {r} rc={p.returncode}\n"
+                          f"{(texts[r] if r < len(texts) else '')[-3000:]}"
+                          for r, p in enumerate(procs))
+        raise AssertionError(f"mesh world of {world} ({backend}) failed:\n"
+                             f"{tails}")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    return res
+
+
+def as_run(logs):
+    return types.SimpleNamespace(
+        rounds=[types.SimpleNamespace(**d) for d in logs])
+
+
+def max_loss_gap(a, b):
+    return max(abs(p[f] - q[f]) / max(abs(q[f]), 1e-30)
+               for p, q in zip(a, b) for f in ("local_loss", "distill_loss"))
+
+
+def run_mesh_path(smi):
+    """Phase 6's mesh: (a) a world of one over NCCL, mnist_feat edgefd on
+    the cohort engine unsharded, on num_devices=1 and on (1, 1), bitwise
+    equal; lm_tokens edgefd strong at granite-8b's widths, 4 clients, 2
+    rounds, unsharded in that process, then (b) on two ranks of the one
+    card over gloo, the 1-D client mesh, 2 clients a rank, and (c) on the
+    (1, 2) mesh, each client's model split over the two ranks: each held
+    to the unsharded run (losses rtol 1e-3, accuracies within a test
+    sample), every rank's logs equal, per-rank state bytes and allocator
+    peak beside the unsharded run's. Returns (c)'s B6 launches at its
+    local heads."""
+    import tempfile
+    t0 = time.perf_counter()
+    log(f"[6] the device mesh (ROADMAP A10), {smi}")
+    lm = dict(dataset="lm_tokens", n_train=MESH_N_TRAIN, n_test=MESH_N_TEST)
+    # fixed costs: the simulated timeline is compared too
+    feat = dict(dataset="mnist_feat", n_train=4000, n_test=1000,
+                costs=ASYNC_COSTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        (a_none, a_again, a_one, a_11, unsharded), = mesh_world(
+            1, "nccl", [dict(kw=mesh_kw(0, 0, "mnist_feat"), **feat),
+                        dict(kw=mesh_kw(0, 0, "mnist_feat"), **feat),
+                        dict(kw=mesh_kw(1, 0, "mnist_feat"), **feat),
+                        dict(kw=mesh_kw(1, 1, "mnist_feat"), **feat),
+                        dict(kw=mesh_kw(0, 0), sync=True, **lm)], tmp)
+        for name, got in (("unsharded again", a_again),
+                          ("num_devices=1", a_one), ("(1, 1)", a_11)):
+            if got["logs"] != a_none["logs"]:
+                raise AssertionError(
+                    f"(a) {name}: round logs differ from the unsharded "
+                    f"cohort engine's: "
+                    f"{first_difference(got['logs'], a_none['logs'])}")
+        if (a_one["mesh"], a_11["mesh"]) != ({"clients": 1},) * 2:
+            raise AssertionError(f"(a) meshes {a_one['mesh']}, "
+                                 f"{a_11['mesh']}")
+        log(f"  (a) a world of one over NCCL ({smi}): mnist_feat edgefd "
+            f"strong, 4 clients, 2 rounds, on num_devices=1 and (1, 1) "
+            f"bitwise the unsharded cohort engine's (wall "
+            f"{a_none['wall_s']:.3f} / {a_one['wall_s']:.3f} / "
+            f"{a_11['wall_s']:.3f} s)")
+        log(f"  unsharded: lm_tokens edgefd strong at granite-8b's widths, "
+            f"{MESH_CLIENTS} clients stacked, {MESH_ROUNDS} rounds, n_train "
+            f"{MESH_N_TRAIN}, n_test {MESH_N_TEST} ({smi}): set-up "
+            f"{unsharded['setup_s']:.3f} s, rounds "
+            f"{unsharded['rounds_s']:.3f} s ("
+            + " ".join(f"{k}={v:.3f}" for k, v in
+                       unsharded["phase_s"].items())
+            + f"), wall {unsharded['wall_s']:.3f} s, state "
+            f"{unsharded['state_bytes']} B, peak "
+            f"{unsharded['peak_bytes'] / 2**30:.3f} GiB, final acc "
+            f"{unsharded['logs'][-1]['mean_acc']:.4f}")
+        out = {}
+        # (b) and (c) in one world of two ranks, one after the other
+        # (c) then gathers every client's state to each rank's host
+        both = mesh_world(2, "gloo", [dict(kw=mesh_kw(2, 0), **lm),
+                                      dict(kw=mesh_kw(2, 2), sync=True,
+                                           **lm)], tmp)
+        for i, name in enumerate(("(b)", "(c)")):
+            ranks = [r[i] for r in both]
+            for r in ranks[1:]:
+                if r["logs"] != ranks[0]["logs"]:
+                    raise AssertionError(f"{name}: the ranks' round logs "
+                                         "differ")
+            compare_runs(f"{name} {ranks[0]['mesh']} vs unsharded",
+                         as_run(ranks[0]["logs"]),
+                         as_run(unsharded["logs"]), MESH_N_TEST,
+                         names=("mesh", "unsharded"))
+            gap = max_loss_gap(ranks[0]["logs"], unsharded["logs"])
+            acc_gap = max(abs(a - b) for p, q in zip(ranks[0]["logs"],
+                                                     unsharded["logs"])
+                          for a, b in zip(p["accs"], q["accs"]))
+            log(f"  {name} mesh {ranks[0]['mesh']} over gloo on one card "
+                f"({smi}): largest loss gap {gap:.3e} (relative), accuracy "
+                f"gap {acc_gap:.4f}; every rank's logs equal")
+            for i, r in enumerate(ranks):
+                log(f"    rank {i}: set-up {r['setup_s']:.3f} s, rounds "
+                    f"{r['rounds_s']:.3f} s ("
+                    + " ".join(f"{k}={v:.3f}" for k, v in
+                               r["phase_s"].items())
+                    + f"), after the rounds {r['rest_s']:.3f} s"
+                    + ("" if "sync_s" not in r else
+                       f", gather of the state to the host "
+                       f"{r['sync_s']:.3f} s (card peak "
+                       f"{r['sync_peak_bytes'] / 2**30:.3f} GiB)")
+                    + f", host peak {r['host_peak_bytes'] / 2**30:.3f} GiB"
+                    + ("" if "allreduce_64mb_ms" not in r else
+                       ", all-reduce of 64 MB through gloo "
+                       + " ".join(f"{v:.1f}" for v in r["allreduce_64mb_ms"])
+                       + " ms"))
+                log(f"    rank {i}: wall {r['wall_s']:.3f} s, state "
+                    f"{r['state_bytes']} B "
+                    f"({r['state_bytes'] / unsharded['state_bytes']:.3f} of "
+                    f"the unsharded run's), peak "
+                    f"{r['peak_bytes'] / 2**30:.3f} GiB "
+                    f"({r['peak_bytes'] / unsharded['peak_bytes']:.3f}), "
+                    f"B6 launches by heads {r['attn_heads']}, launches "
+                    + json.dumps({k: v for k, v in r['launches'].items()
+                                  if v}))
+            out[name] = ranks
+    c = out["(c)"]
+    # the gathered state: every rank's alike, each leaf's norm within
+    # the standing rtol of the unsharded run's
+    for r in c[1:]:
+        if r["norms"] != c[0]["norms"]:
+            raise AssertionError("(c): the ranks gathered different states")
+    gap = max(abs(a - b) / max(b, 1e-30)
+              for ca, cb in zip(c[0]["norms"], unsharded["norms"])
+              for a, b in zip(ca, cb))
+    log(f"  (c) the gathered state ({smi}): {len(c[0]['norms'])} clients, "
+        f"largest relative gap of a leaf's norm to the unsharded run's "
+        f"{gap:.3e}; gather {c[0]['sync_s']:.3f} s (unsharded "
+        f"{unsharded['sync_s']:.3f} s)")
+    if not gap <= 1e-3:
+        raise AssertionError(f"(c): a gathered leaf's norm is {gap:.3e} "
+                             "(relative) from the unsharded run's")
+    for r in c:
+        if r["state_bytes"] > MESH_STATE_MAX * unsharded["state_bytes"] \
+                or r["peak_bytes"] > MESH_PEAK_MAX * unsharded["peak_bytes"]:
+            raise AssertionError(
+                f"(c): a rank holds {r['state_bytes']} B of state and peaks "
+                f"at {r['peak_bytes']} B against the unsharded "
+                f"{unsharded['state_bytes']} and {unsharded['peak_bytes']}")
+        for k in ("lloyd_step", "min_dist_and_mask_clients",
+                  "kd_kl_loss_clients", "flash_attention"):
+            if not r["launches"][k]:
+                raise AssertionError(f"(c): {k} never launched on a rank")
+        if not r["attn_heads"].get("16/4"):
+            raise AssertionError("(c): B6 never launched at the local "
+                                 "16/4 heads")
+    err = check_flash(*MESH_LOCAL_ATTN)
+    log(f"  the mesh path took {time.perf_counter() - t0:.1f} s")
+    return sum(r["attn_heads"]["16/4"] for r in c), err
+
+
+def measure_flash_local(launches, err):
+    """Phase 7's B6 row at (c)'s local heads: a rank's training step, 4
+    clients' batches of 64 folded, 16 query and 4 kv heads of 128, the
+    model's layout: per call and device only, the plain version and
+    scaled_dot_product_attention (timed only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, n, nkv, s, h = MESH_LOCAL_ATTN
+    q, k, v = map(model_layout, attn_inputs(b, n, nkv, s, h, seed=2))
+    moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = b * n * (s * (s + 1) // 2) * (4 * h + 5)
+    ms, plain_ms, b_ms, b_by, dev = time_row(
+        f"flash_attention at the (1, 2) mesh's local heads ({b}, {n}, {s}, "
+        f"{h}) kv {nkv}, model layout",
+        lambda: ops.flash_attention_cuda(q, k, v, True),
+        lambda: ref.attention_gqa(q, k, v, causal=True), moved, flops)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = time_ms(library)
+    log(f"    library (scaled_dot_product_attention) {lib_ms:.5f}, device "
+        f"only {fmt(device_ms(library))}; share of the byte bound, device "
+        "only: " + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+    return {"name": "flash_attention_local_heads", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+            "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -4166,12 +4590,15 @@ def measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
 def main(argv) -> int:
     if argv[:1] == ["--serve"]:
         return serve_child(argv[1:])
+    if argv[:1] == ["--mesh-child"] and len(argv) == 3:
+        return mesh_child(argv[1:])
     timers = {"--time-flash": time_flash, "--time-kernels": time_kernels}
     src, timer = SRC, timers.get(argv[0]) if argv else None
+    mesh_only = argv == ["--mesh"]
     if timer and argv[1:2] == ["--src"] and len(argv) == 3:
         src = Path(argv[2]).resolve()
-    elif argv and not (timer and len(argv) == 1):
-        print("usage: chip_smoke.py [--time-flash | --time-kernels "
+    elif argv and not (timer and len(argv) == 1) and not mesh_only:
+        print("usage: chip_smoke.py [--mesh | --time-flash | --time-kernels "
               "[--src DIR]]", file=sys.stderr)
         return 2
     try:
@@ -4217,25 +4644,48 @@ def main(argv) -> int:
         + ", ".join(f"{h}: {fa_ops.short_route_occupancy(h)}"
                     for h in fa_ops.HEAD_DIMS))
 
+    if mesh_only:
+        row = measure_flash_local(*run_mesh_path(smi))
+        log(smi)
+        print(json.dumps({"kernels": [row]}))
+        return 0
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        log(f"  [{laps[-1] - laps[0]:.1f} s] {what} took "
+            f"{laps[-1] - laps[-2]:.1f} s")
     (lloyd_err, kl_err, dist_err, rbf_err, attn_err,
      cohort_err) = check_kernels()
+    lap("phase 3")
     check_kmeans_agreement()
     check_kmeans_batched()
+    lap("phase 4")
     check_small_run()
     check_small_scheduler_runs()
     check_small_robust_runs()
     check_small_resume_runs()
+    lap("phase 5")
     (counts, attn_batches, by_k, by_shape, by_class,
      loop_results) = run_main_path()
+    lap("phase 6, the main path")
     cohort_counts, lloyd_c, _ = run_cohort_path(loop_results)
+    lap("phase 6, the cohort path")
     run_scheduler_path()
     run_robust_path()
+    lap("phase 6, the scheduler and robustness paths")
     _, at_fleet_wave = run_fleet_path()
+    lap("phase 6, the fleet path")
     run_service_path()
+    lap("phase 6, the service path")
+    local_launches, local_err = run_mesh_path(smi)
+    lap("phase 6, the mesh path")
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)
     rows += measure_fleet(at_fleet_wave, cohort_err["fleet"])
+    rows.append(measure_flash_local(local_launches, local_err))
+    lap("phase 7")
 
     log(smi)
     print(json.dumps({"kernels": rows}))

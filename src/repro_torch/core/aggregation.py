@@ -128,6 +128,29 @@ def fuse_partial_sums(nums: torch.Tensor, dens: torch.Tensor, *,
     return _sharpen(teacher, temperature_sharpen), den > 0.0
 
 
+def masked_mean_logits_psum(local_logits: torch.Tensor,
+                            local_mask: torch.Tensor,
+                            axis_name: str = "data", mesh=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collective form for a sharded runtime: each rank holds one client's
+    logits (t, K) and mask (t,); the masked mean is two all-reduces, of
+    ``(Σ m·y, Σ m)``, over ``mesh``'s axis ``axis_name`` (without a mesh,
+    over the whole process group). Semantically ``masked_mean_logits``."""
+    import torch.distributed as dist
+    m = local_mask.to(torch.float32)[..., None]
+    num = local_logits.to(torch.float32) * m
+    den = m
+    if mesh is not None:
+        num, den = mesh.all_reduce(num, axis_name), \
+            mesh.all_reduce(den, axis_name)
+    elif dist.is_initialized():
+        num, den = num.clone(), den.clone()
+        dist.all_reduce(num)
+        dist.all_reduce(den)
+    teacher = num / torch.clamp_min(den, 1.0)
+    return teacher, den[..., 0] > 0.0
+
+
 def classwise_mean_logits(logits: torch.Tensor, labels: torch.Tensor,
                           num_classes: int):
     """FKD/PLS-style data-free aggregation: per-label mean logits.

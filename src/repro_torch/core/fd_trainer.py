@@ -33,15 +33,19 @@ class TransformerClientModel(nn.Module):
     ``kernel_backend`` routes the backbone's attention
     (``kernels.dispatch``): the client's own setting, so ``"torch"`` means
     plain attention too (the reference's attention follows only the
-    ambient policy)."""
+    ambient policy). ``model_parallel``: under a model axis the backbone
+    computes on its local slices itself (the cohort engine gathers no
+    leaf for it)."""
+
+    model_parallel = True
 
     def __init__(self, cfg: ArchConfig, *,
                  generator: Optional[torch.Generator] = None, device=None,
-                 kernel_backend: Optional[str] = None):
+                 kernel_backend: Optional[str] = None, home=None):
         super().__init__()
         self.cfg = cfg
         self.backbone = Transformer(cfg, generator=generator, device=device,
-                                    kernel_backend=kernel_backend)
+                                    kernel_backend=kernel_backend, home=home)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.backbone(tokens)[:, -1]

@@ -17,6 +17,7 @@ is the per-client checkpoint format of ``repro_torch.fed.state``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
                     Sequence, Tuple)
 
@@ -281,26 +282,44 @@ class LoopEngine:
         load_clients_state_dict(self.clients, sd)
 
 
-def as_engine(clients: Sequence["Client"], engine: str = "loop", *,
+def as_engine(clients_or_engine, engine: str = "loop", *,
               num_devices: int = 0, wave_size: int = 0,
               model_shards: int = 0):
     """A client list as the engine ``engine`` names. ``wave_size`` streams
     the cohort engine's client axis in waves (0: the whole axis on the
-    device); the device mesh (``num_devices``, ``model_shards``) is not
-    ported yet."""
-    if num_devices or model_shards:
-        raise NotImplementedError(
-            "num_devices/model_shards is not ported yet: ROADMAP queue A "
-            "item 10 (multi-device)")
+    device); ``num_devices`` (0: no mesh, -1: the whole world) and
+    ``model_shards`` lay the cohort engine over a device mesh of ranks
+    (``repro_torch.fed.mesh.build_client_mesh``; its device is the
+    clients' device). A pre-built engine runs as it was built, with a
+    warning when the config asks for a mesh it lacks."""
+    if hasattr(clients_or_engine, "phase_local_train"):
+        if num_devices and getattr(clients_or_engine, "mesh", None) is None:
+            warnings.warn(
+                f"num_devices={num_devices} requested but a pre-built "
+                "engine without a device mesh was supplied; it will run "
+                "as constructed — pass the raw client list to honor the "
+                "config")
+        return clients_or_engine
+    clients = clients_or_engine
     if engine == "cohort":
-        # lazy import: core must not import fed at load time
+        # lazy imports: core must not import fed at load time
         from repro_torch.fed.cohort import CohortEngine
-        return CohortEngine(clients, wave_size=wave_size)
+        from repro_torch.fed.mesh import build_client_mesh
+        mesh = build_client_mesh(
+            num_devices, model_shards=model_shards,
+            device=clients[0].device if clients else None)
+        return CohortEngine(clients, wave_size=wave_size, mesh=mesh)
     if engine != "loop":
         raise ValueError(f"unknown engine {engine!r}; known: loop, cohort")
+    if num_devices:
+        raise ValueError("num_devices requires engine='cohort' (the loop "
+                         "engine drives one client at a time)")
     if wave_size:
         raise ValueError("wave_size requires engine='cohort' (the loop "
                          "engine never stacks a client axis to stream)")
+    if model_shards:
+        raise ValueError("model_shards requires engine='cohort' (the loop "
+                         "engine holds each client's params on one device)")
     return LoopEngine(clients)
 
 
@@ -328,12 +347,15 @@ def make_scheduler(engine, server: "Server", method, cfg: FedConfig, x_test,
 def run_experiment(clients, server: "Server", method_name: str,
                    cfg: FedConfig, x_test, y_test,
                    progress: Optional[Callable[[RoundLog], None]] = None, *,
-                   sim_phase_costs: Optional[Dict[str, float]] = None
-                   ) -> ExperimentResult:
+                   sim_phase_costs: Optional[Dict[str, float]] = None,
+                   sync_clients: bool = True) -> ExperimentResult:
     """Fit the DREs, then run ``cfg.rounds`` rounds of the client list
     ``clients`` through one scheduler. ``sim_phase_costs`` prices the
     simulated timeline with fixed phase costs instead of the measured ones
-    (``RoundScheduler``)."""
+    (``RoundScheduler``). ``sync_clients``: hand the engine's final state
+    back to the clients (the cohort engine's; over a mesh a gather of
+    every rank's rows and slices to every rank's host); a caller that
+    drops the clients (``simulator.run``) skips it."""
     method = get_method(method_name)
     engine = engine_from_config(clients, cfg)
     if method.client_filter != "none":                     # Initialization
@@ -341,7 +363,7 @@ def run_experiment(clients, server: "Server", method_name: str,
     sched = make_scheduler(engine, server, method, cfg, x_test, y_test,
                            sim_phase_costs)
     logs = sched.run_rounds(0, cfg.rounds, progress=progress)
-    if hasattr(engine, "sync_to_clients"):
+    if sync_clients and hasattr(engine, "sync_to_clients"):
         # the cohort engine hands its stacked state back to the clients
         engine.sync_to_clients()
     return ExperimentResult(method=method_name, scenario=cfg.scenario,

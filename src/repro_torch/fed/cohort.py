@@ -81,8 +81,28 @@ engines and wave sizes.
 
 Token (transformer) clients run here like any other architecture: the
 flash-attention kernel's ``vmap`` rule folds the client axis into its
-batch, one launch a layer for the cohort. Not ported yet: the device mesh
-(ROADMAP queue A item 10).
+batch, one launch a layer for the cohort.
+
+Device mesh
+-----------
+With a ``mesh`` (``repro_torch.fed.mesh``: one process a rank, every rank
+running the same host program) each cohort pads its client axis (each
+wave's, when waved) to a multiple of the client-axis size with dummy
+lanes, and each rank holds only its contiguous block of lanes: the rows of
+the stacked data, parameters, momentum and filter state, and on a 2-D
+``(clients, model)`` mesh only its slice of each leaf
+(``fed.mesh.model_split``). The clients are built on the host; no rank
+moves to its device a row it does not own, and members hold their own
+(host) tensors, not views. The forward runs under
+``models.sharding.model_parallel``: a transformer computes on its local
+slices with collectives over the model axis; any other module gets its
+split leaves gathered whole first. Every rank draws every member's batch
+order, so the host streams agree everywhere. Per-client results that
+leave the engine (losses, proxy logits, masks, class-wise means, eval
+counts, learned DREs) are gathered over the client axis, so every rank's
+server runs on the same whole inputs. ``state_dict`` gathers the stacked
+state through the host into the loop engine's per-client layout;
+``load_state_dict`` loads the clients and takes each rank's slices again.
 """
 from __future__ import annotations
 
@@ -99,9 +119,11 @@ from repro_torch.core.dre import (KMeansDRE, KuLSIFDRE, kmeans_id_masks,
                                   kulsif_id_masks, learn_kmeans_batched)
 from repro_torch.core.protocol import client_generator
 from repro_torch.data.synthetic import sample_tensor
+from repro_torch.fed import mesh as M
 from repro_torch.fed.batching import padded_epoch_plan, steps_per_epoch
 from repro_torch.fed.state import clients_state_dict, load_clients_state_dict
 from repro_torch.kernels import dispatch
+from repro_torch.models import sharding
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -127,7 +149,7 @@ class _Cohort:
     """One architecture group: stacked state and its batched round phases."""
 
     def __init__(self, members: Sequence, positions: Sequence[int],
-                 wave_size: int = 0):
+                 wave_size: int = 0, mesh=None):
         self.members = list(members)
         self.positions = list(positions)     # index into the global list
         if wave_size < 0:
@@ -165,6 +187,12 @@ class _Cohort:
         # wave streaming only when it splits the cohort
         self._waved = 0 < wave_size < C
         self.wave_size = wave_size if self._waved else C
+        # the mesh: a wave's lanes padded to a client-axis multiple, this
+        # rank's contiguous block of them
+        self.mesh = mesh
+        self.c_pad = M.padded_size(self.wave_size, mesh)
+        self.c_loc = self.c_pad // M.client_axis_size(mesh)
+        self._k = mesh.coords[0] if mesh is not None else 0
         self.model = c0.model                 # the structure every lane runs
         self.names = [name for name, _ in self.model.named_parameters()]
         self.device = c0.device
@@ -176,19 +204,47 @@ class _Cohort:
 
         self.n = np.array([len(c.y) for c in self.members], np.int64)
         n_max = int(self.n.max())
-        if C == 1 and not self._waved:
+        # each leaf's dim split over the model axis (None: whole)
+        self._split = [M.model_split(name.split(".")[-1], p.shape, mesh)
+                       for name, p in zip(self.names, c0.params)]
+        self._mp_native = getattr(self.model, "model_parallel", False)
+        self._buffers = {}
+        if mesh is not None:
+            # the structure module stays on the host: its buffers (the
+            # CNN's eval-mode statistics) go to the device with each call
+            self._buffers = {n: b.to(self.device)
+                             for n, b in self.model.named_buffers()}
+            for i in self._owned():
+                c = self.members[i]
+                c._x, c._y = c._x.to(self.device), c._y.to(self.device)
+        if mesh is not None and not self._waved:
+            # this rank's lanes only; dummy lanes hold zeros
+            lanes = self._lanes(0, C)
+            x0 = c0._x
+            x = torch.zeros((self.c_loc, n_max, *x0.shape[1:]),
+                            dtype=x0.dtype, device=self.device)
+            y = torch.zeros((self.c_loc, n_max), dtype=torch.int64,
+                            device=self.device)
+            m = torch.zeros((self.c_loc, n_max), dtype=torch.float32,
+                            device=self.device)
+            for j, i in enumerate(lanes):
+                if i >= 0:
+                    c = self.members[i]
+                    x[j, : self.n[i]] = c._x
+                    y[j, : self.n[i]] = c._y
+                    m[j, : self.n[i]] = 1.0
+        elif C == 1 and not self._waved:
             # a cohort of one reads its client's own tensors
             x, y = c0._x[None], c0._y[None]
             m = torch.ones((1, n_max), dtype=torch.float32,
                            device=self.device)
         else:
-            x0 = c0._x
+            # waved masters are stacked on the host
+            x0, dev = c0._x, "cpu" if self._waved else self.device
             x = torch.zeros((C, n_max, *x0.shape[1:]), dtype=x0.dtype,
-                            device=self.device)
-            y = torch.zeros((C, n_max), dtype=torch.int64,
-                            device=self.device)
-            m = torch.zeros((C, n_max), dtype=torch.float32,
-                            device=self.device)
+                            device=dev)
+            y = torch.zeros((C, n_max), dtype=torch.int64, device=dev)
+            m = torch.zeros((C, n_max), dtype=torch.float32, device=dev)
             for i, c in enumerate(self.members):
                 x[i, : self.n[i]] = c._x
                 y[i, : self.n[i]] = c._y
@@ -215,6 +271,9 @@ class _Cohort:
         of the stacked device tensors, so the device holds one copy of the
         state, and stacking peaks at the state plus one leaf of parameters
         and one of momentum."""
+        if self.mesh is not None and not self._waved:
+            self._adopt_local()
+            return
         C = len(self.members)
         step = torch.tensor([c.opt_state["step"] for c in self.members],
                             dtype=torch.int64, device=self.device)
@@ -244,10 +303,46 @@ class _Cohort:
             self.params = [p.requires_grad_(True) for p in params]
             self.opt_state = {"mu": mu, "step": step}
 
+    def _adopt_local(self) -> None:
+        """Under a mesh, unwaved: this rank's lanes of every leaf (its
+        model slice on a 2-D mesh) stacked on the device from the members'
+        host tensors, leaf by leaf; dummy lanes hold zeros."""
+        lanes = self._lanes(0, len(self.members))
+        step = torch.tensor([self.members[i].opt_state["step"] if i >= 0
+                             else 0 for i in lanes],
+                            dtype=torch.int64, device=self.device)
+
+        def stack(j, leaf):
+            out = None
+            for r, i in enumerate(lanes):
+                if i < 0:
+                    continue
+                t = self._mslice(leaf(self.members[i]).detach(), j)
+                if out is None:
+                    out = torch.zeros((len(lanes), *t.shape), dtype=t.dtype,
+                                      device=self.device)
+                out[r].copy_(t)
+            if out is None:                # a rank of dummy lanes only
+                t = self._mslice(leaf(self.members[0]).detach(), j)
+                out = torch.zeros((len(lanes), *t.shape), dtype=t.dtype,
+                                  device=self.device)
+            return out
+        with torch.no_grad():
+            params = [stack(j, lambda c, j=j: c.params[j])
+                      for j in range(len(self.names))]
+            mu = [stack(j, lambda c, j=j: c.opt_state["mu"][j])
+                  for j in range(len(self.names))]
+        self.params = [p.requires_grad_(True) for p in params]
+        self.opt_state = {"mu": mu, "step": step}
+
     def sync_to_clients(self) -> None:
         """Write the stacked parameters and optimizer state back onto the
         member ``Client`` objects (unwaved: rebind them to views of the
-        stacked state, which copies nothing)."""
+        stacked state, which copies nothing; under a mesh: gather every
+        rank's lanes and slices, wave by wave, through the host)."""
+        if self.mesh is not None:
+            self._sync_gathered()
+            return
         with torch.no_grad():
             for i, c in enumerate(self.members):
                 if self._waved:
@@ -262,6 +357,66 @@ class _Cohort:
                 c.opt_state = {"mu": mu,
                                "step": int(self.opt_state["step"][i])}
 
+    def _sync_gathered(self) -> None:
+        """``sync_to_clients`` under a mesh: each leaf gathered whole to
+        the host one lane row at a time, so a device holds at most one
+        row of it from every rank of the client axis, never the whole
+        stacked leaf."""
+        mesh, ax = self.mesh, M.model_axis_name(self.mesh)
+
+        def whole(t, j):
+            s, rows = self._split[j], []
+            for r in range(t.shape[0]):
+                x = t[r:r + 1]
+                if s is not None:
+                    x = mesh.gather(x, ax, s + 1, to="cpu")
+                # lanes k·c_loc + r of every rank k of the client axis
+                rows.append(mesh.gather(x, M.DEFAULT_CLIENT_AXIS, 0,
+                                        to="cpu"))
+            out = torch.stack(rows, 1)
+            return out.reshape(-1, *out.shape[2:])
+        with torch.no_grad():
+            for lo, hi in self._waves():
+                params, opt = self._stage_state(lo, hi)
+                step = _np(mesh.gather(opt["step"], M.DEFAULT_CLIENT_AXIS,
+                                       0, to="cpu"))
+                for j in range(len(self.names)):
+                    p = whole(params[j].detach(), j)
+                    mu = whole(opt["mu"][j], j)
+                    for r, c in enumerate(self.members[lo:hi]):
+                        c.params[j].data = p[r]
+                        c.opt_state["mu"][j] = mu[r]
+                    del p, mu
+                for r, c in enumerate(self.members[lo:hi]):
+                    c.opt_state["step"] = int(step[r])
+
+    # ------------------------------------------------------------ the mesh
+    def _lanes(self, lo: int, hi: int) -> np.ndarray:
+        """The member index of each of this rank's lanes of wave
+        ``[lo, hi)``, -1 for a dummy lane."""
+        base = lo + self._k * self.c_loc
+        idx = np.arange(base, base + self.c_loc)
+        return np.where(idx < hi, idx, -1)
+
+    def _owned(self) -> List[int]:
+        """The members whose lanes live on this rank, in any wave."""
+        return [int(i) for lo, hi in self._waves()
+                for i in self._lanes(lo, hi) if i >= 0]
+
+    def _collect(self, t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """A wave's per-lane results, whole over the client axis, its
+        dummy lanes dropped."""
+        if self.mesh is not None:
+            t = self.mesh.gather(t, M.DEFAULT_CLIENT_AXIS, 0)
+        return t[: hi - lo]
+
+    def _mslice(self, t, j: int, stacked: bool = False):
+        """This rank's model slice of leaf ``j`` (an unstacked leaf, or a
+        stacked one's rows with ``stacked``)."""
+        s = self._split[j]
+        return t if s is None else M.model_block(t, s + int(stacked),
+                                                 self.mesh)
+
     # ------------------------------------------------------ wave streaming
     def _waves(self):
         """The ``[lo, hi)`` member ranges of each wave (one wave covering
@@ -271,33 +426,33 @@ class _Cohort:
             yield lo, min(lo + self.wave_size, C)
 
     def _stage(self, arr, lo: int, hi: int, fill=0) -> torch.Tensor:
-        """Rows ``[lo, hi)`` of a stacked array as a device tensor of
-        ``wave_size`` rows (unwaved: the whole array on the device, a device
-        tensor as it is). Rows past ``hi - lo`` are dummy lanes: ``fill`` a
-        pad value, or ``None`` to repeat row ``lo`` (state ballast, never
-        read back)."""
-        if not self._waved:
+        """This rank's lanes of wave ``[lo, hi)`` of a stacked host array
+        as a device tensor (a device tensor, or unwaved without a mesh the
+        whole array, as it is). Dummy lanes hold ``fill``, or with
+        ``None`` a copy of row ``lo`` (state ballast, never read back)."""
+        if isinstance(arr, torch.Tensor) or (not self._waved
+                                             and self.mesh is None):
             return torch.as_tensor(arr, device=self.device)
         arr = np.asarray(arr)
-        n = hi - lo
-        if n == self.wave_size:
-            out = arr[lo:hi]
+        lanes = self._lanes(lo, hi)
+        real = lanes >= 0
+        if real.all():
+            out = arr[lanes]
         elif fill is None:
-            out = np.concatenate(
-                [arr[lo:hi], np.repeat(arr[lo:lo + 1], self.wave_size - n,
-                                       axis=0)])
+            out = arr[np.where(real, lanes, lo)]
         else:
-            out = np.full((self.wave_size, *arr.shape[1:]), fill, arr.dtype)
-            out[:n] = arr[lo:hi]
+            out = np.full((len(lanes), *arr.shape[1:]), fill, arr.dtype)
+            out[real] = arr[lanes[real]]
         return torch.as_tensor(out, device=self.device)
 
     def _stage_state(self, lo: int, hi: int):
         if not self._waved:
             return self.params, self.opt_state
-        params = [self._stage(p, lo, hi, fill=None).requires_grad_(True)
-                  for p in self.params]
-        opt = {"mu": [self._stage(v, lo, hi, fill=None)
-                      for v in self.opt_state["mu"]],
+        params = [self._stage(self._mslice(p, j, True), lo, hi, fill=None)
+                  .requires_grad_(True) for j, p in enumerate(self.params)]
+        opt = {"mu": [self._stage(self._mslice(v, j, True), lo, hi,
+                                  fill=None)
+                      for j, v in enumerate(self.opt_state["mu"])],
                "step": self._stage(self.opt_state["step"], lo, hi,
                                    fill=None)}
         return params, opt
@@ -307,12 +462,13 @@ class _Cohort:
         dropped); unwaved, the device state was updated in place."""
         if not self._waved:
             return
-        n = hi - lo
-        for h, d in zip(self.params, params):
-            h[lo:hi] = _np(d)[:n]
-        for h, d in zip(self.opt_state["mu"], opt["mu"]):
-            h[lo:hi] = _np(d)[:n]
-        self.opt_state["step"][lo:hi] = _np(opt["step"])[:n]
+        lanes = self._lanes(lo, hi)
+        real = lanes >= 0
+        for j, (h, d) in enumerate(zip(self.params, params)):
+            self._mslice(h, j, True)[lanes[real]] = _np(d)[real]
+        for j, (h, d) in enumerate(zip(self.opt_state["mu"], opt["mu"])):
+            self._mslice(h, j, True)[lanes[real]] = _np(d)[real]
+        self.opt_state["step"][lanes[real]] = _np(opt["step"])[real]
 
     # ------------------------------------------------------------ forwards
     def _forward(self, params: List[torch.Tensor], x: torch.Tensor,
@@ -322,17 +478,31 @@ class _Cohort:
         on its own parameters, as the loop engine does."""
         if self.model.training != train:
             self.model.train(train)
-        if isinstance(params, _OneLane) or params[0].shape[0] == 1:
-            lane = (params if isinstance(params, _OneLane)
-                    else [p[0] for p in params])
-            out = functional_call(self.model, dict(zip(self.names, lane)),
-                                  (x if shared_x else x[0],))
-            return out[None]
+        one_lane = isinstance(params, _OneLane) or params[0].shape[0] == 1
+        mp_mesh = (self.mesh if any(s is not None for s in self._split)
+                   else None)
+        if mp_mesh is not None and not self._mp_native:
+            # a module that computes on whole leaves: gather the split ones
+            with sharding.model_parallel(mp_mesh):
+                params = [p if s is None else sharding.gather_from_model(
+                    p, s + (0 if isinstance(params, _OneLane) else 1))
+                    for p, s in zip(params, self._split)]
+            mp_mesh = None
+        with sharding.model_parallel(mp_mesh):
+            if one_lane:
+                lane = (params if isinstance(params, _OneLane)
+                        else [p[0] for p in params])
+                out = functional_call(
+                    self.model, {**dict(zip(self.names, lane)),
+                                 **self._buffers},
+                    (x if shared_x else x[0],))
+                return out[None]
 
-        def one(p, xx):
-            return functional_call(self.model, dict(zip(self.names, p)),
-                                   (xx,))
-        return vmap(one, in_dims=(0, None if shared_x else 0))(params, x)
+            def one(p, xx):
+                return functional_call(
+                    self.model, {**dict(zip(self.names, p)),
+                                 **self._buffers}, (xx,))
+            return vmap(one, in_dims=(0, None if shared_x else 0))(params, x)
 
     # --------------------------------------------------------- train steps
     def _plan(self, draw_n: int, epochs: int, batch_size: int, part=None
@@ -409,8 +579,10 @@ class _Cohort:
                               device=self.device)
             one = params[0].shape[0] == 1
             inputs = _OneLane(p[0] for p in params) if one else params
+            lanes = self._lanes(lo, hi)
+            v_host = valid[lanes[lanes >= 0]]
             for s in range(steps):
-                if not valid[lo:hi, s].any():
+                if not v_host[:, s].any():
                     continue           # a no-op step for every lane
                 loss = batch_loss(wave_data, inputs, ib_all[:, s],
                                   wb_all[:, s])
@@ -421,7 +593,7 @@ class _Cohort:
                 self._apply(params, opt, grads, v_all[:, s])
                 out[:, s] = loss.detach()
             self._write_state(params, opt, lo, hi)
-            losses[lo:hi] = _np(out)[: hi - lo]
+            losses[lo:hi] = _np(self._collect(out, lo, hi))
         return self._mean_losses(losses, valid)
 
     def local_train(self, epochs: int, batch_size: int,
@@ -476,7 +648,7 @@ class _Cohort:
         with torch.no_grad():
             for lo, hi in self._waves():
                 params, _ = self._stage_state(lo, hi)
-                outs.append(fn(lo, hi, params)[: hi - lo])
+                outs.append(self._collect(fn(lo, hi, params), lo, hi))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def proxy_logits(self, px: torch.Tensor, part=None) -> torch.Tensor:
@@ -545,6 +717,9 @@ class _Cohort:
             return
         gens = [client_generator(seed, pos) for pos in self.positions]
         dres = [c.dre for c in self.members]
+        # under a mesh each rank fits its own lanes' members, then every
+        # rank takes every member's learned estimator
+        fit = set(self._owned())
         if all(isinstance(d, KMeansDRE) for d in dres):
             d0 = dres[0]
             thrs_cfg = {None if d.threshold is None else float(d.threshold)
@@ -559,52 +734,99 @@ class _Cohort:
             if uniform:
                 self._learn_kmeans_uniform(d0, gens)
             else:
-                for c, g in zip(self.members, gens):
-                    c.learn_dre(g)
+                for i, (c, g) in enumerate(zip(self.members, gens)):
+                    if i in fit:
+                        c.learn_dre(g)
         else:
             if all(isinstance(d, KuLSIFDRE) for d in dres):
                 self._check_kulsif_uniform(dres)
-            for c, g in zip(self.members, gens):
-                c.learn_dre(g)
+            for i, (c, g) in enumerate(zip(self.members, gens)):
+                if i in fit:
+                    c.learn_dre(g)
+        if self.mesh is not None:
+            self._share_dres(fit)
         self._pack_filter_state()
+
+    def _share_dres(self, fit) -> None:
+        """Every member's learned estimator on every rank, gathered over
+        the client axis from the ranks that fit it (on the host for the
+        members this rank does not own; a KuLSIF member keeps its own
+        private rows)."""
+        mine = {}
+        for i in fit:
+            d = self.members[i].dre
+            if isinstance(d, KMeansDRE):
+                mine[i] = {"centroids": _np(d.centroids),
+                           "threshold": float(d.threshold)}
+            elif isinstance(d, KuLSIFDRE):
+                mine[i] = {"alpha": _np(d.alpha), "aux": _np(d.aux),
+                           "threshold": float(d.threshold)}
+        for got in self.mesh.gather_objects(mine, M.DEFAULT_CLIENT_AXIS):
+            for i, fields in got.items():
+                if i in fit:
+                    continue
+                c = self.members[i]
+                new = {k: v if k == "threshold" else torch.as_tensor(v)
+                       for k, v in fields.items()}
+                if isinstance(c.dre, KMeansDRE):
+                    new["threshold"] = torch.tensor(new["threshold"],
+                                                    dtype=torch.float32)
+                else:
+                    new["private"] = c._x.reshape(len(c.y), -1).to(
+                        torch.float32)
+                c.dre = dataclasses.replace(c.dre, **new)
 
     def _learn_kmeans_uniform(self, d0: KMeansDRE, gens) -> None:
         n0 = int(self.n[0])
         for lo, hi in self._waves():
             x = self._stage(self.x, lo, hi, fill=0)
             feats = x.reshape(x.shape[0], n0, -1).to(torch.float32)
-            lanes = x.shape[0]
             # dummy lanes fit all-zero rows from zero seeds (never read)
-            inits = [None if c.dre_init is None
-                     else torch.tensor(c.dre_init, dtype=torch.float32,
-                                       device=self.device)
-                     for c in self.members[lo:hi]]
-            inits += [np.zeros((d0.num_centroids, feats.shape[-1]),
-                               np.float32)] * (lanes - (hi - lo))
+            zero = np.zeros((d0.num_centroids, feats.shape[-1]), np.float32)
+            idx = self._lanes(lo, hi)
+
+            def init(i):
+                if i < 0:
+                    return zero
+                seeds = self.members[i].dre_init
+                return (None if seeds is None
+                        else torch.tensor(seeds, dtype=torch.float32,
+                                          device=self.device))
+            inits = [init(i) for i in idx]
             cents, thrs = learn_kmeans_batched(
-                d0, feats, generators=gens[lo:hi] + [None] * (lanes - hi + lo),
+                d0, feats, generators=[gens[i] if i >= 0 else None
+                                       for i in idx],
                 inits=inits)
-            for i, c in enumerate(self.members[lo:hi]):
-                c.dre = dataclasses.replace(c.dre, centroids=cents[i],
-                                            threshold=thrs[i])
+            for r, i in enumerate(idx):
+                if i >= 0:
+                    c = self.members[i]
+                    c.dre = dataclasses.replace(c.dre, centroids=cents[r],
+                                                threshold=thrs[r])
 
     def _pack_filter_state(self) -> None:
-        """Stack the members' learned DREs: device tensors, or host masters
-        in waved mode (staged by ``filter_masks`` one wave at a time)."""
-        dres = [c.dre for c in self.members]
+        """Stack the members' learned DREs: device tensors (under a mesh,
+        this rank's lanes, dummy lanes a copy of member 0's), or host
+        masters in waved mode (staged by ``filter_masks`` one wave at a
+        time)."""
+        rows = np.arange(len(self.members))
+        if self.mesh is not None and not self._waved:
+            lanes = self._lanes(0, len(self.members))
+            rows = np.where(lanes >= 0, lanes, 0)
+        dres = [self.members[i].dre for i in rows]
         put = _np if self._waved else (lambda t: t)
+        dev = "cpu" if self._waved else self.device
         if all(isinstance(d, KMeansDRE) for d in dres):
             kmax = max(d.centroids.shape[0] for d in dres)
             cents = []
             for d in dres:
-                cc = d.centroids.to(torch.float32)
+                cc = d.centroids.to(dev, torch.float32)
                 if cc.shape[0] < kmax:   # repeat the first centroid: the
                     cc = torch.cat([cc, cc[:1].expand(kmax - cc.shape[0],
                                                       -1)])  # minimum holds
                 cents.append(cc)
             thrs = torch.stack([torch.as_tensor(d.threshold,
                                                 dtype=torch.float32,
-                                                device=self.device).reshape(())
+                                                device=dev).reshape(())
                                 for d in dres])
             self.filter_kind = "kmeans"
             self._filter_state = {"centroids": put(torch.stack(cents)),
@@ -625,19 +847,19 @@ class _Cohort:
                     "clients distinct arch_keys")
             d = dres[0].private.shape[1]
             priv = torch.full((len(dres), n_max, d), 1e6,
-                              dtype=torch.float32, device=self.device)
-            for i, dr in enumerate(dres):
-                priv[i, : self.n[i]] = dr.private
+                              dtype=torch.float32, device=dev)
+            for r, (i, dr) in enumerate(zip(rows, dres)):
+                priv[r, : self.n[i]] = dr.private
             self.filter_kind = "kulsif"
             self._filter_state = {
-                "alpha": put(torch.stack([dr.alpha for dr in dres])),
-                "aux": put(torch.stack([dr.aux for dr in dres])),
+                "alpha": put(torch.stack([dr.alpha.to(dev) for dr in dres])),
+                "aux": put(torch.stack([dr.aux.to(dev) for dr in dres])),
                 "private": put(priv),
-                "n": put(torch.as_tensor(self.n, dtype=torch.float32,
-                                         device=self.device)),
+                "n": put(torch.as_tensor(self.n[rows], dtype=torch.float32,
+                                         device=dev)),
                 "thresholds": put(torch.tensor(
                     [float(dr.threshold) for dr in dres],
-                    dtype=torch.float32, device=self.device)),
+                    dtype=torch.float32, device=dev)),
                 "sigma": float(dres[0].sigma),
                 "lam": float(dres[0].lam)}
         else:  # unknown or mixed estimators: per-client mask calls
@@ -674,12 +896,17 @@ class _Cohort:
         if self.filter_kind in ("none", "loop"):
             # no stacked state: each member's own filter, as the loop
             # engine runs it (failing loudly on an unlearned estimator;
-            # sampled-out members skipped, as the loop engine skips them)
-            return torch.stack([
-                c.filter_mask(px, powner).mask
-                if part is None or part[i]
-                else torch.zeros((t,), dtype=torch.bool, device=self.device)
-                for i, c in enumerate(self.members)])
+            # sampled-out members skipped, as the loop engine skips them;
+            # under a mesh, this rank's lanes, gathered)
+            def one(i):
+                if i < 0 or (part is not None and not part[i]):
+                    return torch.zeros((t,), dtype=torch.bool,
+                                       device=self.device)
+                return self.members[i].filter_mask(px, powner).mask
+            return torch.cat([
+                self._collect(torch.stack([one(i) for i in
+                                           self._lanes(lo, hi)]), lo, hi)
+                for lo, hi in self._waves()])
         pxf = px.reshape(t, -1).to(torch.float32)
         st = self._filter_state
         cids = np.asarray([c.cid for c in self.members], np.int64)
@@ -701,7 +928,7 @@ class _Cohort:
                     self._stage(st["thresholds"], lo, hi), cid_w,
                     st["sigma"], st["lam"], pxf, powner,
                     backend=self.kernel_backend)
-            outs.append(masks[: hi - lo])
+            outs.append(self._collect(masks, lo, hi))
         return _gate(outs[0] if len(outs) == 1 else torch.cat(outs),
                           part)
 
@@ -715,17 +942,18 @@ class CohortEngine:
     live stacked in the cohorts for the engine's lifetime; call
     ``sync_to_clients()`` before reading them from the clients."""
 
-    def __init__(self, clients: Sequence, wave_size: int = 0):
+    def __init__(self, clients: Sequence, wave_size: int = 0, mesh=None):
         self.clients = list(clients)
         self.device = self.clients[0].device
         self.wave_size = wave_size
+        self.mesh = mesh
         groups: Dict[object, Tuple[list, List[int]]] = {}
         for pos, c in enumerate(self.clients):
             key = c.arch_key if c.arch_key is not None else ("solo", pos)
             members, positions = groups.setdefault(key, ([], []))
             members.append(c)
             positions.append(pos)
-        self.cohorts = [_Cohort(m, p, wave_size=wave_size)
+        self.cohorts = [_Cohort(m, p, wave_size=wave_size, mesh=mesh)
                         for m, p in groups.values()]
 
     @property

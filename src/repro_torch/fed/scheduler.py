@@ -693,7 +693,7 @@ class RoundScheduler:
             torch.cuda.synchronize(self.engine.device)
         dt = time.perf_counter() - t0
         st.phase_s[phase] = st.phase_s.get(phase, 0.0) + dt
-        self._account(key, st, deps, dt)
+        self._account(key, st, deps, self._agreed(dt))
         if phase == "report":
             # ingestion is an event after the node's pricing, so each
             # report's simulated arrival is known and admission can replay
@@ -701,6 +701,18 @@ class RoundScheduler:
             t0 = time.perf_counter()
             self._ingest_reports(st)
             st.phase_s[phase] += time.perf_counter() - t0
+
+    def _agreed(self, measured_s: float) -> float:
+        """The measured seconds the simulated timeline prices: under a
+        mesh of ranks, rank 0's, so every rank takes the same decisions
+        (node order, arrivals, admission) and no rank waits in a
+        collective the others skip. Fixed costs need no agreement."""
+        mesh = getattr(self.engine, "mesh", None)
+        if self.sim_phase_costs is not None or mesh is None \
+                or mesh.size == 1:
+            return measured_s
+        t = torch.tensor([measured_s], dtype=torch.float64)
+        return float(mesh.broadcast(t)[0])
 
     def _report_part(self, st: _RoundState):
         """The round's reporting participants (``st.rpart`` under

@@ -37,11 +37,16 @@ staleness buffer, churn, dropout, arrival traces, admission under
 size: two-tier edge aggregators, the robust reducers, the payload-fault
 injector, the sanitize pass and trust/quarantine, and the divergence
 watchdog (the scheduler's snapshot/restore; ``launch.fed_serve`` is the
-resumable service). ``run`` first refuses a malformed config with
-``ValueError``, as the reference's does (``participation.validate_config``,
-then ``scheduler.validate_config``); ``check_slice`` then refuses the rest
-(the multi-device mesh) with ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+resumable service), and the cohort engine over a device mesh of ranks
+(``num_devices``, ``model_shards``: one process a rank under
+``torch.distributed``, ``repro_torch.fed.mesh``). Under a mesh every rank
+builds the whole experiment on the host (a transformer client is drawn on
+the rank's device, as without a mesh, each leaf moved to the host as soon
+as it is drawn); the clients' ``device`` is the rank's, and the cohort
+engine moves each rank's own rows and slices there. ``run`` first
+refuses a malformed config with ``ValueError``, as the reference's does
+(``participation.validate_config``, then ``scheduler.validate_config``);
+``check_slice`` then refuses an unknown method, dataset or zoo.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ from repro_torch.core.protocol import ExperimentResult, run_experiment
 from repro_torch.data.partition import partition
 from repro_torch.data.proxy import build_proxy
 from repro_torch.data.synthetic import Dataset, check_dataset, make_dataset
+from repro_torch.fed import mesh as fed_mesh
 from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
 from repro_torch.fed.server import Server
@@ -104,20 +110,27 @@ def hw_guess(x) -> int:
 
 
 def check_slice(cfg: FedConfig, dataset_name: str) -> None:
-    """Raise ``NotImplementedError`` for any setting outside the ported
-    slice, naming the ROADMAP queue A item that will bring it (and
-    ``KeyError`` for an unknown method)."""
+    """Refuse a config the port cannot build: ``KeyError`` for an unknown
+    method or dataset, ``ValueError`` for an unknown zoo."""
     get_method(cfg.method)
     check_dataset(dataset_name)
     resolve_zoo(cfg.zoo)
-    refused = [
-        (cfg.num_devices != 0 or cfg.model_shards != 0,
-         "num_devices/model_shards", "10 (multi-device)"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP queue A item {item}")
+
+
+def on_mesh(cfg: FedConfig) -> bool:
+    """Whether ``cfg`` lays the cohort engine over a device mesh."""
+    return cfg.engine == "cohort" and cfg.num_devices != 0
+
+
+def run_device(cfg: FedConfig, device) -> torch.device:
+    """The device this process runs ``cfg`` on: ``resolve_device``'s, and
+    under a mesh this rank's, after joining the launcher's process group
+    (``fed.mesh.init_distributed``)."""
+    device = resolve_device(device)
+    if on_mesh(cfg):
+        fed_mesh.init_distributed(device)
+        device = fed_mesh.rank_device(device)
+    return device
 
 
 def _mixed_hidden(mlp_hidden: Tuple[int, ...]) -> List[Tuple[int, ...]]:
@@ -162,8 +175,11 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     pytree) replaces client ``cid``'s random init; ``kmeans_inits[cid]``
     (k, d) replaces its k-means++ seeding and ``kulsif_aux[cid]``
     (num_aux, d) its KuLSIF auxiliary draw; ``student_params`` replaces the
-    FedDF student's random init."""
+    FedDF student's random init. Under a mesh (``on_mesh``) the clients
+    are built on the host and carry ``device`` as the device the engine
+    runs them on."""
     device = torch.device(device)
+    home = torch.device("cpu") if on_mesh(cfg) else device
     pin_fp32()
     ds = (dataset if dataset is not None
           else make_dataset(dataset_name, n_train=n_train, n_test=n_test,
@@ -198,7 +214,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
 
         def make_model(cid):
             spec, hw, ch = get_client_model(cid, img_ds)
-            return spec.build(hw, ch, generator=init_gen, device=device)
+            return spec.build(hw, ch, generator=init_gen, device=home)
 
         def arch_key(cid):
             return ("cnn", img_ds, cid % 10)           # Tables I/II slot
@@ -210,7 +226,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         def make_model(cid):
             return TransformerClientModel(
                 t_cfg, generator=init_gen, device=device,
-                kernel_backend=cfg.kernel_backend)
+                kernel_backend=cfg.kernel_backend, home=home)
 
         def arch_key(cid):
             return ("transformer", t_cfg.name)
@@ -225,7 +241,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         def make_model(cid):
             return MLPClassifier(d_in, variants[cid % len(variants)],
                                  ds.num_classes, generator=init_gen,
-                                 device=device)
+                                 device=home)
 
         def arch_key(cid):
             return ("mlp", d_in, *variants[cid % len(variants)],
@@ -249,11 +265,13 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
             dre_init=None if kmeans_inits is None else kmeans_inits[cid],
             dre_aux=None if kulsif_aux is None else kulsif_aux[cid],
             arch_key=arch_key(cid)))
+        # under a mesh: the device the engine runs the client on
+        clients[-1].device = device
     if method.server_distill:
         # the FedDF student (client 0's architecture, the configured MLP
         # width on feature data) is drawn after the client loop, as in the
         # reference, so the clients' inits do not depend on the method
-        student = make_model(0)
+        student = make_model(0).to(device)
         if student_params is not None:
             student.load_jax_params(student_params)
         server.attach_student(student, shared_opt,
@@ -278,9 +296,11 @@ def run(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     scheduler.validate_config(cfg)
     check_slice(cfg, dataset_name)
     dispatch.resolve(cfg.kernel_backend)
-    device = resolve_device(device)
+    device = run_device(cfg, device)
     clients, server, x_test, y_test = build_experiment(
         cfg, dataset_name, n_train=n_train, n_test=n_test, device=device,
         transformer_cfg=transformer_cfg)
+    # the clients are dropped here: no final sync of their state
     return run_experiment(clients, server, cfg.method, cfg, x_test, y_test,
-                          progress=progress, sim_phase_costs=sim_phase_costs)
+                          progress=progress, sim_phase_costs=sim_phase_costs,
+                          sync_clients=False)

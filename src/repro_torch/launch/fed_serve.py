@@ -33,6 +33,13 @@ without a CUDA device the service raises unless ``--device cpu`` asks for
 the CPU. Each retired round logs ``served_model_age_s`` next to
 ``sim_finish_s``: how long the previous model was the one a user query
 would hit (``core.protocol.RoundLog``).
+
+Over a device mesh (``--engine cohort --devices N [--model-shards M]``,
+one process a rank under ``python -m torch.distributed.run``) every rank
+takes every snapshot (the engine's state is gathered from all of them),
+rank 0 alone prints, writes the sidecar, the checkpoints and ``--json``,
+and a resume reads the checkpoint on every rank, each taking its own rows
+and slices.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.checkpoint import latest_step, restore_state, save_state
 from repro_torch.core.methods import get_method
 from repro_torch.core.protocol import (RoundLog, engine_from_config,
                                        make_scheduler)
+from repro_torch.fed import mesh as fed_mesh
 from repro_torch.fed import participation, scheduler as sched_mod, simulator
 from repro_torch.fed.scheduler import RoundScheduler
 from repro_torch.kernels import dispatch
@@ -109,7 +117,7 @@ def build_scheduler(cfg, dataset: str, n_train: int, n_test: int,
     sched_mod.validate_config(cfg)
     simulator.check_slice(cfg, dataset)
     dispatch.resolve(cfg.kernel_backend)
-    device = simulator.resolve_device(device)
+    device = simulator.run_device(cfg, device)
     clients, server, x_test, y_test = simulator.build_experiment(
         cfg, dataset, n_train=n_train, n_test=n_test, device=device)
     engine = engine_from_config(clients, cfg)
@@ -160,9 +168,12 @@ def main(argv=None):
 
     sched = build_scheduler(cfg, args.dataset, args.n_train, args.n_test,
                             args.fixed_phase_costs, args.device)
+    # over a mesh rank 0 alone speaks and writes
+    main_rank = fed_mesh.world_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
 
-    sidecar = (os.path.join(args.ckpt_dir, LOGS_SIDECAR) if ckpt_on
-               else None)
+    sidecar = (os.path.join(args.ckpt_dir, LOGS_SIDECAR)
+               if ckpt_on and main_rank else None)
     if sidecar is not None:
         # the sidecar is appended before the first checkpoint is written
         os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -176,8 +187,8 @@ def main(argv=None):
             if sidecar is not None and os.path.exists(sidecar):
                 history = _trim_sidecar(sidecar, sched.completed,
                                         len(sched.logs))
-            print(f"resumed from checkpoint step {step} "
-                  f"({sched.completed} rounds already retired)")
+            say(f"resumed from checkpoint step {step} "
+                f"({sched.completed} rounds already retired)")
     if resumed_from is None:
         sched.begin(0, cfg.rounds)
         if sidecar is not None and os.path.exists(sidecar):
@@ -186,7 +197,8 @@ def main(argv=None):
     while sched.has_pending():
         phase, r, log = sched.step()
         if log is not None:
-            print_round(log, cfg.num_clients)
+            if main_rank:
+                print_round(log, cfg.num_clients)
             if sidecar is not None:
                 # appended before the checkpoint: after a crash the sidecar
                 # can only run ahead of the restored state, and
@@ -194,28 +206,30 @@ def main(argv=None):
                 with open(sidecar, "a") as f:
                     f.write(json.dumps(dataclasses.asdict(log)) + "\n")
             if ckpt_on and sched.completed % args.ckpt_every == 0:
+                # every rank snapshots: a mesh engine gathers its state
+                tree = sched.snapshot(logs_tail=0).to_tree()
                 try:
-                    path = save_state(args.ckpt_dir, sched.completed,
-                                      sched.snapshot(logs_tail=0).to_tree(),
-                                      keep_last=keep_last)
-                    print(f"  checkpoint -> {path}")
+                    if main_rank:
+                        path = save_state(args.ckpt_dir, sched.completed,
+                                          tree, keep_last=keep_last)
+                        say(f"  checkpoint -> {path}")
                 except OSError as e:
                     # the writer already retried with backoff; a service
                     # keeps serving through a storage outage and tries again
                     # at the next boundary
-                    print(f"  checkpoint FAILED after retries ({e!r}); "
-                          f"continuing without", flush=True)
+                    say(f"  checkpoint FAILED after retries ({e!r}); "
+                        f"continuing without", flush=True)
         if crash_at is not None and (phase, r) == crash_at:
-            print(f"crash hook: SIGKILL after ({phase}, {r})", flush=True)
+            say(f"crash hook: SIGKILL after ({phase}, {r})", flush=True)
             os.kill(os.getpid(), signal.SIGKILL)
 
     logs = history + sched.logs
     if logs:
         mean_age = sum(lg.served_model_age_s for lg in logs) / len(logs)
-        print(f"\nserved {len(logs)} rounds  final={logs[-1].mean_acc:.4f}"
-              f"  best={max(lg.mean_acc for lg in logs):.4f}"
-              f"  mean_model_age={mean_age:.2f}s")
-    if args.json:
+        say(f"\nserved {len(logs)} rounds  final={logs[-1].mean_acc:.4f}"
+            f"  best={max(lg.mean_acc for lg in logs):.4f}"
+            f"  mean_model_age={mean_age:.2f}s")
+    if args.json and main_rank:
         with open(args.json, "w") as f:
             json.dump([dataclasses.asdict(lg) for lg in logs], f, indent=2)
     return logs

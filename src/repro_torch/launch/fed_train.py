@@ -27,10 +27,19 @@ quarantined clients when there are any. ``--watchdog`` (with
 ``--watchdog-acc-drop``, ``--watchdog-loss-factor`` and
 ``--watchdog-max-rollbacks``) rolls a sick round back to the last healthy
 one and quarantines its suspects (``--json`` carries each round's
-``rollbacks``). Flags whose feature is not ported yet
-(``--devices``, ``--model-shards``) raise ``NotImplementedError`` naming
-the ROADMAP item that brings them (``fed.simulator.check_slice``);
-``launch.fed_serve`` is the resumable service over the same flags.
+``rollbacks``). ``--engine cohort --devices N [--model-shards M]`` lays
+the cohort engine over a mesh of N ranks, one process a rank
+(``repro_torch.fed.mesh``), M of them a client's model shards::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.fed_train --engine cohort --devices 2 \
+        --model-shards 2 --dataset lm_tokens
+
+(NCCL on cards, one rank a card; two ranks sharing a card need
+``REPRO_DIST_BACKEND=gloo``; on the CPU, gloo and ``--device cpu``). Rank
+0 alone prints and writes ``--json``; a request for more than one rank
+outside the launcher raises, naming it. ``launch.fed_serve`` is the
+resumable service over the same flags.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import json
 
 from repro_torch.common.types import FedConfig
 from repro_torch.core import methods
+from repro_torch.fed import mesh as fed_mesh
 from repro_torch.fed import simulator
 
 # short labels for the per-phase wall-clock breakdown (RoundLog.phase_s)
@@ -208,9 +218,14 @@ def main(argv=None):
     ap.add_argument("--json", default="")
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
+    def progress(log):
+        if fed_mesh.world_rank() == 0:     # over a mesh, rank 0 speaks
+            print_round(log, args.clients)
     res = simulator.run(cfg, args.dataset, n_train=args.n_train,
                         n_test=args.n_test, device=args.device,
-                        progress=lambda log: print_round(log, args.clients))
+                        progress=progress)
+    if fed_mesh.world_rank() != 0:
+        return res
     print(f"\n{args.method} / {args.scenario} / {args.dataset} on "
           f"{args.device}: final={res.final_acc:.4f} best={res.best_acc:.4f}")
     if args.json:

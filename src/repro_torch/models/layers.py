@@ -9,11 +9,17 @@ functions take any mapping of name to tensor (a ``ParameterDict`` or a
 plain dict).
 
 Ported: full-sequence attention (causal or full, and the plain route's
-sliding window) through ``kernels.dispatch.flash_attention``. The
-reference's mesh ``constrain`` (a no-op without a mesh), its
-``chunked_attention``, ``attention_decode``, cross-attention
-(``kv_override``) and bf16 partial sums are not ported yet (ROADMAP queue
-A item 11).
+sliding window) through ``kernels.dispatch.flash_attention``. Under a
+model axis (``models.sharding.model_parallel``, the 2-D cohort mesh) each
+function takes this rank's slices of its leaves as
+``launch.mesh.param_spec`` places them: attention runs its local query
+heads (column-parallel ``wq``, the kv heads they read, row-parallel
+``wo`` and an all-reduce), the MLP its local ff block (``wg``/``wu``
+column-, ``wd`` row-parallel), and RMSNorm gathers a split scale; a block
+whose heads or ff width the model axis does not divide runs whole on
+every rank from gathered leaves. The reference's ``chunked_attention``,
+``attention_decode``, cross-attention (``kv_override``) and bf16 partial
+sums are not ported yet (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -24,13 +30,16 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import sharding
 
 NEG_INF = -1e30  # large-negative in f32; avoids NaN from (-inf) - (-inf)
 
 
-def _normal(shape, std: float, generator, device) -> nn.Parameter:
-    return nn.Parameter(torch.randn(shape, generator=generator,
-                                    device=device) * std)
+def _normal(shape, std: float, generator, device, home=None
+            ) -> nn.Parameter:
+    """Drawn on ``device``, kept on ``home`` (default: ``device``)."""
+    w = torch.randn(shape, generator=generator, device=device) * std
+    return nn.Parameter(w if home is None else w.to(home))
 
 
 # ---------------------------------------------------------------------------
@@ -44,12 +53,14 @@ def init_rmsnorm(d: int, *, device=None) -> nn.ParameterDict:
 
 def rmsnorm(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    """Statistics in f32, result in x's dtype."""
+    """Statistics in f32, result in x's dtype. Under a model axis the
+    scale is gathered whole when it is split (x is whole on every rank)."""
     dt = x.dtype
+    scale = sharding.whole(p["scale"], "scale", (x.shape[-1],))
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * p["scale"].to(torch.float32)).to(dt)
+    return (x * scale.to(torch.float32)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -84,23 +95,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg, *, generator: Optional[torch.Generator] = None,
-                   device=None) -> nn.ParameterDict:
+                   device=None, home=None) -> nn.ParameterDict:
     """Normal weights at std 1/√d; ``wo`` further scaled by
     1/√num_layers. Drawn on ``device`` from ``generator`` (a generator of
-    that device)."""
+    that device), each kept on ``home`` as it is drawn (default:
+    ``device``)."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     std = 1.0 / math.sqrt(d)
     p = nn.ParameterDict({
-        "wq": _normal((d, nq, h), std, generator, device),
-        "wk": _normal((d, nkv, h), std, generator, device),
-        "wv": _normal((d, nkv, h), std, generator, device),
+        "wq": _normal((d, nq, h), std, generator, device, home),
+        "wk": _normal((d, nkv, h), std, generator, device, home),
+        "wv": _normal((d, nkv, h), std, generator, device, home),
         "wo": _normal((nq, h, d), std / math.sqrt(cfg.num_layers), generator,
-                      device),
+                      device, home),
     })
     if cfg.qkv_bias:
         for name, heads in (("bq", nq), ("bk", nkv), ("bv", nkv)):
-            p[name] = nn.Parameter(torch.zeros((heads, h), device=device))
+            p[name] = nn.Parameter(torch.zeros(
+                (heads, h), device=device if home is None else home))
     return p
 
 
@@ -159,6 +172,15 @@ def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
     reference follows only the ambient policy here, the port also takes
     the client's ``kernel_backend``, so ``"torch"`` means plain attention
     too. The kv heads go to the dispatch unexpanded."""
+    mp = sharding.model_parallel_state()
+    if mp is not None:
+        if cfg.num_heads % mp.size == 0:
+            return _attention_heads(p, x, cfg, mp, positions=positions,
+                                    causal=causal, window=window,
+                                    backend=backend)
+        # heads the model axis does not divide: whole on every rank
+        p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
+             for k, w in p.items()}
     q, k, v = _qkv(p, x)
     if positions is not None:
         cos, sin = rope_angles(positions, cfg.resolved_head_dim,
@@ -170,24 +192,96 @@ def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
     return torch.einsum("bsnh,nhd->bsd", o, p["wo"])
 
 
+def _attn_shape(name: str, cfg) -> tuple:
+    """The whole shape of attention leaf ``name``."""
+    d, h = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    return {"wq": (d, nq, h), "wk": (d, nkv, h), "wv": (d, nkv, h),
+            "wo": (nq, h, d), "bq": (nq, h), "bk": (nkv, h),
+            "bv": (nkv, h)}[name]
+
+
+def _attention_heads(p, x, cfg, mp, *, positions, causal, window, backend):
+    """Attention over this rank's block of query heads: ``wq`` (and
+    ``bq``) column-parallel, the kv heads those queries read (this rank's
+    own ``wk``/``wv`` slice when the kv heads split alike, else cut from
+    the gathered leaves), ``wo`` row-parallel and the partial outputs
+    summed over the model axis. The kernel sees the local GQA ratio; kv
+    heads are repeated per query only when the local block does not map
+    onto whole groups."""
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    n = nq // mp.size
+    lo, hi = mp.index * n, (mp.index + 1) * n
+    group = nq // nkv
+    kv_lo, kv_hi = lo // group, (hi - 1) // group + 1
+    xf = sharding.copy_to_model(x)
+
+    def leaf(name, dim, a, b):
+        return sharding.part(p[name], name, _attn_shape(name, cfg), dim, a, b)
+    q = torch.einsum("bsd,dnh->bsnh", xf, leaf("wq", 1, lo, hi))
+    k = torch.einsum("bsd,dnh->bsnh", xf, leaf("wk", 1, kv_lo, kv_hi))
+    v = torch.einsum("bsd,dnh->bsnh", xf, leaf("wv", 1, kv_lo, kv_hi))
+    if "bq" in p:
+        q = q + leaf("bq", 0, lo, hi)
+        k = k + leaf("bk", 0, kv_lo, kv_hi)
+        v = v + leaf("bv", 0, kv_lo, kv_hi)
+    if positions is not None:
+        cos, sin = rope_angles(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    kv_of = torch.arange(lo, hi) // group - kv_lo    # each query's kv head
+    ratio = n // (kv_hi - kv_lo)
+    if n % (kv_hi - kv_lo) or not torch.equal(
+            kv_of, torch.arange(n) // ratio):
+        idx = kv_of.to(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
+                                 backend=backend)
+    out = torch.einsum("bsnh,nhd->bsd", o, leaf("wo", 0, lo, hi))
+    return sharding.reduce_from_model(out)
+
+
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
 def init_mlp(d_model: int, d_ff: int, *,
              generator: Optional[torch.Generator] = None,
-             device=None) -> nn.ParameterDict:
+             device=None, home=None) -> nn.ParameterDict:
     std = 1.0 / math.sqrt(d_model)
     return nn.ParameterDict({
-        "wg": _normal((d_model, d_ff), std, generator, device),
-        "wu": _normal((d_model, d_ff), std, generator, device),
+        "wg": _normal((d_model, d_ff), std, generator, device, home),
+        "wu": _normal((d_model, d_ff), std, generator, device, home),
         "wd": _normal((d_ff, d_model), 1.0 / math.sqrt(d_ff), generator,
-                      device),
+                      device, home),
     })
 
 
-def mlp_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor
-                ) -> torch.Tensor:
+def mlp_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU. Under a model axis (``d_ff``: the whole ff width) the ff
+    block splits: ``wg``/``wu`` column-, ``wd`` row-parallel, the partial
+    outputs summed; an ff width the axis does not divide runs whole on
+    every rank from gathered leaves."""
+    mp = sharding.model_parallel_state()
+    if mp is not None:
+        d = x.shape[-1]
+        shapes = {"wg": (d, d_ff), "wu": (d, d_ff), "wd": (d_ff, d)}
+        if d_ff % mp.size:
+            p = {k: sharding.whole(w, k, shapes[k]) for k, w in p.items()}
+        else:
+            n = d_ff // mp.size
+            lo, hi = mp.index * n, (mp.index + 1) * n
+            xf = sharding.copy_to_model(x)
+
+            def leaf(name, dim):
+                return sharding.part(p[name], name, shapes[name], dim, lo, hi)
+            g = torch.einsum("bsd,df->bsf", xf, leaf("wg", 1))
+            u = torch.einsum("bsd,df->bsf", xf, leaf("wu", 1))
+            h = torch.nn.functional.silu(g) * u
+            return sharding.reduce_from_model(
+                torch.einsum("bsf,fd->bsd", h, leaf("wd", 0)))
     g = torch.einsum("bsd,df->bsf", x, p["wg"])
     u = torch.einsum("bsd,df->bsf", x, p["wu"])
     h = torch.nn.functional.silu(g) * u

@@ -9,7 +9,12 @@ Python loop runs one module per layer, and ``load_jax_params`` splits the
 reference's stacked ``blocks`` (leading layer axis) into them.
 
 Parameters are f32, as the reference's ``init_params`` makes them by
-default (the simulator never passes ``ArchConfig.dtype``). The other
+default (the simulator never passes ``ArchConfig.dtype``). Under a model
+axis (``models.sharding.model_parallel``) the module computes on this
+rank's slices of its leaves (``layers``): a vocab-split ``embed`` looks up
+its local rows and sums over the axis, a vocab-split head gives local
+logits that are gathered whole, and a leaf split any other way is
+gathered before use; the residual stream stays whole on every rank. The other
 families (moe, vlm, audio, ssm, hybrid), decode and the training-loss
 helpers are not ported yet (ROADMAP queue A item 11).
 """
@@ -25,6 +30,7 @@ from torch import nn
 from repro_torch.common.pytree import host_values, targets
 from repro_torch.common.types import ArchConfig, AttentionKind
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 
 
 class Transformer(nn.Module):
@@ -34,7 +40,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *,
                  generator: Optional[torch.Generator] = None, device=None,
-                 kernel_backend: Optional[str] = None):
+                 kernel_backend: Optional[str] = None, home=None):
+        """Weights drawn on ``device`` from ``generator``, each leaf kept
+        on ``home`` as soon as it is drawn (default: ``device``), so
+        ``device`` holds one leaf's draw at a time, not the model."""
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
@@ -43,21 +52,21 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.kernel_backend = kernel_backend
         d = cfg.d_model
-        self.embed = nn.Parameter(torch.randn((cfg.vocab_size, d),
-                                              generator=generator,
-                                              device=device) * 0.02)
-        self.final_norm = L.init_rmsnorm(d, device=device)
-        self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
-            torch.randn((d, cfg.vocab_size), generator=generator,
-                        device=device) * (1.0 / math.sqrt(d))))
+        keep = device if home is None else home
+        self.embed = L._normal((cfg.vocab_size, d), 0.02, generator, device,
+                               home)
+        self.final_norm = L.init_rmsnorm(d, device=keep)
+        self.lm_head = (None if cfg.tie_embeddings else L._normal(
+            (d, cfg.vocab_size), 1.0 / math.sqrt(d), generator, device,
+            home))
         self.blocks = nn.ModuleList(
             nn.ModuleDict({
-                "ln1": L.init_rmsnorm(d, device=device),
+                "ln1": L.init_rmsnorm(d, device=keep),
                 "attn": L.init_attention(cfg, generator=generator,
-                                         device=device),
-                "ln2": L.init_rmsnorm(d, device=device),
+                                         device=device, home=home),
+                "ln2": L.init_rmsnorm(d, device=keep),
                 "mlp": L.init_mlp(d, cfg.d_ff, generator=generator,
-                                  device=device),
+                                  device=device, home=home),
             }) for _ in range(cfg.num_layers))
 
     @property
@@ -77,10 +86,27 @@ class Transformer(nn.Module):
                                         window=self.window,
                                         backend=self.kernel_backend)
             h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp_forward(blk["mlp"], h)
+            x = x + L.mlp_forward(blk["mlp"], h, cfg.d_ff)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        if sharding.model_parallel_state() is not None:
+            return self._head_sharded(x)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return torch.einsum("bsd,dv->bsv", x, head)
+
+    def _head_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """The LM head under a model axis: column-parallel on a vocab
+        split (local logits, gathered whole), else whole on every rank."""
+        cfg, d, v = self.cfg, self.cfg.d_model, self.cfg.vocab_size
+        if cfg.tie_embeddings:
+            name, w, shape, vdim = "embed", self.embed, (v, d), 0
+        else:
+            name, w, shape, vdim = "lm_head", self.lm_head, (d, v), 1
+        if sharding.model_parallel_state().split_dim(name, shape) != vdim:
+            w = sharding.whole(w, name, shape)
+            return torch.einsum("bsd,dv->bsv", x, w.T if vdim == 0 else w)
+        xf = sharding.copy_to_model(x)
+        logits = torch.einsum("bsd,dv->bsv", xf, w.T if vdim == 0 else w)
+        return sharding.gather_from_model(logits, -1)
 
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
         """Pooled input embeddings (B, d): the reference's
@@ -100,9 +126,27 @@ class Transformer(nn.Module):
         vocab of 32 labels, not meant for a vocab of tens of thousands.
         (The comparison, unlike ``F.one_hot``, needs no range check on
         the host, so it runs under ``vmap``.)"""
+        mp = sharding.model_parallel_state()
+        if mp is not None:
+            return self._lookup_sharded(tokens, mp)
         vocab = torch.arange(self.embed.shape[0], device=tokens.device)
         onehot = (tokens[..., None] == vocab).to(self.embed.dtype)
         return onehot @ self.embed
+
+    def _lookup_sharded(self, tokens: torch.Tensor, mp) -> torch.Tensor:
+        """``lookup`` under a model axis: on a vocab split, this rank's
+        rows' one-hot product summed over the axis (every other rank's
+        rows contribute exact zeros); else from the gathered table."""
+        shape = (self.cfg.vocab_size, self.cfg.d_model)
+        if mp.split_dim("embed", shape) != 0:
+            emb = sharding.whole(self.embed, "embed", shape)
+            vocab = torch.arange(shape[0], device=tokens.device)
+            return (tokens[..., None] == vocab).to(emb.dtype) @ emb
+        n = shape[0] // mp.size
+        vocab = torch.arange(mp.index * n, (mp.index + 1) * n,
+                             device=tokens.device)
+        onehot = (tokens[..., None] == vocab).to(self.embed.dtype)
+        return sharding.reduce_from_model(onehot @ self.embed)
 
     # ------------------------------------------------------------ weights
     def load_jax_params(self, params: Dict[str, Any],

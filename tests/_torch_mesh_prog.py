@@ -1,0 +1,294 @@
+"""Rank program of the port's mesh tests: one process a rank, gloo, CPU.
+
+``spawn(world, task, args, tmp_path)`` starts ``world`` copies of this
+file, each a rank of a ``torch.distributed`` group over gloo (a file store
+in ``tmp_path``, so concurrent test workers never race for a port), runs
+``TASKS[task](**args)`` on every rank and returns every rank's result, in
+rank order. A rank that fails, or a run past ``timeout`` seconds, fails
+the caller with every rank's stderr. The ranks import only the port (and
+``_torch_resume_prog``); the reference runs in the calling test.
+
+    PYTHONPATH=src:tests python tests/_torch_mesh_prog.py --rank 0 \
+        --world 2 --init /tmp/x/init --spec /tmp/x/spec.pkl --out /tmp/x/out
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MEASURED = ("wall_s", "phase_s")
+
+
+def spawn(world: int, task: str, args: dict, tmp_path, timeout: float = 240,
+          threads: int = 1) -> list:
+    tmp = str(tmp_path)
+    tag = f"{task}-{world}-{time.monotonic_ns()}"
+    spec = os.path.join(tmp, f"{tag}.spec.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"task": task, "args": args}, f)
+    env = dict(os.environ)
+    src = os.path.abspath(os.path.join(HERE, "..", "src"))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src, HERE] + [p for p in [env.get("PYTHONPATH")] if p])
+    env["OMP_NUM_THREADS"] = str(threads)
+    for name in ("REPRO_MODEL_SHARDS", "REPRO_DIST_BACKEND"):
+        env.pop(name, None)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+         "--init", os.path.join(tmp, f"{tag}.init"), "--spec", spec,
+         "--out", os.path.join(tmp, tag), "--threads", str(threads)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"{task} on {world} ranks ran past {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        report = "\n".join(f"--- rank {r} rc={p.returncode}\n{e[-4000:]}"
+                           for r, (p, (_, e)) in enumerate(zip(procs, outs)))
+        raise AssertionError(f"{task} on {world} ranks failed:\n{report}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{tag}.{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def strip(logs) -> list:
+    """Round logs as dicts, without the measured fields."""
+    return [{k: v for k, v in (dataclasses.asdict(lg)
+                               if dataclasses.is_dataclass(lg) else lg).items()
+             if k not in MEASURED} for lg in logs]
+
+
+def port_logs(kw: dict, dataset: str = "mnist_feat", n_train: int = 800,
+              n_test: int = 200, costs=None) -> list:
+    """An unsharded run of ``kw`` (a ``FedConfig``'s fields) in this
+    process, on the CPU: its round logs."""
+    from repro_torch.common.types import FedConfig
+    from repro_torch.core.methods import get_method
+    from repro_torch.core.protocol import engine_from_config, make_scheduler
+    from repro_torch.fed import simulator
+    cfg = FedConfig(**kw)
+    clients, server, x_test, y_test = simulator.build_experiment(
+        cfg, dataset, n_train=n_train, n_test=n_test, device="cpu")
+    engine = engine_from_config(clients, cfg)
+    method = get_method(cfg.method)
+    if method.client_filter != "none":
+        engine.learn_dres(cfg.seed)
+    sched = make_scheduler(engine, server, method, cfg, x_test, y_test,
+                           sim_phase_costs=costs)
+    return sched.run_rounds(0, cfg.rounds)
+
+
+# ----------------------------------------------------------------- tasks
+
+def state_bytes(engine) -> int:
+    """This rank's stacked parameters and momentum, from the tensors (a
+    waved cohort's host masters included)."""
+    total = 0
+    for c in engine.cohorts:
+        for t in list(c.params) + list(c.opt_state["mu"]):
+            total += (t.nbytes if not hasattr(t, "numel")
+                      else t.numel() * t.element_size())
+    return total
+
+
+def _experiment(item: dict):
+    from repro_torch.common.types import FedConfig
+    from repro_torch.data.synthetic import dataset_from_arrays
+    from repro_torch.fed import simulator
+    cfg = FedConfig(**item["kw"])
+    arrays = item.get("arrays")
+    kw = dict(n_train=item.get("n_train", 800), n_test=item.get("n_test", 200),
+              device="cpu")
+    if arrays is not None:
+        kw.update(dataset=dataset_from_arrays(*arrays["dataset"]),
+                  init_params=arrays["params"],
+                  kmeans_inits=arrays["kmeans_inits"],
+                  kulsif_aux=arrays["kulsif_aux"],
+                  student_params=arrays["student_params"])
+    return cfg, simulator.build_experiment(
+        cfg, item.get("dataset", "mnist_feat"), **kw)
+
+
+def run(items: list) -> list:
+    """Each item's experiment (``kw``: a ``FedConfig``'s fields; optional
+    ``arrays``: the reference's dataset, inits and seeds; ``costs``: fixed
+    phase costs) through the port's ``run_experiment`` steps: its round
+    logs, trace and this rank's state bytes (``bytes_only``: the bytes
+    alone, nothing run)."""
+    from repro_torch.core.methods import get_method
+    from repro_torch.core.protocol import engine_from_config, make_scheduler
+    out = []
+    for item in items:
+        cfg, (clients, server, x_test, y_test) = _experiment(item)
+        engine = engine_from_config(clients, cfg)
+        mesh = getattr(engine, "mesh", None)
+        rec = {"state_bytes": state_bytes(engine),
+               "mesh": None if mesh is None else dict(mesh.shape)}
+        if not item.get("bytes_only"):
+            method = get_method(cfg.method)
+            if method.client_filter != "none":
+                engine.learn_dres(cfg.seed)
+            sched = make_scheduler(engine, server, method, cfg, x_test,
+                                   y_test, sim_phase_costs=item.get("costs"))
+            logs = sched.run_rounds(0, cfg.rounds)
+            engine.sync_to_clients()
+            rec.update(logs=[dataclasses.asdict(lg) for lg in logs],
+                       trace=list(sched.trace),
+                       params=[[p.detach().numpy().copy() for p in c.params]
+                               for c in clients])
+        out.append(rec)
+    return out
+
+
+def resume(cases: list) -> list:
+    """``_torch_resume_prog.check_resume`` (``kind`` "resume") and
+    ``check_cross_engine`` ("cross") cases, on this world."""
+    import _torch_resume_prog as prog
+    out = []
+    for case in cases:
+        case = dict(case)
+        kind = case.pop("kind")
+        if kind == "resume":
+            out.append(prog.check_resume(**case))
+        else:
+            prog.check_cross_engine(**case)
+            out.append(True)
+    return out
+
+
+def psum(logits, masks) -> list:
+    """``masked_mean_logits_psum`` of this rank's client (row ``rank``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.aggregation import masked_mean_logits_psum
+    r = dist.get_rank()
+    teacher, valid = masked_mean_logits_psum(torch.as_tensor(logits[r]),
+                                             torch.as_tensor(masks[r]))
+    return [teacher.numpy(), valid.numpy()]
+
+
+def collectives(model_shards: int, seed: int = 0) -> dict:
+    """The reduced-granite backbone of 3 stacked lanes under ``vmap``, on a
+    ``(world // model_shards, model_shards)`` mesh: this rank's
+    loss and the gradient of every leaf gathered whole, beside the same
+    on whole leaves without a model axis, and the three collectives on
+    their own under ``vmap`` (forward and gradient)."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call, vmap
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.fd_trainer import TransformerClientModel
+    from repro_torch.fed import mesh as M
+    from repro_torch.models import sharding
+
+    mesh = M.build_client_mesh(-1, model_shards=model_shards)
+    cfg = reduced(get_arch("granite-8b"), layers=2, d_model=64, vocab=32)
+    gen = torch.Generator().manual_seed(seed)
+    models = [TransformerClientModel(cfg, generator=gen) for _ in range(3)]
+    names = [n for n, _ in models[0].named_parameters()]
+    whole = [torch.stack([dict(m.named_parameters())[n].detach()
+                          for m in models]) for n in names]
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, 32, (3, 5, 8)))
+    target = torch.as_tensor(rng.normal(size=(3, 5, 32)), dtype=torch.float32)
+
+    def loss_of(params, mp_mesh):
+        with sharding.model_parallel(mp_mesh):
+            def one(p, x):
+                return functional_call(models[0], dict(zip(names, p)), (x,))
+            out = vmap(one)(params, tokens)
+        return ((out - target) ** 2).sum(), out
+
+    ref = [w.clone().requires_grad_(True) for w in whole]
+    l_ref, o_ref = loss_of(ref, None)
+    g_ref = torch.autograd.grad(l_ref, ref)
+    splits = [M.model_split(n.split(".")[-1], w.shape[1:], mesh)
+              for n, w in zip(names, whole)]
+    ax, idx = "model", mesh.coord("model")
+    loc = [(w if s is None else M.model_block(w, s + 1, mesh))
+           .clone().requires_grad_(True) for w, s in zip(whole, splits)]
+    l_mp, o_mp = loss_of(loc, mesh)
+    g_mp = torch.autograd.grad(l_mp, loc)
+    g_whole = [g if s is None else mesh.gather(g, ax, s + 1)
+               for g, s in zip(g_mp, splits)]
+    # each collective alone under vmap: forward and gradient
+    x = torch.as_tensor(rng.normal(size=(3, 4, 6)), dtype=torch.float32)
+    xs = x.clone().requires_grad_(True)
+    with sharding.model_parallel(mesh):
+        def fns(v):
+            a = sharding.copy_to_model(v) * (idx + 1.0)
+            b = sharding.reduce_from_model(v * (idx + 1.0))
+            c = sharding.gather_from_model(v * (idx + 1.0), 1)
+            return a.sum() + (b * b).sum() + (c * c).sum(), (a, b, c)
+        total, (a, b, c) = vmap(lambda v: fns(v), out_dims=(0, 0))(xs)
+    gx = torch.autograd.grad(total.sum(), xs)[0]
+    return {"splits": splits, "loss": float(l_mp), "loss_ref": float(l_ref),
+            "out": o_mp.detach().numpy(), "out_ref": o_ref.detach().numpy(),
+            "grads": [g.numpy() for g in g_whole],
+            "grads_ref": [g.numpy() for g in g_ref],
+            "coll": [t.detach().numpy() for t in (a, b, c)],
+            "coll_grad": gx.numpy(), "x": x.numpy(), "names": names}
+
+
+def many(tasks: list) -> list:
+    """Several ``(task, args)`` in one world, in order."""
+    return [TASKS[name](**args) for name, args in tasks]
+
+
+TASKS = {"run": run, "resume": resume, "psum": psum,
+         "collectives": collectives, "many": many}
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--init", required=True)
+    ap.add_argument("--spec", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--threads", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fed import mesh as M
+    torch.set_num_threads(args.threads)
+    os.environ.update(RANK=str(args.rank), WORLD_SIZE=str(args.world))
+    M.init_distributed("cpu", init_method=f"file://{args.init}")
+    assert (dist.get_backend(), dist.get_rank(), dist.get_world_size()) \
+        == ("gloo", args.rank, args.world)
+    with open(args.spec, "rb") as f:
+        spec = pickle.load(f)
+    try:
+        res = TASKS[spec["task"]](**spec["args"])
+        with open(f"{args.out}.{args.rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -85,3 +85,36 @@ def check_resume(engine: str, round_mode: str, crash_round: int = 1,
             f"[engine={engine} mode={round_mode}]")
     return len(snaps)
 
+
+
+def check_cross_engine(save_engine: str, save_devices: int,
+                       load_engine: str, load_devices: int,
+                       round_mode: str = "sync", **cfg_kw) -> None:
+    """Save under one engine layout (``*_devices``: the cohort engine's
+    mesh, 0 none), restore under another after round 0 retired. Engines
+    agree within 1e-5 (the mesh-parity tolerance), not bitwise, so the
+    restored run is held to an uninterrupted run of the loading one."""
+    import numpy as np
+    cfg_save = cfg(save_engine, round_mode, num_devices=save_devices,
+                   **cfg_kw)
+    cfg_load = cfg(load_engine, round_mode, num_devices=load_devices,
+                   **cfg_kw)
+    s1 = build_sched(cfg_save)
+    s1.begin(0, cfg_save.rounds)
+    tree = None
+    while s1.has_pending():
+        phase, r, _ = s1.step()
+        if (phase, r) == ("eval", 0):      # a retired-round boundary
+            tree = s1.snapshot().to_tree()
+    s2 = build_sched(cfg_load)
+    s2.restore(tree)
+    s2.drain()
+    logs_ref = build_sched(cfg_load).run_rounds(0, cfg_load.rounds)
+    assert len(s2.logs) == len(logs_ref)
+    for got, want in zip(s2.logs[1:], logs_ref[1:]):   # round 0: the saver
+        np.testing.assert_allclose(got.accs, want.accs, rtol=0.0, atol=1e-5)
+        np.testing.assert_allclose(got.local_loss, want.local_loss,
+                                   rtol=0.0, atol=1e-5)
+        np.testing.assert_allclose(got.distill_loss, want.distill_loss,
+                                   rtol=0.0, atol=1e-5)
+        assert got.participants == want.participants

@@ -19,7 +19,7 @@ import torch
 from _torch_parity import (HETERO_COSTS, assert_logs_match,
                            assert_params_match, cohort_config)
 from repro_torch.common.types import FedConfig
-from repro_torch.core.protocol import run_experiment
+from repro_torch.core.protocol import as_engine, run_experiment
 from repro_torch.fed import simulator
 from repro_torch.fed.cohort import CohortEngine
 
@@ -143,15 +143,17 @@ def test_cohorts_group_by_arch_key_and_refuse_mismatched_members():
 
 
 def test_cohort_refuses_what_is_not_ported():
-    """Only the mesh still raises, naming its ROADMAP item: token clients
-    (item 5) pass ``check_slice`` on the cohort engine; ``state_dict``
-    (item 8) is ported: the per-client layout, and a load that refuses
-    another fleet."""
+    """Nothing of the cohort engine is refused any more: token clients
+    (item 5) and the mesh (item 10) pass ``check_slice``, and the cohort
+    engine takes a mesh (a world of one here); ``state_dict`` (item 8) is
+    the per-client layout, and a load refuses another fleet."""
     cfg = FedConfig(num_clients=2, rounds=1, engine="cohort")
     simulator.check_slice(cfg, "lm_tokens")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        simulator.check_slice(FedConfig(num_clients=2, engine="cohort",
-                                        num_devices=2), "lm_tokens")
+    mesh_cfg = FedConfig(num_clients=2, engine="cohort", num_devices=1)
+    simulator.check_slice(mesh_cfg, "lm_tokens")
+    clients, *_ = simulator.build_experiment(mesh_cfg, n_train=200,
+                                             n_test=50, device="cpu")
+    assert as_engine(clients, "cohort", num_devices=1).mesh is not None
     clients, *_ = simulator.build_experiment(cfg, n_train=200, n_test=50,
                                              device="cpu")
     engine = CohortEngine(clients)

@@ -215,13 +215,17 @@ def test_scheduler_flags_run_on_the_cpu(flags, tmp_path):
         assert all(r["participants"] is not None for r in rounds)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--engine", "cohort", "--devices", "2"], "item 10"),
-    (["--engine", "cohort", "--model-shards", "2"], "item 10"),
-    (["--devices", "2"], "item 10"),
+@pytest.mark.parametrize("flags,match", [
+    (["--engine", "cohort", "--devices", "2"], "torch.distributed.run"),
+    (["--engine", "cohort", "--model-shards", "2"],
+     "requires a device mesh"),
+    (["--devices", "2"], "requires engine='cohort'"),
 ])
-def test_flags_outside_the_slice_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
+def test_flags_outside_the_slice_raise(flags, match):
+    """The mesh flags (ROADMAP item 10, ported) raise as the reference's
+    do where they cannot run: two ranks outside a launcher (naming it),
+    model shards without a mesh, and a mesh on the loop engine."""
+    with pytest.raises(ValueError, match=match):
         fed_train.main(SMALL + ["--device", "cpu"] + flags)
 
 

@@ -8,8 +8,8 @@ clients, n_train 400, MLP hidden (16,), fixed phase costs
 phase boundary of a middle round through ``RoundScheduler.snapshot()`` /
 ``restore()`` into a freshly built experiment; the subprocess test drives
 ``repro_torch.launch.fed_serve``'s real SIGKILL crash hook. The mesh
-cases (``test_mesh_resume_and_cross_engine_forced_devices``) wait for
-ROADMAP queue A item 10.
+cases run in one world of two gloo ranks on the CPU
+(``tests/_torch_mesh_prog.py``).
 """
 import json
 import os
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_prog
 import _torch_resume_prog as prog
 from _torch_resume_prog import build_sched, cfg, check_resume, strip
 from repro_torch.checkpoint import restore_state, save_state
@@ -274,3 +275,39 @@ def test_watchdog_rolls_back_and_recovers(engine):
                 r.id_fraction, r.bytes_up, r.bytes_down)
     for c, g in zip(clean.rounds[:2], guarded.rounds[:2]):
         assert pinned(c) == pinned(g)
+
+
+@pytest.fixture(scope="module")
+def mesh_resumes(tmp_path_factory):
+    """The mesh cases of ``tests/test_resume.py`` and
+    ``tests/test_fd_transformer.py`` in one world of two ranks (the
+    reference forces four host devices; two keep the test's processes
+    within the suite's cores, and the 4 clients still split over the
+    client axis, or each client over the model axis)."""
+    return _torch_mesh_prog.spawn(2, "resume", {"cases": [
+        {"kind": "resume", "engine": "cohort", "round_mode": "overlap",
+         "num_devices": 2},
+        {"kind": "cross", "save_engine": "cohort", "save_devices": 2,
+         "load_engine": "loop", "load_devices": 0},
+        {"kind": "cross", "save_engine": "loop", "save_devices": 0,
+         "load_engine": "cohort", "load_devices": 2},
+        {"kind": "resume", "engine": "cohort", "round_mode": "overlap",
+         "num_devices": 2, "model_shards": 2},
+    ]}, tmp_path_factory.mktemp("mesh_resume"), timeout=300)
+
+
+def test_mesh_resume_and_cross_engine_forced_devices(mesh_resumes):
+    """The cohort engine on a 1-D mesh of two ranks: a restore from every
+    boundary of round 1 is bit for bit on every rank, and a mesh
+    checkpoint restores into the unsharded loop engine and back within
+    the mesh-parity tolerance."""
+    for rank in mesh_resumes:
+        assert rank[:3] == [5, True, True]
+
+
+def test_sharded_kill_and_resume_bit_for_bit(mesh_resumes):
+    """Kill-and-resume through a model-sharded round: the (1, 2) mesh
+    under overlap, a restore from every boundary of round 1 into a
+    freshly built sharded experiment, bit for bit."""
+    for rank in mesh_resumes:
+        assert rank[3] == 5

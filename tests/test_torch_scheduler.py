@@ -234,15 +234,16 @@ def test_round_mode_env_and_single_round(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    """The device mesh still raises, naming its ROADMAP item; the
-    snapshot, restore and watchdog of item 8 are ported (a snapshot wants
-    an open window, a restore a state tree)."""
+    """A mesh of two ranks outside a launcher raises, naming it (ROADMAP
+    item 10 is ported; its runs are in ``test_torch_mesh_parity.py``);
+    the snapshot, restore and watchdog of item 8 are ported (a snapshot
+    wants an open window, a restore a state tree)."""
     cfg = FedConfig(num_clients=2, rounds=1)
     clients, server, x_test, y_test = simulator.build_experiment(
         cfg, n_train=200, n_test=50, device="cpu")
     res = run_experiment(clients, server, "edgefd", cfg, x_test, y_test)
     assert res.rounds[0].participants is None
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         as_engine(clients, "cohort", num_devices=2)
     engine = CohortEngine(clients)
     sched = RoundScheduler(engine, server, get_method("edgefd"), cfg,
