@@ -157,11 +157,26 @@ Phases, in order; any failure raises and exits non-zero:
      1e-3, accuracies within a test sample), every rank's logs equal, each
      rank's state bytes and allocator peak printed beside the unsharded
      run's and held at (c) to 0.55 and 0.77 of it, (c)'s state then
-     gathered to each rank's host (``sync_to_clients``, timed), alike on
-     both ranks and each leaf's norm within rtol 1e-3 of the unsharded
-     run's, B6 launched at (c)'s local 16/4 heads and checked there
+     gathered to rank 0 alone, a lane row of a leaf at a time (timed),
+     each leaf's norm within rtol 1e-3 of the unsharded run's, each
+     rank's host RSS peak in (b) and (c) printed beside PR 24's (ROADMAP
+     C11), B6 launched at (c)'s local 16/4 heads and checked there
      against its plain version; each rank opens its group through the
-     port's ``fed.mesh.init_distributed``;
+     port's ``fed.mesh.init_distributed``; then the trainer path (ROADMAP
+     A11): (a) ``launch.train`` on granite-moe-1b-a400m whole (24 layers,
+     full widths, batch 8 × 128, AdamW on the reference's warmup-cosine
+     rate, its 50 steps), the first batch's loss falling, seconds a step,
+     tokens a second and the allocator's peak printed, B6 launched on its
+     long route, two more steps profiled; then the first 3 steps again
+     from the same weights, bitwise (a)'s, each step's loss held within
+     rtol 1e-3 to the plain attention's on the same weights and batch;
+     (b) ``decode_demo.prefill_then_decode`` at full size (batch 4,
+     prompt 16, 16 new tokens, no expert dropping), the replay's logits
+     held to the prefill's, tokens a second printed; (c) the FD trainer
+     at granite-moe's widths and 2 layers: ``fd_round_local`` on two
+     clients, then ``make_fd_train_step`` on two ``--mesh-child`` ranks
+     of the one card over gloo, one client a rank, held to it (losses
+     rtol 1e-4, updated leaves' norms rtol 1e-5);
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -179,7 +194,9 @@ Phases, in order; any failure raises and exits non-zero:
      token cohort's folded batch of 640, also through the vmap rule and
      beside scaled_dot_product_attention); B1, B2's report and the
      fused loss at the fleet's shapes (1024 clients a launch); B6 at the
-     (1, 2) mesh's local heads, a rank's folded batch of 256.
+     (1, 2) mesh's local heads, a rank's folded batch of 256; B6 at the
+     trainer's (8, 16, 128, 64) with 8 kv heads and the fused loss at the
+     FD trainer's (16, 49155).
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -188,6 +205,7 @@ non-zero and prints no result.
     python3 chip_smoke.py --time-kernels [--src DIR]
     python3 chip_smoke.py --serve FED_SERVE_ARGS...
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --trainer
     python3 chip_smoke.py --mesh-child OUT SPEC
 
 time only B6 at the transformer path's shapes, per call and device only,
@@ -199,8 +217,10 @@ at the image widths), beside an empty kernel, from the package under DIR
 them on one card. ``--serve`` runs ``python -m repro_torch.launch.fed_serve
 FED_SERVE_ARGS`` in-process with the launch counters and timers of phase 6
 around it (a ``serve-stats {json}`` line after every node). ``--mesh``
-runs phases 1 and 2 and the mesh path alone (with its phase-7 row);
-``--mesh-child`` is one rank of the mesh path (``mesh_child``).
+runs phases 1 and 2 and the mesh path alone (with its phase-7 row),
+``--trainer`` the trainer path alone (with its rows); ``--mesh-child``
+is one rank of the mesh path or of the trainer path's (c)
+(``mesh_child``).
 """
 from __future__ import annotations
 
@@ -3447,6 +3467,9 @@ MESH_N_TRAIN, MESH_N_TEST = 800, 256
 # granite-8b's 32 query heads and 4 of its 8 kv heads
 MESH_LOCAL_ATTN = (4 * 64, 16, 4, 16, 128)
 MESH_STATE_MAX, MESH_PEAK_MAX = 0.55, 0.77
+# each rank's host RSS peak (GiB) in (b) and (c) on PR 24's tree, when
+# every rank built the whole fleet on its host (PERF.md section 5)
+MESH_HOST_PR24 = {"(b)": (18.590, 18.589), "(c)": (21.815, 21.797)}
 
 
 def mesh_kw(devices, shards, dataset="lm_tokens"):
@@ -3536,12 +3559,11 @@ def mesh_run(spec):
     synced = {}
     if spec.get("sync"):
         t = time.perf_counter()
-        eng.sync_to_clients()
+        norms = state_norms(eng)
         torch.cuda.synchronize()
         synced = {"sync_s": time.perf_counter() - t,
                   "sync_peak_bytes": torch.cuda.max_memory_allocated(),
-                  "norms": [[float(p.detach().double().norm())
-                             for p in c.params] for c in eng.clients]}
+                  "norms": norms}
     phases = {}
     for r in res.rounds:
         for ph, sec in r.phase_s.items():
@@ -3556,6 +3578,29 @@ def mesh_run(spec):
             "launches": {n: w.launches for n, w in wrappers.items()},
             "attn_heads": heads.by_key,
             "mesh": None if mesh is None else dict(mesh.shape)}
+
+
+def state_norms(eng):
+    """Every client's leaves' norms (float64), in client order. Over a
+    mesh the state is gathered to rank 0 a lane row of a leaf at a time
+    (``_Cohort.gathered``), each row's norm taken and the row dropped, so
+    no host holds the fleet; None on the other ranks."""
+    if eng.mesh is None:
+        eng.sync_to_clients()
+        return [[float(p.detach().double().norm()) for p in c.params]
+                for c in eng.clients]
+    got = {}
+    for cohort in eng.cohorts:
+        for lo, hi, j, p, _, _ in cohort.gathered(root=True):
+            if p is None:
+                continue
+            for r in range(hi - lo):
+                got.setdefault(cohort.positions[lo + r], {})[j] = float(
+                    p[r].double().norm())
+    if eng.mesh.rank != 0:
+        return None
+    return [[got[i][j] for j in sorted(got[i])]
+            for i in range(len(eng.clients))]
 
 
 def mesh_child(args) -> int:
@@ -3587,8 +3632,9 @@ def mesh_child(args) -> int:
             one = torch.ones(4, device="cuda") * (rank + 1)
             dist.all_reduce(one)
             assert float(one.sum()) == 4 * world * (world + 1) / 2
-        results = [mesh_run(run) for run in spec["runs"]]
-        if world > 1:
+        results = [fd_step_child(run) if run.get("kind") == "fd_step"
+                   else mesh_run(run) for run in spec["runs"]]
+        if world > 1 and "allreduce" in spec:
             # the port's all-reduce of a 64 MB card tensor (a rank's
             # folded training batch of activations at granite-8b's width)
             mesh = fed_mesh.build_client_mesh(world, device="cuda")
@@ -3610,17 +3656,19 @@ def mesh_child(args) -> int:
     return 0
 
 
-def mesh_world(world, backend, runs, tmp, timeout=600):
+def mesh_world(world, backend, runs, tmp, timeout=600, allreduce=False):
     """Spawn ``world`` ``--mesh-child`` ranks; every rank's results, in
-    rank order. A rank that fails or outlives ``timeout`` fails the
-    phase, and every rank is stopped."""
+    rank order (``allreduce``: the last run's then carry the timing of a
+    64 MB all-reduce). A rank that fails or outlives ``timeout`` fails
+    the phase, and every rank is stopped."""
     import torch
     torch.cuda.empty_cache()
     tag = f"w{world}-{backend}-{time.monotonic_ns()}"
     spec = os.path.join(tmp, f"{tag}.json")
     with open(spec, "w") as f:
         json.dump({"store": os.path.join(tmp, f"{tag}.store"),
-                   "runs": runs}, f)
+                   "runs": runs, **({"allreduce": True} if allreduce
+                                    else {})}, f)
     procs, outs = [], []
     for r in range(world):
         env = dict(os.environ, PYTHONPATH=str(SRC), RANK=str(r),
@@ -3718,10 +3766,10 @@ def run_mesh_path(smi):
             f"{unsharded['logs'][-1]['mean_acc']:.4f}")
         out = {}
         # (b) and (c) in one world of two ranks, one after the other
-        # (c) then gathers every client's state to each rank's host
+        # (c) then gathers every client's state to rank 0's host
         both = mesh_world(2, "gloo", [dict(kw=mesh_kw(2, 0), **lm),
                                       dict(kw=mesh_kw(2, 2), sync=True,
-                                           **lm)], tmp)
+                                           **lm)], tmp, allreduce=True)
         for i, name in enumerate(("(b)", "(c)")):
             ranks = [r[i] for r in both]
             for r in ranks[1:]:
@@ -3765,18 +3813,26 @@ def run_mesh_path(smi):
                                   if v}))
             out[name] = ranks
     c = out["(c)"]
-    # the gathered state: every rank's alike, each leaf's norm within
-    # the standing rtol of the unsharded run's
-    for r in c[1:]:
-        if r["norms"] != c[0]["norms"]:
-            raise AssertionError("(c): the ranks gathered different states")
+    # the gathered state, on rank 0 alone: each leaf's norm within the
+    # standing rtol of the unsharded run's
+    if c[0]["norms"] is None or any(r["norms"] is not None for r in c[1:]):
+        raise AssertionError("(c): the state was not gathered to rank 0 "
+                             "alone")
     gap = max(abs(a - b) / max(b, 1e-30)
               for ca, cb in zip(c[0]["norms"], unsharded["norms"])
               for a, b in zip(ca, cb))
-    log(f"  (c) the gathered state ({smi}): {len(c[0]['norms'])} clients, "
-        f"largest relative gap of a leaf's norm to the unsharded run's "
-        f"{gap:.3e}; gather {c[0]['sync_s']:.3f} s (unsharded "
-        f"{unsharded['sync_s']:.3f} s)")
+    log(f"  (c) the state gathered to rank 0 ({smi}): "
+        f"{len(c[0]['norms'])} clients, largest relative gap of a leaf's "
+        f"norm to the unsharded run's {gap:.3e}; gather {c[0]['sync_s']:.3f}"
+        f" s (unsharded {unsharded['sync_s']:.3f} s)")
+    # ROADMAP C11: a rank's host holds its own lanes alone; each rank's
+    # RSS peak beside PR 24's, when every rank held the whole fleet
+    for name, before in MESH_HOST_PR24.items():
+        peaks = [r["host_peak_bytes"] / 2**30 for r in out[name]]
+        log(f"  {name} host peak, rank 0 / 1: "
+            + " / ".join(f"{v:.3f}" for v in peaks) + " GiB (PR 24: "
+            + " / ".join(f"{v:.3f}" for v in before) + f" GiB); share "
+            + " / ".join(f"{v / b:.3f}" for v, b in zip(peaks, before)))
     if not gap <= 1e-3:
         raise AssertionError(f"(c): a gathered leaf's norm is {gap:.3e} "
                              "(relative) from the unsharded run's")
@@ -3797,6 +3853,401 @@ def run_mesh_path(smi):
     err = check_flash(*MESH_LOCAL_ATTN)
     log(f"  the mesh path took {time.perf_counter() - t0:.1f} s")
     return sum(r["attn_heads"]["16/4"] for r in c), err
+
+
+# ------------------------------------------------- phase 6, the trainer path
+# the LLM trainer, decode and the FD trainer (ROADMAP A11) on
+# granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base): 24
+# layers, d 1024, 16/8 heads of 64, 32 experts, top 8, expert ff 512,
+# vocab 49155, 1.385 B parameters. (a) trains the whole model at
+# launch.train's defaults (50 steps); (c) cuts depth to 2 layers, widths
+# as published
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 50, 8, 128, 3e-4
+TRAIN_PLAIN_STEPS = 3
+TRAIN_ATTN = (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 64)     # B6 on (a)'s path
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_CACHE = 4, 16, 16, 64
+# the reference's own tolerance for decode against the forward
+# (tests/test_models.py::test_decode_matches_forward)
+DECODE_RTOL = DECODE_ATOL = 2e-2
+FD_LAYERS, FD_CLIENTS, FD_BATCH, FD_SEQ, FD_LR = 2, 2, 8, 128, 1e-2
+FD_KL = (FD_CLIENTS * FD_BATCH, 49155)               # the fused loss's rows
+
+
+def fd_setup(cfg):
+    """Each FD client's weights (drawn on the card from seed ``cid``), a
+    private batch from its own vocab band (numpy, seed ``cid``), a proxy
+    of every client's batch (owners recorded), and a one-centroid
+    KMeans-DRE on pooled embeddings (threshold 1.5 times the largest
+    private distance), the reference test's setup at these widths."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.core.kmeans import kmeans_fit, min_dist_to_centroids
+    from repro_torch.models.transformer import Transformer
+    models, batches, cents, thrs = [], [], [], []
+    v = cfg.vocab_size
+    for c in range(FD_CLIENTS):
+        models.append(Transformer(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(c), device="cuda"))
+        lo, hi = c * v // FD_CLIENTS, (c + 1) * v // FD_CLIENTS
+        toks = torch.as_tensor(np.random.default_rng(c).integers(
+            lo, hi, (FD_BATCH, FD_SEQ)), device="cuda")
+        batches.append({"tokens": toks, "labels": toks})
+        with torch.no_grad():
+            feats = FD.proxy_features(models[-1], toks)
+        cents.append(kmeans_fit(feats, 1, generator=torch.Generator(
+            ).manual_seed(c)).centroids)
+        thrs.append(float(min_dist_to_centroids(feats, cents[-1]).max())
+                    * 1.5)
+    proxy = torch.cat([b["tokens"] for b in batches])
+    owner = torch.arange(FD_CLIENTS, device="cuda").repeat_interleave(
+        FD_BATCH)
+    return models, batches, proxy, owner, cents, thrs
+
+
+def leaf_norms(model):
+    return [float(p.detach().double().norm()) for p in model.parameters()]
+
+
+def fd_step_child(spec):
+    """One rank's client of the trainer path's (c): ``make_fd_train_step``
+    over the 1-D client mesh of the world (gloo on one card), its client
+    ``rank`` rebuilt as ``fd_setup`` builds it (the centroids and
+    thresholds from the spec): the step's metrics and its updated leaves'
+    norms."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.fed import mesh as fed_mesh
+    from repro_torch.optim.optimizers import sgd
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=FD_LAYERS)
+    models, batches, proxy, owner, _, _ = fd_setup(cfg)
+    r = dist.get_rank()
+    opt = sgd(FD_LR)
+    mesh = fed_mesh.build_client_mesh(-1, device="cuda")
+    step = FD.make_fd_train_step(opt, axis_name="clients", mesh=mesh)
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    model = models[r]
+    _, metrics = step(model, opt.init(list(model.parameters())), batches[r],
+                      proxy, owner,
+                      torch.tensor(spec["centroids"][r], device="cuda"),
+                      spec["thresholds"][r], r)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "norms": leaf_norms(model),
+            "launches": {n: w.launches for n, w in wrappers.items()}}
+
+
+def profile_train_step(model, cfg, steps=2, top=14):
+    """Two more training steps of ``model`` under ``torch.profiler``
+    (CUPTI): the ops with the most device time, each with its calls, and
+    the steps' device total; "not measured" when the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import adamw
+    opt = adamw(TRAIN_LR)
+    state = opt.init(list(model.parameters()))
+    step = train.make_train_step(model, opt)
+    batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1,
+                                device="cuda")()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(steps):
+            state, loss = step(state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+    # the host-side ops, each charged the device time of the kernels it
+    # launched (the kernels' own rows would count that time twice)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    if not rows:
+        log("  (a) profile of a training step: not measured (no device "
+            "time in the trace)")
+        return
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    log(f"  (a) profile of a training step (torch.profiler, {steps} steps): "
+        f"device time {total:.2f} ms a step, by op (ms a step, calls):")
+    for e in rows[:top]:
+        log(f"    {e.key[:60]}: {e.self_device_time_total / 1e3 / steps:.2f}"
+            f" ms ({e.self_device_time_total / 1e3 / steps / total:.1%}), "
+            f"{e.count // steps} calls")
+    del state
+
+
+def run_trainer_path(smi):
+    """Phase 6's trainer path, (a)-(c) (module docstring). Returns B6's
+    and the fused loss's launches on it and the timings of (a) and (b)."""
+    import dataclasses
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.common.types import MoEConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import decode_demo, train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import adamw, sgd
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    log(f"[6] the trainer path (ROADMAP A11), {smi}: {cfg.name}, "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts top {cfg.moe.top_k}, expert ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters")
+    wrappers = launch_counts()
+    out = {}
+
+    # (a) launch.train, whole model, its losses on the first batch before
+    # and after; the first steps again, each against the plain attention
+    # on the same weights and batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def drawn():
+        return Transformer(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+    model = drawn()
+    first = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")()
+    with torch.no_grad():
+        before = float(T.train_loss(model, first)[0])
+    for w in wrappers.values():
+        w.launches = 0
+    with CountedCalls(fa_ops, "_launch",
+                      key=lambda q, *_: tuple(q.shape)) as by_shape:
+        losses, secs, model = train.train(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            lr=TRAIN_LR, device="cuda", log_every=10, model=model,
+            say=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    with torch.no_grad():
+        after = float(T.train_loss(model, first)[0])
+    if not all(finite(v) for v in losses) or not after < before:
+        raise AssertionError(f"(a) the first batch's loss did not fall: "
+                             f"{before} -> {after}; steps {losses}")
+    want = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.resolved_head_dim)
+    if not launches.get("flash_attention") or set(by_shape.by_key) != {want}:
+        raise AssertionError(f"(a) B6 launches {by_shape.by_key}, not at "
+                             f"the long route's {want}")
+    step_s = sum(secs[1:]) / len(secs[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    log(f"  (a) launch.train {cfg.name}, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR:g} ({smi}): step "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, the first batch's "
+        f"loss {before:.4f} -> {after:.4f}; first step {secs[0]:.3f} s, "
+        f"then {step_s:.4f} s a step ({min(secs[1:]):.4f}-"
+        f"{max(secs[1:]):.4f}), {tok_s:.1f} tokens/s; peak "
+        f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)} (B6 by "
+        f"(B, N, S, h): {by_shape.by_key})")
+    profile_train_step(model, cfg)
+    out["a"] = dict(step_s=step_s, tok_s=tok_s, peak=peak, losses=losses,
+                    launches=launches)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = drawn()
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    opt_state = opt.init(list(model.parameters()))
+    step = train.make_train_step(model, opt)
+    next_batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     device="cuda")
+    again, plain = [], []
+    for _ in range(TRAIN_PLAIN_STEPS):
+        batch = next_batch()
+        model.kernel_backend = "torch"
+        n0 = wrappers["flash_attention"].launches
+        with torch.no_grad():
+            plain.append(float(T.train_loss(model, batch)[0]))
+        if wrappers["flash_attention"].launches != n0:
+            raise AssertionError("(a) the plain route launched B6")
+        model.kernel_backend = None
+        opt_state, loss = step(opt_state, batch)
+        again.append(float(loss))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(plain, again))
+    log(f"  (a) the first {TRAIN_PLAIN_STEPS} steps again from the same "
+        f"weights: the kernel route's losses {again} (bitwise (a)'s: "
+        f"{again == losses[:TRAIN_PLAIN_STEPS]}); each step's loss on the "
+        f"plain attention, same weights and batch, {plain}; largest "
+        f"relative gap {gap:.3e} (rtol 1e-3)")
+    if again != losses[:TRAIN_PLAIN_STEPS]:
+        raise AssertionError("(a) two identical training runs differ")
+    if not gap <= 1e-3:
+        raise AssertionError(f"(a) plain and kernel losses part by {gap}")
+    del model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) decode at full size, no expert dropping for the check
+    e = cfg.moe.num_experts
+    dcfg = dataclasses.replace(cfg, moe=MoEConfig(e, cfg.moe.top_k,
+                                                  float(e)))
+    model = Transformer(dcfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)), device="cuda")
+    decode_demo.prefill_then_decode(model, prompt, DECODE_CACHE, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, prefill, replay = decode_demo.prefill_then_decode(
+        model, prompt, DECODE_CACHE, DECODE_NEW, return_logits=True)
+    toks = toks.cpu()
+    dec_s = time.perf_counter() - t
+    err = float((replay - prefill).abs().max())
+    torch.testing.assert_close(replay, prefill, rtol=DECODE_RTOL,
+                               atol=DECODE_ATOL)
+    if toks.shape != (DECODE_BATCH, DECODE_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"(b) generated {toks}")
+    dec_tok_s = DECODE_BATCH * DECODE_NEW / dec_s
+    log(f"  (b) prefill_then_decode, batch {DECODE_BATCH}, prompt "
+        f"{DECODE_PROMPT}, {DECODE_NEW} new tokens, cache {DECODE_CACHE}, "
+        f"capacity factor {e} ({smi}): {dec_s:.3f} s (the prompt's replay "
+        f"included), {dec_tok_s:.1f} new tokens/s; the replay's logits "
+        f"against the prefill's max|err| {err:.3e} (rtol, atol "
+        f"{DECODE_RTOL:g}); tokens {toks[0, :8].tolist()}")
+    out["b"] = dict(seconds=dec_s, tok_s=dec_tok_s, err=err)
+    del model, prefill, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the FD trainer at 2 layers: local, then one client a rank
+    fcfg = dataclasses.replace(cfg, num_layers=FD_LAYERS)
+    for w in wrappers.values():
+        w.launches = 0
+    models, batches, proxy, owner, cents, thrs = fd_setup(fcfg)
+    opt = sgd(FD_LR)
+    states = [(m, opt.init(list(m.parameters()))) for m in models]
+    t = time.perf_counter()
+    states, metrics, id_frac = FD.fd_round_local(
+        opt, states, batches, proxy, owner, cents, thrs)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t
+    fd_launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    norms = [leaf_norms(m) for m, _ in states]
+    if fd_launches.get("kd_kl_loss") != FD_CLIENTS:
+        raise AssertionError(f"(c) fused loss launches {fd_launches}")
+    log(f"  (c) fd_round_local, {FD_CLIENTS} clients, {fcfg.num_layers} "
+        f"layers at granite-moe's widths, private {FD_BATCH} x {FD_SEQ}, "
+        f"proxy {FD_KL[0]} rows, SGD {FD_LR:g} ({smi}): {local_s:.3f} s, "
+        f"ID fraction {id_frac:.4f}, losses "
+        f"{[round(float(m['loss']), 6) for m in metrics]}, kl "
+        f"{[round(float(m['kl']), 6) for m in metrics]}; launches "
+        f"{json.dumps(fd_launches)}")
+    spec = {"kind": "fd_step", "centroids": [c.tolist() for c in cents],
+            "thresholds": thrs}
+    del states, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mesh_world(FD_CLIENTS, "gloo", [spec], tmp, timeout=300)
+    gaps = []
+    for r, (res,) in enumerate(ranks):
+        gaps.append(abs(res["metrics"]["loss"] - float(metrics[r]["loss"]))
+                    / abs(float(metrics[r]["loss"])))
+        n_gap = max(abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(res["norms"], norms[r]))
+        if not gaps[-1] <= 1e-4 or not n_gap <= 1e-5:
+            raise AssertionError(f"(c) rank {r}: loss gap {gaps[-1]}, "
+                                 f"norm gap {n_gap}")
+        if not res["launches"]["flash_attention"] \
+                or res["launches"]["kd_kl_loss"] != 1:
+            raise AssertionError(f"(c) rank {r} launches {res['launches']}")
+        log(f"  (c) make_fd_train_step, rank {r} of {FD_CLIENTS} over gloo "
+            f"on the one card: loss {res['metrics']['loss']:.6f} "
+            f"(relative gap {gaps[-1]:.3e}, rtol 1e-4), updated leaves' "
+            f"norms within {n_gap:.3e} (rtol 1e-5), ID fraction "
+            f"{res['metrics']['id_fraction']:.4f}")
+    out["c"] = dict(local_s=local_s, launches=fd_launches)
+    log(f"  the trainer path took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def measure_trainer(out, attn_err, kl_err):
+    """Phase 7's rows of the trainer path: B6 at (a)'s shape and the
+    fused loss at (c)'s, beside their plain versions and the library
+    calls (scaled_dot_product_attention; F.kl_div, the weighted mean and
+    autograd), timed only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.distill_kl import ops as kl_ops
+    from repro_torch.kernels.distill_kl import ref as kl_ref
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, n, nkv, s, h = TRAIN_ATTN
+    q, k, v = map(model_layout, attn_inputs(b, n, nkv, s, h, seed=3))
+    moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = b * n * (s * (s + 1) // 2) * (4 * h + 5)
+    ms, plain_ms, b_ms, b_by, dev = time_row(
+        f"flash_attention at the trainer's ({b}, {n}, {s}, {h}) kv {nkv}, "
+        "model layout (long route)",
+        lambda: ops.flash_attention_cuda(q, k, v, True),
+        lambda: ref.attention_gqa(q, k, v, causal=True), moved, flops)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = time_ms(sdpa)
+    log(f"    library (scaled_dot_product_attention) {lib_ms:.5f}, device "
+        f"only {fmt(device_ms(sdpa))}; share of the bound, device only: "
+        + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+    rows = [{"name": "flash_attention_trainer", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+             "launches": out["a"]["launches"]["flash_attention"],
+             "max_abs_err": attn_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
+    rows_k, kk = FD_KL
+    st, tt, _ = kl_inputs(rows_k, kk, seed=3)
+    w = kl_weights(rows_k, "masked", seed=3)
+    s_ = st.clone().requires_grad_(True)
+    moved = 4 * (3 * rows_k * kk + 2 * rows_k + 1)
+    flops = 28 * rows_k * kk + 4 * rows_k
+    ms, plain_ms, b_ms, b_by, dev = time_row(
+        f"kd_kl_loss at the FD trainer's n={rows_k} K={kk} (loss, kl, ds)",
+        lambda: kl_ops.kd_kl_loss_cuda(st, tt, w, TEMPERATURE),
+        lambda: torch.autograd.grad(
+            kl_ref.kd_kl_loss(s_, tt, TEMPERATURE, w), s_), moved, flops)
+
+    def library():
+        return torch.autograd.grad(kl_library_loss(s_, tt, w, TEMPERATURE),
+                                   s_)
+    lib_ms = time_ms(library)
+    log(f"    library (F.kl_div, weighted mean, autograd) {lib_ms:.5f}, "
+        f"device only {fmt(device_ms(library))}; share of the bound, device"
+        " only: " + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+    rows.append({"name": "kd_kl_loss_wide_vocab", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
+                 "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
+                 "launches": out["c"]["launches"]["kd_kl_loss"],
+                 "max_abs_err": kl_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+def check_trainer_kernels():
+    """B6 and the fused loss at the trainer path's shapes against their
+    plain versions (phase 3's checks): the max abs errors."""
+    attn = check_flash(*TRAIN_ATTN)
+    check_flash_grads(*TRAIN_ATTN)
+    kl = check_kl_loss(*FD_KL, "masked")
+    return attn, max(kl.values())
 
 
 def measure_flash_local(launches, err):
@@ -4595,11 +5046,13 @@ def main(argv) -> int:
     timers = {"--time-flash": time_flash, "--time-kernels": time_kernels}
     src, timer = SRC, timers.get(argv[0]) if argv else None
     mesh_only = argv == ["--mesh"]
+    trainer_only = argv == ["--trainer"]
     if timer and argv[1:2] == ["--src"] and len(argv) == 3:
         src = Path(argv[2]).resolve()
-    elif argv and not (timer and len(argv) == 1) and not mesh_only:
-        print("usage: chip_smoke.py [--mesh | --time-flash | --time-kernels "
-              "[--src DIR]]", file=sys.stderr)
+    elif argv and not (timer and len(argv) == 1) and not mesh_only \
+            and not trainer_only:
+        print("usage: chip_smoke.py [--mesh | --trainer | --time-flash | "
+              "--time-kernels [--src DIR]]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4649,6 +5102,12 @@ def main(argv) -> int:
         log(smi)
         print(json.dumps({"kernels": [row]}))
         return 0
+    if trainer_only:
+        errs = check_trainer_kernels()
+        rows = measure_trainer(run_trainer_path(smi), *errs)
+        log(smi)
+        print(json.dumps({"kernels": rows}))
+        return 0
     laps = [time.perf_counter()]
 
     def lap(what):
@@ -4680,11 +5139,15 @@ def main(argv) -> int:
     lap("phase 6, the service path")
     local_launches, local_err = run_mesh_path(smi)
     lap("phase 6, the mesh path")
+    trainer_errs = check_trainer_kernels()
+    trainer = run_trainer_path(smi)
+    lap("phase 6, the trainer path")
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)
     rows += measure_fleet(at_fleet_wave, cohort_err["fleet"])
     rows.append(measure_flash_local(local_launches, local_err))
+    rows += measure_trainer(trainer, *trainer_errs)
     lap("phase 7")
 
     log(smi)

@@ -43,10 +43,13 @@ class Learner:
     def __init__(self, model: nn.Module, opt: Optimizer,
                  rng: np.random.Generator, *, temperature: float = 3.0,
                  distill_loss: str = "kl",
-                 kernel_backend: Optional[str] = None):
+                 kernel_backend: Optional[str] = None, device=None):
         self.model = model
         self.params = list(model.parameters())
-        self.device = self.params[0].device
+        # ``device``: where the learner's tensors live when its parameters
+        # are shapes only (a mesh member's, ``fed.cohort.shard_member``)
+        self.device = (self.params[0].device if device is None
+                       else torch.device(device))
         self.opt = opt
         self.opt_state = opt.init(self.params)
         self.rng = rng
@@ -93,31 +96,40 @@ class Learner:
         return float(np.mean(losses)) if losses else 0.0
 
     # ------------------------------------------------- resumable service
-    def _jax_opt_state(self, mu) -> dict:
-        return {"mu": self.model.jax_params(mu),
-                "step": np.asarray(self.opt_state["step"], np.int32)}
-
-    def state_dict(self) -> dict:
+    def state_dict(self, params=None, mu=None, step=None) -> dict:
         """Parameters, SGD state and shuffling stream, in the reference's
-        layout (host numpy)."""
-        return {"params": flatten_tree(self.model.jax_params()),
-                "opt_state": flatten_tree(
-                    self._jax_opt_state(self.opt_state["mu"])),
+        layout (host numpy); ``params``, ``mu`` and ``step`` (tensors
+        aligned with the parameters) stand in for the learner's own."""
+        mu = self.opt_state["mu"] if mu is None else mu
+        step = self.opt_state["step"] if step is None else step
+        return {"params": flatten_tree(self.model.jax_params(params)),
+                "opt_state": flatten_tree({
+                    "mu": self.model.jax_params(mu),
+                    "step": np.asarray(step, np.int32)}),
                 "rng": rng_state_dict(self.rng)}
+
+    def read_state(self, sd: dict, params, mu, *,
+                   source: str = "learner") -> int:
+        """A ``state_dict``'s parameters and momentum written into
+        ``params`` (None: the learner's own, buffers included) and ``mu``
+        (tensors aligned with the parameters, whole shapes); returns its
+        step. A missing leaf or a shape mismatch raises."""
+        like = self.model.jax_params(params)
+        self.model.load_jax_params(unflatten_like(
+            sd["params"], like, source=f"{source} params"), into=params)
+        opt = unflatten_like(sd["opt_state"],
+                             {"mu": like, "step": np.int32(0)},
+                             source=f"{source} opt_state")
+        self.model.load_jax_params(opt["mu"], into=mu)
+        return int(opt["step"])
 
     def load_state_dict(self, sd: dict, *, source: str = "learner") -> None:
         """Overlay a ``state_dict`` (the port's or the reference's) onto
         this learner's device; a missing leaf or a shape mismatch
         raises."""
-        like = self.model.jax_params()
-        self.model.load_jax_params(unflatten_like(
-            sd["params"], like, source=f"{source} params"))
-        opt = unflatten_like(sd["opt_state"],
-                             {"mu": like, "step": np.int32(0)},
-                             source=f"{source} opt_state")
         mu = [torch.empty_like(p) for p in self.params]
-        self.model.load_jax_params(opt["mu"], into=mu)
-        self.opt_state = {"mu": mu, "step": int(opt["step"])}
+        step = self.read_state(sd, None, mu, source=source)
+        self.opt_state = {"mu": mu, "step": step}
         load_rng_state(self.rng, sd["rng"])
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,10 +154,11 @@ class Client(Learner):
                  distill_loss: str = "kl", seed: int = 0,
                  kernel_backend: Optional[str] = None,
                  dre_init: Optional[np.ndarray] = None,
-                 dre_aux: Optional[np.ndarray] = None, arch_key=None):
+                 dre_aux: Optional[np.ndarray] = None, arch_key=None,
+                 device=None):
         super().__init__(model, opt, np.random.default_rng(seed + 1000 * cid),
                          temperature=temperature, distill_loss=distill_loss,
-                         kernel_backend=kernel_backend)
+                         kernel_backend=kernel_backend, device=device)
         self.cid = cid
         # clients sharing an arch_key have the same model structure and
         # share one optimizer instance: the cohort engine stacks them

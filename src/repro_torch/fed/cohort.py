@@ -91,9 +91,12 @@ wave's, when waved) to a multiple of the client-axis size with dummy
 lanes, and each rank holds only its contiguous block of lanes: the rows of
 the stacked data, parameters, momentum and filter state, and on a 2-D
 ``(clients, model)`` mesh only its slice of each leaf
-(``fed.mesh.model_split``). The clients are built on the host; no rank
-moves to its device a row it does not own, and members hold their own
-(host) tensors, not views. The forward runs under
+(``fed.mesh.model_split``). ``simulator.build_experiment`` places the
+state before the engine exists (``owned_positions``, ``shard_member``):
+every member's module holds shapes only (``meta``), an owned member's
+slices wait on the device in ``Client.shard`` until the cohort stacks
+them, and no host or device holds a lane this rank does not own. The
+forward runs under
 ``models.sharding.model_parallel``: a transformer computes on its local
 slices with collectives over the model axis; any other module gets its
 split leaves gathered whole first. Every rank draws every member's batch
@@ -101,8 +104,11 @@ order, so the host streams agree everywhere. Per-client results that
 leave the engine (losses, proxy logits, masks, class-wise means, eval
 counts, learned DREs) are gathered over the client axis, so every rank's
 server runs on the same whole inputs. ``state_dict`` gathers the stacked
-state through the host into the loop engine's per-client layout;
-``load_state_dict`` loads the clients and takes each rank's slices again.
+state, a lane row of a leaf at a time, to the world's first rank alone,
+in the loop engine's per-client layout; every other rank keeps its own
+rows and slices (its restore point). ``load_state_dict`` takes each
+rank's rows and slices from either. ``sync_to_clients`` gathers the
+whole state to every rank's members, on request.
 """
 from __future__ import annotations
 
@@ -111,6 +117,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call, vmap
 
 from repro_torch.common.pytree import unstack_tree
@@ -121,7 +128,9 @@ from repro_torch.core.protocol import client_generator
 from repro_torch.data.synthetic import sample_tensor
 from repro_torch.fed import mesh as M
 from repro_torch.fed.batching import padded_epoch_plan, steps_per_epoch
-from repro_torch.fed.state import clients_state_dict, load_clients_state_dict
+from repro_torch.fed.state import (check_clients_entries, clients_state_dict,
+                                   load_clients_state_dict, load_rng_state,
+                                   rng_state_dict)
 from repro_torch.kernels import dispatch
 from repro_torch.models import sharding
 
@@ -143,6 +152,70 @@ class _OneLane(list):
     """A cohort of one's parameters, unstacked: views of its (1, ...)
     state, which its forward reads and its gradients are taken for (no
     stacking op in the backward)."""
+
+
+def cohort_groups(keys: Sequence) -> List[List[int]]:
+    """Client positions grouped by architecture key, in order of first
+    appearance (``None``: a cohort of its own): the engine's cohorts."""
+    groups: Dict[object, List[int]] = {}
+    for pos, key in enumerate(keys):
+        groups.setdefault(key if key is not None else ("solo", pos),
+                          []).append(pos)
+    return list(groups.values())
+
+
+def rank_members(count: int, wave_size: int, mesh) -> List[int]:
+    """The members (indices into a cohort of ``count``) whose lanes this
+    rank holds, in any wave: each wave padded to a client-axis multiple,
+    this rank's contiguous block of its lanes."""
+    ws = wave_size if 0 < wave_size < count else count
+    c_loc = M.padded_size(ws, mesh) // M.client_axis_size(mesh)
+    k = mesh.coords[0] if mesh is not None else 0
+    return [i for lo in range(0, count, ws)
+            for i in range(lo + k * c_loc,
+                           min(lo + (k + 1) * c_loc, lo + ws, count))]
+
+
+def owned_positions(keys: Sequence, wave_size: int, mesh) -> set:
+    """The client positions whose lanes live on this rank of ``mesh`` (a
+    layout will do: ``fed.mesh.build_client_mesh(..., groups=False)``),
+    for clients of architecture keys ``keys``."""
+    return {group[i] for group in cohort_groups(keys)
+            for i in rank_members(len(group), wave_size, mesh)}
+
+
+def shard_member(model: nn.Module, mesh, owned: bool, device):
+    """Under a mesh, before the engine exists: an owned member's slice of
+    each leaf (``fed.mesh.model_split``) copied to ``device``, returned for
+    ``Client.shard``; every parameter of ``model`` itself becomes shapes
+    only (``meta``), owned or not, so the module is the cohort's structure
+    and holds no state (its buffers stay)."""
+    keep = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if owned:
+                s = M.model_split(name.split(".")[-1], p.shape, mesh)
+                t = p if s is None else M.model_block(p, s, mesh)
+                keep.append(t.to(device, copy=True))
+        for mod in model.modules():
+            for name, p in mod._parameters.items():
+                if p is not None:
+                    mod._parameters[name] = nn.Parameter(
+                        torch.empty_like(p, device="meta"),
+                        requires_grad=p.requires_grad)
+    return keep if owned else None
+
+
+def _rebind(c, params, mu) -> None:
+    """Member ``c``'s parameters made ``params`` (whole, in place of
+    shapes-only ones too) and its momentum ``mu``."""
+    for p, v in zip(c.params, params):
+        if p.is_meta:
+            torch.utils.swap_tensors(p, nn.Parameter(
+                v, requires_grad=p.requires_grad))
+        else:
+            p.data = v
+    c.opt_state["mu"] = list(mu)
 
 
 class _Cohort:
@@ -208,6 +281,10 @@ class _Cohort:
         self._split = [M.model_split(name.split(".")[-1], p.shape, mesh)
                        for name, p in zip(self.names, c0.params)]
         self._mp_native = getattr(self.model, "model_parallel", False)
+        # a waved cohort's host masters hold this rank's members alone:
+        # member i's row (-1: a member of another rank)
+        self._rows = np.full(C, -1, np.int64)
+        self._rows[self._owned()] = np.arange(len(self._owned()))
         self._buffers = {}
         if mesh is not None:
             # the structure module stays on the host: its buffers (the
@@ -277,6 +354,18 @@ class _Cohort:
         C = len(self.members)
         step = torch.tensor([c.opt_state["step"] for c in self.members],
                             dtype=torch.int64, device=self.device)
+        if self.mesh is not None:
+            # waved under a mesh: this rank's members' slices alone
+            own = self._owned()
+            self.params = [np.stack([_np(self._member_leaf(i, j, False))
+                                     for i in own])
+                           for j in range(len(self.names))]
+            self.opt_state = {"mu": [np.stack([_np(self._member_leaf(
+                i, j, True)) for i in own]) for j in range(len(self.names))],
+                "step": _np(step)}
+            for i in own:
+                self.members[i].shard = None
+            return
 
         def stack(leaves):
             if self._waved:
@@ -303,35 +392,51 @@ class _Cohort:
             self.params = [p.requires_grad_(True) for p in params]
             self.opt_state = {"mu": mu, "step": step}
 
+    def _member_leaf(self, i: int, j: int, mu: bool) -> torch.Tensor:
+        """This rank's slice of member ``i``'s leaf ``j`` (its momentum
+        with ``mu``): from ``Client.shard`` (the slices placed at build or
+        load; momentum None there is zero), else sliced from the member's
+        whole tensors (after ``sync_to_clients``)."""
+        c = self.members[i]
+        shard = getattr(c, "shard", None)
+        if shard is not None:
+            if shard["mu"] is None and mu:
+                return torch.zeros_like(shard["params"][j])
+            return shard["mu" if mu else "params"][j]
+        return self._mslice((c.opt_state["mu"][j] if mu
+                             else c.params[j]).detach(), j)
+
     def _adopt_local(self) -> None:
         """Under a mesh, unwaved: this rank's lanes of every leaf (its
-        model slice on a 2-D mesh) stacked on the device from the members'
-        host tensors, leaf by leaf; dummy lanes hold zeros."""
+        model slice on a 2-D mesh) stacked on the device, leaf by leaf,
+        each member's slice dropped once it is stacked; dummy lanes hold
+        zeros."""
         lanes = self._lanes(0, len(self.members))
         step = torch.tensor([self.members[i].opt_state["step"] if i >= 0
                              else 0 for i in lanes],
                             dtype=torch.int64, device=self.device)
 
-        def stack(j, leaf):
-            out = None
+        def stack(j, mu):
+            # the local shape, from the structure when no lane is real
+            shape = self._mslice(self.members[0].params[j], j).shape
+            out = torch.zeros((len(lanes), *shape),
+                              dtype=self.members[0].params[j].dtype,
+                              device=self.device)
+            key = "mu" if mu else "params"
             for r, i in enumerate(lanes):
-                if i < 0:
-                    continue
-                t = self._mslice(leaf(self.members[i]).detach(), j)
-                if out is None:
-                    out = torch.zeros((len(lanes), *t.shape), dtype=t.dtype,
-                                      device=self.device)
-                out[r].copy_(t)
-            if out is None:                # a rank of dummy lanes only
-                t = self._mslice(leaf(self.members[0]).detach(), j)
-                out = torch.zeros((len(lanes), *t.shape), dtype=t.dtype,
-                                  device=self.device)
+                shard = None if i < 0 else getattr(self.members[i], "shard",
+                                                   None)
+                if i < 0 or (shard is not None and shard[key] is None):
+                    continue      # zeros: a dummy lane or a fresh momentum
+                out[r].copy_(self._member_leaf(i, j, mu))
+                if shard is not None:
+                    shard[key][j] = None
             return out
         with torch.no_grad():
-            params = [stack(j, lambda c, j=j: c.params[j])
-                      for j in range(len(self.names))]
-            mu = [stack(j, lambda c, j=j: c.opt_state["mu"][j])
-                  for j in range(len(self.names))]
+            params = [stack(j, False) for j in range(len(self.names))]
+            mu = [stack(j, True) for j in range(len(self.names))]
+        for i in lanes[lanes >= 0]:
+            self.members[i].shard = None
         self.params = [p.requires_grad_(True) for p in params]
         self.opt_state = {"mu": mu, "step": step}
 
@@ -358,37 +463,106 @@ class _Cohort:
                                "step": int(self.opt_state["step"][i])}
 
     def _sync_gathered(self) -> None:
-        """``sync_to_clients`` under a mesh: each leaf gathered whole to
-        the host one lane row at a time, so a device holds at most one
-        row of it from every rank of the client axis, never the whole
-        stacked leaf."""
+        """``sync_to_clients`` under a mesh: every leaf gathered whole to
+        every rank's host (``gathered``), the members' shapes-only
+        parameters made whole."""
+        J = len(self.names)
+        got = {i: ([None] * J, [None] * J) for i in range(len(self.members))}
+        for lo, hi, j, p, mu, step in self.gathered(root=False):
+            for r in range(hi - lo):
+                got[lo + r][0][j], got[lo + r][1][j] = p[r], mu[r]
+                self.members[lo + r].opt_state["step"] = int(step[r])
+        with torch.no_grad():
+            for i, (p, mu) in got.items():
+                _rebind(self.members[i], p, mu)
+
+    def gathered(self, root: bool = True):
+        """The stacked state gathered whole to the host, a lane row of a
+        leaf at a time, so a device holds at most one row of a leaf from
+        every rank of the client axis: yields ``(lo, hi, j, params, mu,
+        step)`` for each wave ``[lo, hi)`` and leaf ``j`` (``(hi - lo,
+        ...)`` host tensors and the wave's steps), on every rank, or with
+        ``root`` on the world's first rank alone (``None`` elsewhere).
+        Every rank of the mesh iterates it to the end (its collectives)."""
         mesh, ax = self.mesh, M.model_axis_name(self.mesh)
+        # to the root: a rank off the model axis's first line takes part
+        # in the model axis's gathers alone
+        sit_out = root and ax is not None and mesh.coord(ax) != 0
 
         def whole(t, j):
             s, rows = self._split[j], []
             for r in range(t.shape[0]):
                 x = t[r:r + 1]
                 if s is not None:
-                    x = mesh.gather(x, ax, s + 1, to="cpu")
-                # lanes k·c_loc + r of every rank k of the client axis
-                rows.append(mesh.gather(x, M.DEFAULT_CLIENT_AXIS, 0,
-                                        to="cpu"))
+                    x = mesh.gather(x, ax, s + 1, to="cpu", root=root)
+                if not sit_out:
+                    # lanes k·c_loc + r of every rank k of the client axis
+                    rows.append(mesh.gather(x, M.DEFAULT_CLIENT_AXIS, 0,
+                                            to="cpu", root=root))
+            if sit_out or rows[0] is None:
+                return None
             out = torch.stack(rows, 1)
             return out.reshape(-1, *out.shape[2:])
         with torch.no_grad():
             for lo, hi in self._waves():
                 params, opt = self._stage_state(lo, hi)
-                step = _np(mesh.gather(opt["step"], M.DEFAULT_CLIENT_AXIS,
-                                       0, to="cpu"))
+                step = None if sit_out else mesh.gather(
+                    opt["step"], M.DEFAULT_CLIENT_AXIS, 0, to="cpu",
+                    root=root)
+                step = None if step is None else _np(step)
                 for j in range(len(self.names)):
                     p = whole(params[j].detach(), j)
                     mu = whole(opt["mu"][j], j)
-                    for r, c in enumerate(self.members[lo:hi]):
-                        c.params[j].data = p[r]
-                        c.opt_state["mu"][j] = mu[r]
+                    yield lo, hi, j, p, mu, step
                     del p, mu
-                for r, c in enumerate(self.members[lo:hi]):
-                    c.opt_state["step"] = int(step[r])
+
+    def local_state(self) -> Dict:
+        """This rank's rows and slices of the stacked state, host copies
+        (a mesh rank's restore point: ``load_local_state``)."""
+        def host(t):
+            return np.array(_np(t.detach()) if isinstance(t, torch.Tensor)
+                            else t, copy=True)
+        return {"params": [host(p) for p in self.params],
+                "mu": [host(v) for v in self.opt_state["mu"]],
+                "step": host(self.opt_state["step"])}
+
+    def load_local_state(self, st: Dict) -> None:
+        """Restore ``local_state`` output taken on this rank's layout."""
+        mine = self.local_state()
+        for key in ("params", "mu"):
+            got = [tuple(np.shape(a)) for a in st[key]]
+            if got != [a.shape for a in mine[key]]:
+                raise ValueError(
+                    f"a rank's state of shapes {got} does not fit this "
+                    f"rank's layout {[a.shape for a in mine[key]]}")
+        if self._waved:
+            self.params = [np.array(a, copy=True) for a in st["params"]]
+            self.opt_state = {"mu": [np.array(a, copy=True)
+                                     for a in st["mu"]],
+                              "step": np.array(st["step"], copy=True)}
+            return
+        self.params = [torch.tensor(a, device=self.device)
+                       .requires_grad_(True) for a in st["params"]]
+        self.opt_state = {"mu": [torch.tensor(a, device=self.device)
+                                 for a in st["mu"]],
+                          "step": torch.tensor(st["step"],
+                                               device=self.device)}
+
+    def load_members(self, entries: Sequence[Dict]) -> None:
+        """Under a mesh: this rank's rows and slices of the members' whole
+        checkpoint ``entries`` (one a member), each owned member read
+        whole on the host one at a time, then stacked."""
+        for i in self._owned():
+            c = self.members[i]
+            pw = [torch.zeros(p.shape, dtype=p.dtype) for p in c.params]
+            mw = [torch.zeros(p.shape, dtype=p.dtype) for p in c.params]
+            c.opt_state["step"] = c.read_state(entries[i], pw, mw,
+                                               source=f"client {c.cid}")
+            c.shard = {key: [self._mslice(t, j).to(self.device, copy=True)
+                             for j, t in enumerate(ts)]
+                       for key, ts in (("params", pw), ("mu", mw))}
+            del pw, mw
+        self.adopt_member_state()
 
     # ------------------------------------------------------------ the mesh
     def _lanes(self, lo: int, hi: int) -> np.ndarray:
@@ -445,14 +619,28 @@ class _Cohort:
             out[real] = arr[lanes[real]]
         return torch.as_tensor(out, device=self.device)
 
+    def _stage_master(self, arr: np.ndarray, lo: int, hi: int
+                      ) -> torch.Tensor:
+        """This rank's lanes of wave ``[lo, hi)`` of a waved master (rows
+        ``_rows``) on the device; dummy lanes a copy of the wave's first
+        real lane (state ballast, never read back), or zeros when the
+        wave has none here."""
+        lanes = self._lanes(lo, hi)
+        real = lanes >= 0
+        if not real.any():
+            return torch.zeros((len(lanes), *arr.shape[1:]),
+                               dtype=torch.from_numpy(arr[:0]).dtype,
+                               device=self.device)
+        rows = self._rows[np.where(real, lanes, lanes[real][0])]
+        return torch.as_tensor(arr[rows], device=self.device)
+
     def _stage_state(self, lo: int, hi: int):
         if not self._waved:
             return self.params, self.opt_state
-        params = [self._stage(self._mslice(p, j, True), lo, hi, fill=None)
-                  .requires_grad_(True) for j, p in enumerate(self.params)]
-        opt = {"mu": [self._stage(self._mslice(v, j, True), lo, hi,
-                                  fill=None)
-                      for j, v in enumerate(self.opt_state["mu"])],
+        params = [self._stage_master(p, lo, hi).requires_grad_(True)
+                  for p in self.params]
+        opt = {"mu": [self._stage_master(v, lo, hi)
+                      for v in self.opt_state["mu"]],
                "step": self._stage(self.opt_state["step"], lo, hi,
                                    fill=None)}
         return params, opt
@@ -464,10 +652,11 @@ class _Cohort:
             return
         lanes = self._lanes(lo, hi)
         real = lanes >= 0
-        for j, (h, d) in enumerate(zip(self.params, params)):
-            self._mslice(h, j, True)[lanes[real]] = _np(d)[real]
-        for j, (h, d) in enumerate(zip(self.opt_state["mu"], opt["mu"])):
-            self._mslice(h, j, True)[lanes[real]] = _np(d)[real]
+        rows = self._rows[lanes[real]]
+        for h, d in zip(self.params, params):
+            h[rows] = _np(d)[real]
+        for h, d in zip(self.opt_state["mu"], opt["mu"]):
+            h[rows] = _np(d)[real]
         self.opt_state["step"][lanes[real]] = _np(opt["step"])[real]
 
     # ------------------------------------------------------------ forwards
@@ -947,14 +1136,10 @@ class CohortEngine:
         self.device = self.clients[0].device
         self.wave_size = wave_size
         self.mesh = mesh
-        groups: Dict[object, Tuple[list, List[int]]] = {}
-        for pos, c in enumerate(self.clients):
-            key = c.arch_key if c.arch_key is not None else ("solo", pos)
-            members, positions = groups.setdefault(key, ([], []))
-            members.append(c)
-            positions.append(pos)
-        self.cohorts = [_Cohort(m, p, wave_size=wave_size, mesh=mesh)
-                        for m, p in groups.values()]
+        self.cohorts = [_Cohort([self.clients[p] for p in group], group,
+                                wave_size=wave_size, mesh=mesh)
+                        for group in cohort_groups(
+                            [c.arch_key for c in self.clients])]
 
     @property
     def num_clients(self) -> int:
@@ -1094,12 +1279,47 @@ class CohortEngine:
         (``repro_torch.fed.state``): the stacked state (a waved cohort's
         host masters) is synced back onto the ``Client`` objects first, so
         the checkpoint is the loop engine's in layout and restores under
-        either engine, waved or not."""
-        self.sync_to_clients()
-        return clients_state_dict(self.clients)
+        either engine, waved or not. Under a mesh the state is gathered
+        (``_Cohort.gathered``) to the world's first rank alone, which
+        returns that format; every other rank returns its members'
+        shuffling streams and its own rows and slices (``"shard"``), a
+        restore point for that rank alone."""
+        if self.mesh is None:
+            self.sync_to_clients()
+            return clients_state_dict(self.clients)
+        whole: Dict[int, list] = {}
+        for cohort in self.cohorts:
+            J = len(cohort.names)
+            for lo, hi, j, p, mu, step in cohort.gathered(root=True):
+                if p is None:
+                    continue
+                for r in range(hi - lo):
+                    e = whole.setdefault(cohort.positions[lo + r],
+                                         [[None] * J, [None] * J, 0])
+                    e[0][j], e[1][j], e[2] = p[r], mu[r], int(step[r])
+        if self.mesh.rank == 0:
+            return {"clients": [{"cid": int(c.cid),
+                                 **c.state_dict(*whole.pop(pos))}
+                                for pos, c in enumerate(self.clients)]}
+        return {"clients": [{"cid": int(c.cid), "rng": rng_state_dict(c.rng)}
+                            for c in self.clients],
+                "shard": [cohort.local_state() for cohort in self.cohorts]}
 
     def load_state_dict(self, sd: Dict) -> None:
-        """Load onto the clients, then re-stack every cohort from them."""
-        load_clients_state_dict(self.clients, sd)
+        """Load onto the clients, then re-stack every cohort from them;
+        under a mesh each rank takes its own rows and slices of a whole
+        checkpoint, or restores its own ``"shard"``."""
+        if self.mesh is None:
+            load_clients_state_dict(self.clients, sd)
+            for cohort in self.cohorts:
+                cohort.adopt_member_state()
+            return
+        entries = check_clients_entries(self.clients, sd)
+        for c, e in zip(self.clients, entries):
+            load_rng_state(c.rng, e["rng"])
+        if "shard" in sd:
+            for cohort, st in zip(self.cohorts, sd["shard"]):
+                cohort.load_local_state(st)
+            return
         for cohort in self.cohorts:
-            cohort.adopt_member_state()
+            cohort.load_members([entries[pos] for pos in cohort.positions])

@@ -174,7 +174,10 @@ class ClientMesh:
     of one, where every collective is the identity)."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
-                 device=None):
+                 device=None, groups: bool = True):
+        """``groups=False``: the layout alone (shape, coordinates, splits),
+        no process group and so no collective, for placing state before
+        the engine's mesh exists."""
         self.axis_names = tuple(axes)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         total = int(np.prod(list(self.shape.values())))
@@ -187,7 +190,8 @@ class ClientMesh:
                         else None)
         self._splits: Dict[tuple, Optional[int]] = {}   # model_split's
         self._groups: Dict[str, object] = {}
-        if dist.is_initialized():
+        self._roots: Dict[str, int] = {}     # each axis line's first rank
+        if dist.is_initialized() and groups:
             # every rank creates every group, in one order
             for ax_i, ax in enumerate(self.axis_names):
                 lines = np.moveaxis(self.devices, ax_i, -1).reshape(
@@ -196,6 +200,7 @@ class ClientMesh:
                     g = dist.new_group([int(r) for r in line])
                     if self.rank in line:
                         self._groups[ax] = g
+                        self._roots[ax] = int(line[0])
 
     def __repr__(self) -> str:
         return (f"ClientMesh({self.shape}, rank={self.rank}, "
@@ -224,17 +229,26 @@ class ClientMesh:
         return t.detach().to(want).contiguous()
 
     def gather(self, t: torch.Tensor, axis: str, dim: int = 0,
-               to=None) -> torch.Tensor:
+               to=None, root: bool = False) -> Optional[torch.Tensor]:
         """Concatenate every rank's ``t`` along ``dim`` over ``axis``, in
         the axis's order (the identity on an axis of one), on ``to`` (by
-        default ``t``'s device)."""
+        default ``t``'s device). ``root``: on the axis's first rank alone
+        (``None`` on the others)."""
         to = t.device if to is None else torch.device(to)
         if self.axis_size(axis) == 1 or self.group(axis) is None:
             return t.to(to)
         dtype = t.dtype
         src = self._comm(t.to(torch.uint8) if dtype == torch.bool else t)
-        parts = [torch.empty_like(src) for _ in range(self.axis_size(axis))]
-        dist.all_gather(parts, src, group=self.group(axis))
+        mine = not root or self.coord(axis) == 0
+        parts = ([torch.empty_like(src) for _ in range(self.axis_size(axis))]
+                 if mine else None)
+        if root:
+            dist.gather(src, parts, dst=self._roots[axis],
+                        group=self.group(axis))
+            if not mine:
+                return None
+        else:
+            dist.all_gather(parts, src, group=self.group(axis))
         out = torch.cat(parts, dim=dim).to(to)
         return out.to(dtype) if dtype == torch.bool else out
 
@@ -269,7 +283,7 @@ class ClientMesh:
 
 
 def build_mesh(shape: Sequence[int], axes: Sequence[str],
-               device=None) -> ClientMesh:
+               device=None, groups: bool = True) -> ClientMesh:
     """N-D mesh over the first ``prod(shape)`` ranks of the world, folded
     row-major (the single layout path, as in the reference). Raises a
     legible ``ValueError`` naming the launcher when the world is too
@@ -288,14 +302,15 @@ def build_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(
             f"a {total}-device mesh ({detail}) must span the whole world of "
             f"{world_size()} ranks: every rank runs the same program")
-    return ClientMesh(shape, axes, device)
+    return ClientMesh(shape, axes, device, groups)
 
 
 def build_client_mesh(num_devices: int = 0,
                       axis: str = DEFAULT_CLIENT_AXIS,
                       model_shards: int = 0,
                       model_axis: str = DEFAULT_MODEL_AXIS,
-                      device=None) -> Optional[ClientMesh]:
+                      device=None, groups: bool = True
+                      ) -> Optional[ClientMesh]:
     """The client mesh, or ``None`` for the unsharded path.
 
     ``num_devices``: 0 = no mesh; ``-1`` = the whole world; ``N > 0`` =
@@ -321,7 +336,7 @@ def build_client_mesh(num_devices: int = 0,
                      f"model_shards={model_shards} product must fit)")
         raise _too_few(num_devices, f"{num_devices} {axis!r}", extra)
     if model_shards == 0:
-        return build_mesh((num_devices,), (axis,), device)
+        return build_mesh((num_devices,), (axis,), device, groups)
     if from_env:
         model_shards = math.gcd(num_devices, model_shards)
     elif num_devices % model_shards:
@@ -332,9 +347,9 @@ def build_client_mesh(num_devices: int = 0,
             f"(num_devices // model_shards, model_shards) = clients × "
             "model)")
     if model_shards == 1:
-        return build_mesh((num_devices,), (axis,), device)
+        return build_mesh((num_devices,), (axis,), device, groups)
     return build_mesh((num_devices // model_shards, model_shards),
-                      (axis, model_axis), device)
+                      (axis, model_axis), device, groups)
 
 
 def client_axis_size(mesh) -> int:

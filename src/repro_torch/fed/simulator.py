@@ -67,6 +67,7 @@ from repro_torch.data.synthetic import Dataset, check_dataset, make_dataset
 from repro_torch.fed import mesh as fed_mesh
 from repro_torch.fed import participation, scheduler
 from repro_torch.fed.client import Client
+from repro_torch.fed.cohort import owned_positions, shard_member
 from repro_torch.fed.server import Server
 from repro_torch.kernels import dispatch
 from repro_torch.models.cnn import MLPClassifier, get_client_model
@@ -175,9 +176,14 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
     pytree) replaces client ``cid``'s random init; ``kmeans_inits[cid]``
     (k, d) replaces its k-means++ seeding and ``kulsif_aux[cid]``
     (num_aux, d) its KuLSIF auxiliary draw; ``student_params`` replaces the
-    FedDF student's random init. Under a mesh (``on_mesh``) the clients
-    are built on the host and carry ``device`` as the device the engine
-    runs them on."""
+    FedDF student's random init. Under a mesh (``on_mesh``) every client
+    is drawn (a transformer's leaves on ``device``, kept there for a
+    client this rank owns and dropped at once for another; an MLP or a
+    CNN on the host) and carries ``device`` as the device the engine runs
+    it on; the clients whose lanes live on this rank keep their slices of
+    it on ``device`` (``Client.shard``), and every module keeps shapes only
+    (``fed.cohort.shard_member``), so a rank holds no state of another
+    rank's lanes."""
     device = torch.device(device)
     home = torch.device("cpu") if on_mesh(cfg) else device
     pin_fp32()
@@ -212,7 +218,8 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         img_ds = "mnist" if hw_guess(ds.x) == 28 else "cifar10"
         init_gen = torch.Generator().manual_seed(cfg.seed)
 
-        def make_model(cid):
+        def make_model(cid, keep=home):
+            # small clients: drawn whole on ``home`` whatever ``keep`` is
             spec, hw, ch = get_client_model(cid, img_ds)
             return spec.build(hw, ch, generator=init_gen, device=home)
 
@@ -223,10 +230,13 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         # drawn on the device: a full-width client is 436 M values
         init_gen = torch.Generator(device=device).manual_seed(cfg.seed)
 
-        def make_model(cid):
+        def make_model(cid, keep=device):
+            # each leaf kept on ``keep`` as it is drawn: under a mesh this
+            # rank's device for a client it owns, else ``meta``, so no
+            # host holds a client (``shard_member`` then slices it)
             return TransformerClientModel(
                 t_cfg, generator=init_gen, device=device,
-                kernel_backend=cfg.kernel_backend, home=home)
+                kernel_backend=cfg.kernel_backend, home=keep)
 
         def arch_key(cid):
             return ("transformer", t_cfg.name)
@@ -238,7 +248,7 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
         variants = ([tuple(mlp_hidden)] if resolve_zoo(cfg.zoo) == "shared"
                     else _mixed_hidden(tuple(mlp_hidden)))
 
-        def make_model(cid):
+        def make_model(cid, keep=home):
             return MLPClassifier(d_in, variants[cid % len(variants)],
                                  ds.num_classes, generator=init_gen,
                                  device=home)
@@ -248,11 +258,23 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
                     ds.num_classes)
     # one optimizer and one init stream shared by the whole population
     shared_opt = sgd(cfg.lr)
+    layout = owned = None
+    if on_mesh(cfg):
+        layout = fed_mesh.build_client_mesh(
+            cfg.num_devices, model_shards=cfg.model_shards, device=device,
+            groups=False)
+        owned = owned_positions([arch_key(cid)
+                                 for cid in range(len(clients_data))],
+                                cfg.wave_size, layout)
     clients: List[Client] = []
     for cid, cd in enumerate(clients_data):
-        model = make_model(cid)
-        if init_params is not None:
+        # every client is drawn, so the weights are the unsharded run's
+        mine = layout is None or cid in owned
+        model = make_model(cid, device if mine else torch.device("meta"))
+        if init_params is not None and mine:
             model.load_jax_params(init_params[cid])
+        shard = (None if layout is None else
+                 shard_member(model, layout, mine, device))
         dre = method.make_dre(
             num_centroids=_centroids_for(cfg.scenario, len(cd.labels),
                                          ds.num_classes),
@@ -264,14 +286,18 @@ def build_experiment(cfg: FedConfig, dataset_name: str = "mnist_feat", *,
             kernel_backend=cfg.kernel_backend,
             dre_init=None if kmeans_inits is None else kmeans_inits[cid],
             dre_aux=None if kulsif_aux is None else kulsif_aux[cid],
-            arch_key=arch_key(cid)))
-        # under a mesh: the device the engine runs the client on
+            arch_key=arch_key(cid), device=home))
+        # under a mesh: the device the engine runs the client on, and this
+        # rank's slices of an owned client
         clients[-1].device = device
+        if layout is not None:
+            clients[-1].shard = (None if shard is None
+                                 else {"params": shard, "mu": None})
     if method.server_distill:
         # the FedDF student (client 0's architecture, the configured MLP
         # width on feature data) is drawn after the client loop, as in the
         # reference, so the clients' inits do not depend on the method
-        student = make_model(0).to(device)
+        student = make_model(0, device).to(device)
         if student_params is not None:
             student.load_jax_params(student_params)
         server.attach_student(student, shared_opt,

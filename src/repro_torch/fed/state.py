@@ -78,9 +78,9 @@ def clients_state_dict(clients) -> Dict[str, Any]:
                         for c in clients]}
 
 
-def load_clients_state_dict(clients, sd: Dict[str, Any]) -> None:
-    """Restore ``clients_state_dict`` output onto ``Client`` objects, each
-    leaf on its client's device."""
+def check_clients_entries(clients, sd: Dict[str, Any]) -> List[Dict]:
+    """``clients_state_dict`` output's entries, checked against the
+    experiment's clients (count and order)."""
     entries = sd["clients"]
     if len(entries) != len(clients):
         raise ValueError(
@@ -91,6 +91,13 @@ def load_clients_state_dict(clients, sd: Dict[str, Any]) -> None:
             raise ValueError(
                 f"client order mismatch: checkpoint cid {e['cid']} at "
                 f"position of client {c.cid}")
+    return entries
+
+
+def load_clients_state_dict(clients, sd: Dict[str, Any]) -> None:
+    """Restore ``clients_state_dict`` output onto ``Client`` objects, each
+    leaf on its client's device."""
+    for c, e in zip(clients, check_clients_entries(clients, sd)):
         c.load_state_dict(e, source=f"client {c.cid}")
 
 

@@ -17,13 +17,18 @@ heads (column-parallel ``wq``, the kv heads they read, row-parallel
 ``wo`` and an all-reduce), the MLP its local ff block (``wg``/``wu``
 column-, ``wd`` row-parallel), and RMSNorm gathers a split scale; a block
 whose heads or ff width the model axis does not divide runs whole on
-every rank from gathered leaves. The reference's ``chunked_attention``,
-``attention_decode``, cross-attention (``kv_override``) and bf16 partial
-sums are not ported yet (ROADMAP queue A item 11).
+every rank from gathered leaves. ``set_attention_options(chunk_q=...)``
+routes full-sequence attention longer than ``chunk_q`` through
+``chunked_attention`` (the reference's plain query-chunked route, no
+kernel there either), and ``attention_decode`` is one token against a KV
+cache (a ring buffer under a window). The reference's cross-attention
+(``kv_override``) and bf16 partial sums wait for the vlm family (ROADMAP
+queue A item 11).
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Mapping, Optional
 
 import torch
@@ -33,6 +38,27 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import sharding
 
 NEG_INF = -1e30  # large-negative in f32; avoids NaN from (-inf) - (-inf)
+
+# ---------------------------------------------------------------------------
+# attention execution options (the reference's, per thread)
+# ---------------------------------------------------------------------------
+_opts = threading.local()
+
+
+def set_attention_options(*, chunk_q: int = 0,
+                          bf16_psum: bool = False) -> None:
+    """``chunk_q > 0``: full-sequence attention over more than ``chunk_q``
+    queries runs ``chunked_attention`` (scores a (chunk_q, S) tile at a
+    time). The reference's ``bf16_psum`` (bf16 partial sums of the
+    model-axis projections) is not ported: True raises."""
+    if bf16_psum:
+        raise NotImplementedError(
+            "bf16_psum is not ported yet: ROADMAP queue A item 11")
+    _opts.chunk_q = chunk_q
+
+
+def get_chunk_q() -> int:
+    return getattr(_opts, "chunk_q", 0)
 
 
 def _normal(shape, std: float, generator, device, home=None
@@ -187,9 +213,90 @@ def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
                                cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
-                                 backend=backend)
+    chunk = get_chunk_q()
+    if chunk and x.shape[1] > chunk:
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        o = chunked_attention(q, _expand_kv(k, n_rep), _expand_kv(v, n_rep),
+                              causal=causal, window=window, chunk_q=chunk)
+    else:
+        o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
+                                     backend=backend)
     return torch.einsum("bsnh,nhd->bsd", o, p["wo"])
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int = 0,
+                      chunk_q: int = 512) -> torch.Tensor:
+    """Query-chunked attention, q/k/v (B, S, N, h) with k/v expanded to N
+    heads: a loop over query tiles, so a step holds (B, N, C, Sk) scores,
+    not (B, N, Sq, Sk). The reference's ``lax.scan`` route (the last tile
+    padded to C rows, as there)."""
+    b, sq, n, h = q.shape
+    sk = k.shape[1]
+    c = min(chunk_q, sq)
+    pad = (-sq) % c
+    if pad:
+        q = torch.cat([q, q.new_zeros((b, pad, n, h))], dim=1)
+    scale = 1.0 / math.sqrt(h)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    outs = []
+    for ci in range((sq + pad) // c):
+        qc = q[:, ci * c:(ci + 1) * c]
+        logits = torch.einsum("bqnh,bknh->bnqk", qc, k).to(torch.float32) \
+            * scale
+        qpos = ci * c + torch.arange(c, device=q.device)[:, None]
+        if causal:
+            m = kpos <= qpos
+            if window > 0:
+                m = m & (kpos > qpos - window)
+        else:
+            m = torch.ones((c, sk), dtype=torch.bool, device=q.device)
+        logits = torch.where(m[None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bnqk,bknh->bqnh", probs, v))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     *, window: int = 0):
+    """One decode token, x (B, 1, d), against a KV cache (B, C, n_kv, h)
+    at position ``pos`` (an int). Returns (out (B, 1, d), new_k, new_v):
+    the caches with this token's key and value written at ``pos``
+    (``pos mod C``, a ring buffer, when ``window`` > 0), new tensors as
+    the reference's ``dynamic_update_slice`` makes them. Grouped-query
+    einsums: the cache is never expanded to the query heads."""
+    if sharding.model_parallel_state() is not None:
+        raise NotImplementedError(
+            "decode under a model axis is not ported yet: ROADMAP queue A "
+            "item 11")
+    b = x.shape[0]
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    nrep = nq // nkv
+    q, k, v = _qkv(p, x)
+    s_cache = cache_k.shape[1]
+    slot = pos % s_cache if window > 0 else pos
+    cos, sin = rope_angles(torch.tensor([pos], device=x.device),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    new_k, new_v = cache_k.clone(), cache_v.clone()
+    new_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    new_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    kpos = torch.arange(s_cache, device=x.device)
+    # a ring slot is valid once pos >= C; before that only slots <= pos
+    valid = (torch.ones_like(kpos, dtype=torch.bool)
+             if window > 0 and pos >= s_cache else kpos <= pos)
+    h = q.shape[-1]
+    qg = q.reshape(b, 1, nkv, nrep, h)
+    scale = 1.0 / math.sqrt(h)
+    logits = torch.einsum("bqgrh,bkgh->bgrqk", qg,
+                          new_k.to(qg.dtype)).to(torch.float32) * scale
+    logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    og = torch.einsum("bgrqk,bkgh->bqgrh", probs, new_v.to(x.dtype))
+    o = og.reshape(b, 1, nq, h)
+    return torch.einsum("bsnh,nhd->bsd", o, p["wo"]), new_k, new_v
 
 
 def _attn_shape(name: str, cfg) -> tuple:

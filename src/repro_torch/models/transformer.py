@@ -1,12 +1,17 @@
-"""The dense transformer backbone (``repro.models.transformer``, family
-``dense``) as an ``nn.Module``.
+"""The transformer backbone (``repro.models.transformer``, families
+``dense`` and ``moe``) as an ``nn.Module``, with its losses and decode.
 
-Pre-norm GQA attention + SwiGLU blocks, RoPE on positions ``arange(S)``,
-causal, a final RMSNorm and an LM head (``lm_head (d, V)`` applied as
-``x @ head``, or the transposed embedding when ``tie_embeddings``). The
-reference scans stacked per-layer parameters with ``lax.scan``; here a
-Python loop runs one module per layer, and ``load_jax_params`` splits the
-reference's stacked ``blocks`` (leading layer axis) into them.
+Pre-norm GQA attention + SwiGLU (or, family ``moe``, a mixture of
+experts: ``models.moe``) blocks, RoPE on positions ``arange(S)``, causal
+(a sliding window when the config or ``window_override`` asks), a final
+RMSNorm and an LM head (``lm_head (d, V)`` applied as ``x @ head``, or
+the transposed embedding when ``tie_embeddings``). The reference scans
+stacked per-layer parameters with ``lax.scan``; here a Python loop runs
+one module per layer (``remat``: each under ``torch.utils.checkpoint``),
+and ``load_jax_params`` splits the reference's stacked ``blocks``
+(leading layer axis) into them. ``cross_entropy`` and ``train_loss`` are
+the LM objective (CE plus the experts' load-balance loss), ``init_cache``
+and ``decode_step`` one token at a time against a KV cache.
 
 Parameters are f32, as the reference's ``init_params`` makes them by
 default (the simulator never passes ``ArchConfig.dtype``). Under a model
@@ -14,9 +19,9 @@ axis (``models.sharding.model_parallel``) the module computes on this
 rank's slices of its leaves (``layers``): a vocab-split ``embed`` looks up
 its local rows and sums over the axis, a vocab-split head gives local
 logits that are gathered whole, and a leaf split any other way is
-gathered before use; the residual stream stays whole on every rank. The other
-families (moe, vlm, audio, ssm, hybrid), decode and the training-loss
-helpers are not ported yet (ROADMAP queue A item 11).
+gathered before use; the residual stream stays whole on every rank. The
+other families (vlm, audio, ssm, hybrid) are not ported yet (ROADMAP
+queue A item 11).
 """
 from __future__ import annotations
 
@@ -26,16 +31,61 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytree import host_values, targets
 from repro_torch.common.types import ArchConfig, AttentionKind
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import sharding
+
+# ``lookup`` multiplies by the tokens' one-hot rows up to this vocab (the
+# token scenario's, tens of labels); a larger vocab gathers rows
+# (``_EmbedRows``)
+ONEHOT_VOCAB_MAX = 1024
+FAMILIES = ("dense", "moe")
+
+
+def refuse_family(cfg: ArchConfig) -> None:
+    """Raise for a family the port does not build yet, naming its item."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            "ROADMAP queue A item 11")
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``embed[tokens]`` with a backward that sums in a fixed order: the
+    batch's distinct tokens (sorted), each one's gradient rows summed by a
+    one-hot product over the (tokens, distinct) pairs, written into their
+    rows. The same bits from run to run on the card and on the CPU at
+    any one thread count, where ``embed[tokens]``'s backward accumulates
+    rows in an order that changes from run to run. Not under ``vmap``
+    (``torch.unique``)."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        flat = tokens.reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.shape = tuple(embed.shape)
+        return embed.index_select(0, flat).reshape(*tokens.shape,
+                                                   embed.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, = ctx.saved_tensors
+        uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+        onehot = (inv[:, None] == torch.arange(
+            len(uniq), device=flat.device)).to(g.dtype)
+        rows = onehot.T @ g.reshape(-1, ctx.shape[1])
+        out = g.new_zeros(ctx.shape)
+        out.index_copy_(0, uniq, rows)
+        return out, None
 
 
 class Transformer(nn.Module):
     """``init_params`` + ``forward`` + ``features`` of the reference for
-    the dense family. ``kernel_backend`` routes attention
+    the dense and moe families. ``kernel_backend`` routes attention
     (``kernels.dispatch``; None = the ambient policy)."""
 
     def __init__(self, cfg: ArchConfig, *,
@@ -45,10 +95,7 @@ class Transformer(nn.Module):
         on ``home`` as soon as it is drawn (default: ``device``), so
         ``device`` holds one leaf's draw at a time, not the model."""
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-                "ROADMAP queue A item 11")
+        refuse_family(cfg)
         self.cfg = cfg
         self.kernel_backend = kernel_backend
         d = cfg.d_model
@@ -59,15 +106,24 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else L._normal(
             (d, cfg.vocab_size), 1.0 / math.sqrt(d), generator, device,
             home))
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({
-                "ln1": L.init_rmsnorm(d, device=keep),
-                "attn": L.init_attention(cfg, generator=generator,
-                                         device=device, home=home),
-                "ln2": L.init_rmsnorm(d, device=keep),
-                "mlp": L.init_mlp(d, cfg.d_ff, generator=generator,
-                                  device=device, home=home),
-            }) for _ in range(cfg.num_layers))
+
+        def block():
+            # the reference's split order: attention, then the MLP or
+            # the experts
+            attn = L.init_attention(cfg, generator=generator, device=device,
+                                    home=home)
+            if cfg.moe is not None:
+                ffn = ("moe", MOE.init_moe(
+                    d, cfg.d_ff, cfg.moe.num_experts, generator=generator,
+                    device=device, home=home))
+            else:
+                ffn = ("mlp", L.init_mlp(d, cfg.d_ff, generator=generator,
+                                         device=device, home=home))
+            return nn.ModuleDict({"ln1": L.init_rmsnorm(d, device=keep),
+                                  "attn": attn,
+                                  "ln2": L.init_rmsnorm(d, device=keep),
+                                  ffn[0]: ffn[1]})
+        self.blocks = nn.ModuleList(block() for _ in range(cfg.num_layers))
 
     @property
     def window(self) -> int:
@@ -76,21 +132,54 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) int -> logits (B, S, V)."""
+        return self.forward_aux(tokens)[0]
+
+    def _block(self, blk, x, positions, window):
+        """One block: x -> (x, the experts' aux loss or None)."""
+        cfg = self.cfg
+        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        x = x + L.attention_forward(blk["attn"], h, cfg,
+                                    positions=positions, causal=True,
+                                    window=window,
+                                    backend=self.kernel_backend)
+        h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
+        if "moe" in blk:
+            y, aux = MOE.moe_forward(
+                blk["moe"], h, top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+                num_experts=cfg.moe.num_experts, d_ff=cfg.d_ff)
+            return x + y, aux
+        return x + L.mlp_forward(blk["mlp"], h, cfg.d_ff), None
+
+    def forward_aux(self, tokens: torch.Tensor, *, remat: bool = False,
+                    window_override: Optional[int] = None):
+        """The reference's ``forward``: tokens (B, S) int -> (logits
+        (B, S, V), the experts' aux loss summed over the layers, 0-d f32).
+        ``window_override``: sliding-window attention of that width;
+        ``remat``: each block recomputed in the backward
+        (``torch.utils.checkpoint``)."""
         cfg = self.cfg
         x = self.lookup(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
+        window = (window_override if window_override is not None
+                  else self.window)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
-            x = x + L.attention_forward(blk["attn"], h, cfg,
-                                        positions=positions, causal=True,
-                                        window=self.window,
-                                        backend=self.kernel_backend)
-            h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp_forward(blk["mlp"], h, cfg.d_ff)
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+            if remat:
+                x, a = checkpoint(self._block, blk, x, positions, window,
+                                  use_reentrant=False)
+            else:
+                x, a = self._block(blk, x, positions, window)
+            if a is not None:
+                aux = aux + a
+        return self.head(x), aux
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the LM head: x (B, S, d) -> (B, S, V)."""
+        x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         if sharding.model_parallel_state() is not None:
             return self._head_sharded(x)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return torch.einsum("bsd,dv->bsv", x, head)
 
     def _head_sharded(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,12 +212,16 @@ class Transformer(nn.Module):
         ``embed[tokens]``'s backward accumulates rows in an order that
         changes from run to run on more than one thread.
         The one-hot operand is (..., S, V): cheap at the token scenario's
-        vocab of 32 labels, not meant for a vocab of tens of thousands.
-        (The comparison, unlike ``F.one_hot``, needs no range check on
-        the host, so it runs under ``vmap``.)"""
+        vocab of 32 labels; above ``ONEHOT_VOCAB_MAX`` the rows are
+        gathered and the backward sums each distinct token's rows by a
+        product as small as the batch (``_EmbedRows``), again in a fixed
+        order. (The comparison, unlike ``F.one_hot``, needs no range
+        check on the host, so the one-hot route runs under ``vmap``.)"""
         mp = sharding.model_parallel_state()
         if mp is not None:
             return self._lookup_sharded(tokens, mp)
+        if self.embed.shape[0] > ONEHOT_VOCAB_MAX:
+            return _EmbedRows.apply(self.embed, tokens)
         vocab = torch.arange(self.embed.shape[0], device=tokens.device)
         onehot = (tokens[..., None] == vocab).to(self.embed.dtype)
         return onehot @ self.embed
@@ -200,3 +293,76 @@ def _copy(dst: torch.Tensor, src) -> None:
         raise ValueError(f"shape {tuple(src.shape)} given, parameter has "
                          f"{tuple(dst.shape)}")
     dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean CE in f32; labels < 0 are masked out; ``z_loss`` adds
+    ``z·logsumexp²`` per token."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(
+        lf, torch.clamp_min(labels, 0).to(torch.int64)[..., None],
+        dim=-1)[..., 0]
+    ce = lse - ll
+    if z_loss:
+        ce = ce + z_loss * torch.square(lse)
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def train_loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
+               remat: bool = False, aux_weight: float = 0.01):
+    """batch {tokens, labels} -> (ce + aux_weight·aux, {ce, aux})."""
+    logits, aux = model.forward_aux(batch["tokens"], remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, *, window_override: Optional[int] = None,
+               device=None) -> Dict[str, torch.Tensor]:
+    """The decode cache for ``batch`` rows and ``cache_len`` positions:
+    ``{k, v}`` (L, B, C, n_kv, h), C = ``cache_len``, or the window when
+    ``window_override`` is set (a ring buffer)."""
+    refuse_family(cfg)
+    c = min(cache_len, window_override) if window_override else cache_len
+    shape = (cfg.num_layers, batch, c, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(model: Transformer, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: int, *,
+                window_override: Optional[int] = None):
+    """One decode step: tokens (B, 1) int at position ``pos`` -> (logits
+    (B, 1, V), the new cache). The experts run at the default capacity
+    factor, as the reference's decode does."""
+    cfg = model.cfg
+    x = model.lookup(tokens)
+    window = window_override or 0
+    ring = window if (window and cache["k"].shape[2] == window) else 0
+    new_k, new_v = [], []
+    for i, blk in enumerate(model.blocks):
+        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        att, nk, nv = L.attention_decode(blk["attn"], h, cfg, cache["k"][i],
+                                         cache["v"][i], pos, window=ring)
+        x = x + att
+        h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
+        if "moe" in blk:
+            y, _ = MOE.moe_forward(blk["moe"], h, top_k=cfg.moe.top_k)
+            x = x + y
+        else:
+            x = x + L.mlp_forward(blk["mlp"], h, cfg.d_ff)
+        new_k.append(nk)
+        new_v.append(nv)
+    return model.head(x), {"k": torch.stack(new_k), "v": torch.stack(new_v)}

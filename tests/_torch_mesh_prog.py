@@ -255,8 +255,88 @@ def many(tasks: list) -> list:
     return [TASKS[name](**args) for name, args in tasks]
 
 
+def fd_step(arch: dict, params: list, batches: list, proxy, owner,
+            centroids: list, thresholds: list, lr: float) -> dict:
+    """``core.fd_trainer.make_fd_train_step`` on this rank's client (row
+    ``rank`` of each list), one SGD step over the 1-D client mesh: the
+    updated parameters (the reference's pytree) and the metrics."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.types import ArchConfig, MoEConfig
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.fed import mesh as M
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import sgd
+    r = dist.get_rank()
+    arch = dict(arch)
+    if arch.get("moe") is not None:
+        arch["moe"] = MoEConfig(**arch["moe"])
+    model = Transformer(ArchConfig(**arch)).load_jax_params(params[r])
+    opt = sgd(lr)
+    mesh = M.build_client_mesh(-1)
+    step = FD.make_fd_train_step(opt, axis_name="clients", mesh=mesh)
+    state, metrics = step(
+        model, opt.init(list(model.parameters())),
+        {k: torch.as_tensor(v).long() for k, v in batches[r].items()},
+        torch.as_tensor(proxy).long(), torch.as_tensor(owner),
+        torch.as_tensor(centroids[r]), float(thresholds[r]), r)
+    return {"params": model.jax_params(),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def c11(items: list) -> list:
+    """Each item's experiment built on this rank (as ``run``), its
+    engine made: whether any client's module holds parameter storage,
+    this rank's owned members and its stacked state's shapes; after
+    ``rounds`` rounds (``run_rounds``), the engine's ``state_dict`` on
+    every rank (whole on rank 0 alone) and the stacked parameters before
+    it and after loading it back."""
+    import numpy as np
+
+    from repro_torch.core.methods import get_method
+    from repro_torch.core.protocol import engine_from_config, make_scheduler
+    out = []
+    for item in items:
+        cfg, (clients, server, x_test, y_test) = _experiment(item)
+        rec = {"member_storage": [
+            [not p.is_meta for p in c.params] for c in clients],
+            "shards": [getattr(c, "shard", None) is not None
+                       for c in clients]}
+        engine = engine_from_config(clients, cfg)
+        rec["owned"] = [[cohort.positions[i] for i in cohort._owned()]
+                        for cohort in engine.cohorts]
+        rec["stacked"] = [[tuple(p.shape) for p in cohort.params]
+                          for cohort in engine.cohorts]
+        rec["state_bytes"] = state_bytes(engine)
+        rec["left_shards"] = [getattr(c, "shard", None) is not None
+                              for c in clients]
+        if item.get("rounds"):
+            method = get_method(cfg.method)
+            if method.client_filter != "none":
+                engine.learn_dres(cfg.seed)
+            sched = make_scheduler(engine, server, method, cfg, x_test,
+                                   y_test, sim_phase_costs=item.get("costs"))
+            rec["logs"] = strip(sched.run_rounds(0, item["rounds"]))
+        def host(t):      # a device tensor, or a waved host master
+            return np.array(getattr(t, "detach", lambda: t)(), copy=True)
+        rec["before"] = [[host(p) for p in cohort.params]
+                         for cohort in engine.cohorts]
+        sd = engine.state_dict()
+        rec["state_dict"] = sd
+        # a rank restores its own restore point, or rank 0's checkpoint
+        engine.load_state_dict(sd)
+        rec["after_load"] = [[host(p) for p in cohort.params]
+                             for cohort in engine.cohorts]
+        rec["member_storage_after"] = [
+            [not p.is_meta for p in c.params] for c in clients]
+        out.append(rec)
+    return out
+
+
 TASKS = {"run": run, "resume": resume, "psum": psum,
-         "collectives": collectives, "many": many}
+         "collectives": collectives, "many": many, "fd_step": fd_step,
+         "c11": c11}
 
 
 def main(argv=None) -> None:

@@ -106,6 +106,12 @@ def check_cross_engine(save_engine: str, save_devices: int,
         phase, r, _ = s1.step()
         if (phase, r) == ("eval", 0):      # a retired-round boundary
             tree = s1.snapshot().to_tree()
+    if save_devices:
+        # a mesh checkpoint is rank 0's whole state, read by every rank
+        import torch.distributed as dist
+        box = [tree]
+        dist.broadcast_object_list(box, src=0)
+        tree = box[0]
     s2 = build_sched(cfg_load)
     s2.restore(tree)
     s2.drain()

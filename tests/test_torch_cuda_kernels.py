@@ -445,3 +445,109 @@ def test_kd_kl_loss_kernel_over_clients(smoke, c, n, k):
 
 def test_kmeans_fit_batched_equals_each_clients_fit(smoke):
     smoke.check_kmeans_batched()
+
+
+# ------------------------------------------------ the trainer path (A11)
+
+def test_flash_kernel_at_the_trainers_long_route(smoke):
+    """B6 at granite-moe's training step: (8, 16, 128, 64), 8 kv heads,
+    its long route (S > 32), forward and the recompute backward."""
+    smoke.check_flash(*smoke.TRAIN_ATTN)
+    smoke.check_flash_grads(*smoke.TRAIN_ATTN)
+
+
+def test_fused_loss_at_a_vocab_of_49155(smoke):
+    """The fused KL loss at the FD trainer's (16, 49155) rows: rows past
+    the register route's 1024, read from memory at every pass."""
+    smoke.check_kl_loss(*smoke.FD_KL, "masked")
+    smoke.check_kl_loss(*smoke.FD_KL, "none")
+
+
+def _reduced_moe(no_drop=False):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.common.types import MoEConfig
+    cfg = configs.reduced(configs.get_arch("granite-moe"), d_model=64,
+                          vocab=64)
+    if no_drop:
+        e = cfg.moe.num_experts
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(e, cfg.moe.top_k,
+                                                     float(e)))
+    return cfg
+
+
+def test_train_steps_on_the_card_match_the_cpu(smoke):
+    """``launch.train``'s AdamW steps on reduced granite-moe: the card
+    (B6 launched) and the CPU from the same weights, losses within rtol
+    1e-3."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Transformer
+    cfg = _reduced_moe()
+    cpu = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    card = Transformer(cfg, generator=torch.Generator().manual_seed(0)
+                       ).to("cuda")
+    before = ops.flash_attention_cuda.launches
+    got, _, _ = train.train(cfg, steps=4, batch=4, seq=48, lr=3e-3,
+                            device="cuda", model=card, say=lambda m: None)
+    assert ops.flash_attention_cuda.launches > before
+    want, _, _ = train.train(cfg, steps=4, batch=4, seq=48, lr=3e-3,
+                             device="cpu", model=cpu, say=lambda m: None)
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want),
+                               rtol=1e-3, atol=0)
+
+
+def test_decode_on_the_card_matches_the_prefill_and_the_cpu(smoke):
+    """``prefill_then_decode`` on the card: the replay's logits equal the
+    prefill's within the reference's 2e-2 and the generated tokens are
+    the CPU's."""
+    from repro_torch.launch import decode_demo
+    from repro_torch.models.transformer import Transformer
+    cfg = _reduced_moe(no_drop=True)
+    prompt = torch.randint(0, 64, (3, 10), generator=torch.Generator()
+                           .manual_seed(1))
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(2)
+                            ).to(dev)
+        toks, prefill, replay = decode_demo.prefill_then_decode(
+            model, prompt.to(dev), 24, 6, return_logits=True)
+        torch.testing.assert_close(replay, prefill, rtol=2e-2, atol=2e-2)
+        out.append(toks.cpu())
+    assert torch.equal(out[0], out[1])
+
+
+def test_fd_round_on_the_card_matches_the_cpu(smoke):
+    """``fd_round_local`` on two reduced granite-moe clients, the card's
+    (B6 and the fused loss launched) against the CPU's: losses within
+    rtol 1e-4."""
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.kernels.distill_kl import ops as kl_ops
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import sgd
+    cfg = _reduced_moe()
+    res = []
+    for dev in ("cuda", "cpu"):
+        opt = sgd(1e-2)
+        states, batches, cents = [], [], []
+        for c in range(2):
+            m = Transformer(cfg, generator=torch.Generator().manual_seed(c)
+                            ).to(dev)
+            states.append((m, opt.init(list(m.parameters()))))
+            toks = torch.randint(32 * c, 32 * (c + 1), (2, 16),
+                                 generator=torch.Generator().manual_seed(c))
+            batches.append({"tokens": toks.to(dev), "labels": toks.to(dev)})
+            cents.append(FD.proxy_features(m, toks.to(dev)).mean(0,
+                                                                  True))
+        proxy = torch.cat([b["tokens"][:1] for b in batches])
+        before = kl_ops.kd_kl_loss_cuda.launches
+        _, metrics, frac = FD.fd_round_local(
+            opt, states, batches, proxy, torch.arange(2, device=dev), cents,
+            [1.0, 1.0])
+        if dev == "cuda":
+            assert kl_ops.kd_kl_loss_cuda.launches == before + 2
+        res.append(([float(m["loss"]) for m in metrics], frac))
+    torch.testing.assert_close(torch.tensor(res[0][0]),
+                               torch.tensor(res[1][0]), rtol=1e-4, atol=0)
+    assert res[0][1] == res[1][1]

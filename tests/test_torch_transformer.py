@@ -295,12 +295,71 @@ def test_transformer_init_is_seeded_and_scaled():
     assert float(a.final_norm["scale"].detach().min()) == 1.0
 
 
-@pytest.mark.parametrize("name", ["granite-moe", "xlstm-350m",
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-350m",
                                   "hubert-xlarge"])
 def test_other_families_are_refused_naming_their_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 11"):
         Transformer(configs.reduced(configs.get_arch(name), d_model=32,
                                     vocab=16))
+
+
+@pytest.mark.parametrize("vocab", [32, 2048])
+def test_moe_family_builds_and_loads_the_reference_weights(vocab):
+    """granite-moe-1b-a400m reduced: the reference's ``init_params``
+    (``moe`` leaves ``router (L, d, E)``, ``wg``/``wu (L, E, d, f)``,
+    ``wd (L, E, f, d)``) load without transposes and export back bit for
+    bit; forward, aux loss and features hold to the reference's (above
+    ``ONEHOT_VOCAB_MAX`` the lookup gathers rows)."""
+    cfg_w = ref_configs.reduced(ref_configs.get_arch("granite-moe"),
+                                d_model=64, vocab=vocab)
+    cfg = configs.reduced(configs.get_arch("granite-moe"), d_model=64,
+                          vocab=vocab)
+    params = RT.init_params(cfg_w, jax.random.PRNGKey(11))
+    model = Transformer(cfg).load_jax_params(jax.tree.map(np.asarray, params))
+    assert sorted(model.blocks[0]) == ["attn", "ln1", "ln2", "moe"]
+    exported = model.jax_params()
+    assert (jax.tree.structure(exported)
+            == jax.tree.structure(jax.tree.map(np.asarray, params)))
+    for a, b in zip(jax.tree.leaves(exported), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    tokens = np.random.default_rng(11).integers(0, vocab, (3, 16)
+                                                ).astype(np.int32)
+    want, aux = RT.forward(params, cfg_w, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, got_aux = model.forward_aux(torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(float(got_aux), float(aux), rtol=1e-6)
+    np.testing.assert_allclose(
+        model.features(torch.from_numpy(tokens).long()).detach().numpy(),
+        np.asarray(RT.features(params, cfg_w, jnp.asarray(tokens))), **F32)
+
+
+def test_row_gather_lookup_is_exact_and_repeats_its_gradient_bits():
+    """Above ``ONEHOT_VOCAB_MAX`` the lookup gathers rows, and its
+    backward sums each distinct token's rows by a one-hot product: equal
+    to the scatter-add up to float32 order, and bit for bit the same on a
+    repeat at four threads."""
+    from repro_torch.models.transformer import ONEHOT_VOCAB_MAX, _EmbedRows
+    v = ONEHOT_VOCAB_MAX + 7
+    rng = np.random.default_rng(5)
+    embed = torch.tensor(rng.standard_normal((v, 16)).astype(np.float32),
+                         requires_grad=True)
+    tokens = torch.as_tensor(rng.integers(0, 40, (6, 50)))
+    g = torch.tensor(rng.standard_normal((6, 50, 16)).astype(np.float32))
+    out = _EmbedRows.apply(embed, tokens)
+    assert torch.equal(out, embed.detach()[tokens])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        grads = [torch.autograd.grad(_EmbedRows.apply(embed, tokens), embed,
+                                     g)[0] for _ in range(3)]
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    want = torch.zeros((v, 16)).index_add_(0, tokens.reshape(-1),
+                                           g.reshape(-1, 16))
+    np.testing.assert_allclose(grads[0].numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 # --------------------------------------------------------------- configs
