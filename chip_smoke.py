@@ -158,9 +158,11 @@ Phases, in order; any failure raises and exits non-zero:
      rank's state bytes and allocator peak printed beside the unsharded
      run's and held at (c) to 0.55 and 0.77 of it, (c)'s state then
      gathered to rank 0 alone, a lane row of a leaf at a time (timed),
-     each leaf's norm within rtol 1e-3 of the unsharded run's, each
-     rank's host RSS peak in (b) and (c) printed beside PR 24's (ROADMAP
-     C11), B6 launched at (c)'s local 16/4 heads and checked there
+     each leaf's norm within rtol 1e-3 of the unsharded run's, (b) and
+     (c) each in a world of fresh ranks, each rank's own host peak (its
+     resident set sampled in the rank) printed beside ``VmHWM`` where the
+     kernel has it and ``ru_maxrss`` (ROADMAP C11, C12), B6
+     launched at (c)'s local 16/4 heads and checked there
      against its plain version; each rank opens its group through the
      port's ``fed.mesh.init_distributed``; then the trainer path (ROADMAP
      A11): (a) ``launch.train`` on granite-moe-1b-a400m whole (24 layers,
@@ -176,7 +178,16 @@ Phases, in order; any failure raises and exits non-zero:
      at granite-moe's widths and 2 layers: ``fd_round_local`` on two
      clients, then ``make_fd_train_step`` on two ``--mesh-child`` ranks
      of the one card over gloo, one client a rank, held to it (losses
-     rtol 1e-4, updated leaves' norms rtol 1e-5);
+     rtol 1e-4, updated leaves' norms rtol 1e-5); (d) xlstm-350m and (e)
+     recurrentgemma-2b (ROADMAP A11.1): ``launch.train`` as (a) ((d)
+     whole for 12 steps, a few more on the sLSTM's plain-autograd route;
+     (e) at 18 of its 24 layers, widths as published: the cuts below),
+     the first batch's loss falling and no kernel launched; decode as (b)
+     on the whole model (the replay held to the prefill); and
+     ``fd_round_local`` on two clients at one group (2 and 3 layers, a
+     depth cut), B1 and the fused loss launched at the archs' widths and
+     vocabularies; each model's built parameter count beside
+     ``cfg.param_count()``;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -196,7 +207,8 @@ Phases, in order; any failure raises and exits non-zero:
      fused loss at the fleet's shapes (1024 clients a launch); B6 at the
      (1, 2) mesh's local heads, a rank's folded batch of 256; B6 at the
      trainer's (8, 16, 128, 64) with 8 kv heads and the fused loss at the
-     FD trainer's (16, 49155).
+     FD trainer's (16, 49155), (16, 50304) and (16, 256000), B1 at its
+     fits' (8, 1024, 1) and (8, 2560, 1).
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -3467,9 +3479,50 @@ MESH_N_TRAIN, MESH_N_TEST = 800, 256
 # granite-8b's 32 query heads and 4 of its 8 kv heads
 MESH_LOCAL_ATTN = (4 * 64, 16, 4, 16, 128)
 MESH_STATE_MAX, MESH_PEAK_MAX = 0.55, 0.77
-# each rank's host RSS peak (GiB) in (b) and (c) on PR 24's tree, when
-# every rank built the whole fleet on its host (PERF.md section 5)
-MESH_HOST_PR24 = {"(b)": (18.590, 18.589), "(c)": (21.815, 21.797)}
+HOST_SAMPLE_S = 0.005       # a rank's resident set, sampled this often
+
+
+class HostPeak:
+    """This process's own resident-set peak over a block (ROADMAP C12: an
+    exec'd child's ``ru_maxrss`` starts at its parent's peak, so a rank's
+    ``ru_maxrss`` can carry the smoke's earlier phases). The resident set
+    (``/proc/self/statm``) is sampled every ``every`` seconds by a thread
+    and at the block's start and end; ``vmhwm`` is the kernel's own
+    lifetime peak (``VmHWM``) where /proc/self/status has it, else None
+    (the card hosts' kernels need not)."""
+
+    def __init__(self, every=HOST_SAMPLE_S):
+        import threading
+        self.every, self.peak = every, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    @staticmethod
+    def vmhwm():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024
+        return None
+
+    def _sample(self):
+        while not self._stop.wait(self.every):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self.peak = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
 
 
 def mesh_kw(devices, shards, dataset="lm_tokens"):
@@ -3490,7 +3543,9 @@ def mesh_run(spec):
     logs without the measured fields, the
     stacked state's bytes on this rank (parameters and momentum, from the
     engine's tensors), the allocator's peak, the process's host peak
-    (RSS so far), the wall seconds and the kernels' launches (B6's by
+    (``HostPeak``: its resident set sampled over the run and the gather,
+    beside ``VmHWM`` where the kernel has it and ``ru_maxrss``), the wall
+    seconds and the kernels' launches (B6's by
     query and kv heads), counts from 0. With ``sync``, then the engine's
     ``sync_to_clients`` (over a mesh, the gather of every rank's rows and
     slices to the host), timed, and every client's leaves' norms after
@@ -3538,32 +3593,33 @@ def mesh_run(spec):
     protocol.engine_from_config = keep
     protocol.make_scheduler = keep_sched
     t0 = time.perf_counter()
+    host = HostPeak()
     try:
-        with CountedCalls(fa_ops, "_launch",
-                          key=lambda q, k, *_: f"{q.shape[1]}/{k.shape[1]}"
-                          ) as heads:
+        with host, CountedCalls(
+                fa_ops, "_launch",
+                key=lambda q, k, *_: f"{q.shape[1]}/{k.shape[1]}") as heads:
             res = simulator.run(
                 cfg, spec["dataset"], n_train=spec["n_train"],
                 n_test=spec["n_test"], device="cuda",
                 transformer_cfg=lm_full_width_arch() if lm else None,
                 sim_phase_costs=spec.get("costs"))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            eng = engines[0]
+            synced = {}
+            if spec.get("sync"):
+                t = time.perf_counter()
+                norms = state_norms(eng)
+                torch.cuda.synchronize()
+                synced = {"sync_s": time.perf_counter() - t,
+                          "sync_peak_bytes": torch.cuda.max_memory_allocated(),
+                          "norms": norms}
     finally:
         protocol.engine_from_config = build
         protocol.make_scheduler = make
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    eng = engines[0]
     state = sum(t.numel() * t.element_size() for c in eng.cohorts
                 for t in list(c.params) + list(c.opt_state["mu"]))
     mesh = getattr(eng, "mesh", None)
-    synced = {}
-    if spec.get("sync"):
-        t = time.perf_counter()
-        norms = state_norms(eng)
-        torch.cuda.synchronize()
-        synced = {"sync_s": time.perf_counter() - t,
-                  "sync_peak_bytes": torch.cuda.max_memory_allocated(),
-                  "norms": norms}
     phases = {}
     for r in res.rounds:
         for ph, sec in r.phase_s.items():
@@ -3573,7 +3629,8 @@ def mesh_run(spec):
             "wall_s": wall, "phase_s": phases,
             "rest_s": wall - marks["setup_s"] - marks["rounds_s"],
             **marks, **synced, "state_bytes": state, "peak_bytes": peak,
-            "host_peak_bytes": resource.getrusage(
+            "host_peak_bytes": host.peak, "vmhwm_bytes": host.vmhwm(),
+            "ru_maxrss_bytes": resource.getrusage(
                 resource.RUSAGE_SELF).ru_maxrss * 1024,
             "launches": {n: w.launches for n, w in wrappers.items()},
             "attn_heads": heads.by_key,
@@ -3765,13 +3822,14 @@ def run_mesh_path(smi):
             f"{unsharded['peak_bytes'] / 2**30:.3f} GiB, final acc "
             f"{unsharded['logs'][-1]['mean_acc']:.4f}")
         out = {}
-        # (b) and (c) in one world of two ranks, one after the other
-        # (c) then gathers every client's state to rank 0's host
-        both = mesh_world(2, "gloo", [dict(kw=mesh_kw(2, 0), **lm),
-                                      dict(kw=mesh_kw(2, 2), sync=True,
-                                           **lm)], tmp, allreduce=True)
-        for i, name in enumerate(("(b)", "(c)")):
-            ranks = [r[i] for r in both]
+        # (b) and (c) each in a world of two fresh ranks, so that no run's
+        # host memory carries into another's (ROADMAP C12); (c) then
+        # gathers every client's state to rank 0's host
+        b_ranks = mesh_world(2, "gloo", [dict(kw=mesh_kw(2, 0), **lm)], tmp)
+        c_ranks = mesh_world(2, "gloo", [dict(kw=mesh_kw(2, 2), sync=True,
+                                              **lm)], tmp, allreduce=True)
+        for name, world in (("(b)", b_ranks), ("(c)", c_ranks)):
+            ranks = [r[0] for r in world]
             for r in ranks[1:]:
                 if r["logs"] != ranks[0]["logs"]:
                     raise AssertionError(f"{name}: the ranks' round logs "
@@ -3825,14 +3883,21 @@ def run_mesh_path(smi):
         f"{len(c[0]['norms'])} clients, largest relative gap of a leaf's "
         f"norm to the unsharded run's {gap:.3e}; gather {c[0]['sync_s']:.3f}"
         f" s (unsharded {unsharded['sync_s']:.3f} s)")
-    # ROADMAP C11: a rank's host holds its own lanes alone; each rank's
-    # RSS peak beside PR 24's, when every rank held the whole fleet
-    for name, before in MESH_HOST_PR24.items():
-        peaks = [r["host_peak_bytes"] / 2**30 for r in out[name]]
-        log(f"  {name} host peak, rank 0 / 1: "
-            + " / ".join(f"{v:.3f}" for v in peaks) + " GiB (PR 24: "
-            + " / ".join(f"{v:.3f}" for v in before) + f" GiB); share "
-            + " / ".join(f"{v / b:.3f}" for v, b in zip(peaks, before)))
+    # ROADMAP C11: a rank's host holds its own lanes alone. Each rank's
+    # own peak (its resident set sampled in the rank), beside VmHWM where
+    # the kernel has it and ru_maxrss, which an exec'd child inherits from
+    # its parent (C12)
+    def gib(v):
+        return "n/a" if v is None else f"{v / 2**30:.3f}"
+    for name in ("(b)", "(c)"):
+        log(f"  {name} host peak (resident set sampled every "
+            f"{HOST_SAMPLE_S * 1e3:g} ms in the rank), rank 0 / 1: "
+            + " / ".join(gib(r["host_peak_bytes"]) for r in out[name])
+            + " GiB; VmHWM "
+            + " / ".join(gib(r["vmhwm_bytes"]) for r in out[name])
+            + " GiB; ru_maxrss "
+            + " / ".join(gib(r["ru_maxrss_bytes"]) for r in out[name])
+            + " GiB")
     if not gap <= 1e-3:
         raise AssertionError(f"(c): a gathered leaf's norm is {gap:.3e} "
                              "(relative) from the unsharded run's")
@@ -3872,6 +3937,35 @@ DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_CACHE = 4, 16, 16, 64
 DECODE_RTOL = DECODE_ATOL = 2e-2
 FD_LAYERS, FD_CLIENTS, FD_BATCH, FD_SEQ, FD_LR = 2, 2, 8, 128, 1e-2
 FD_KL = (FD_CLIENTS * FD_BATCH, 49155)               # the fused loss's rows
+# (d) xlstm-350m (arXiv:2405.04517: 24 layers = 12 mLSTM/sLSTM groups, d
+# 1024, 4 heads, vocab 50304) and (e) recurrentgemma-2b (arXiv:2402.19427:
+# 26 // 3 = 8 groups of two RG-LRU blocks and a local-attention block, d
+# 2560, 10/1 heads of 256, ff 7680, window 2048, vocab 256000):
+# launch.train at (a)'s settings (the reference's 50 steps), decode at
+# (b)'s on the whole model, and the FD trainer at one group (a depth cut,
+# widths as published): (label, arch, the FD trainer's layers, training
+# steps, the trainer's layers or None for the whole model). Two cuts:
+# (d)'s steps from 50 to 12 for time (its sLSTM time loop is host-bound,
+# ~4.8 s a step on the card), and (e)'s training depth from 8 groups to 6
+# (18 layers; decode stays whole): the whole model's AdamW step ran out
+# of the card's 79.18 GiB (parameters, gradients and both moments 50.2
+# GiB, then the update's temporaries of the 2.44 GiB embedding and head)
+RECURRENT_RUNS = (("(d)", "xlstm-350m", 2, 12, None),
+                  ("(e)", "recurrentgemma-2b", 3, TRAIN_STEPS, 18))
+# the sLSTM's plain-autograd route, timed beside its custom backward
+SLSTM_PLAIN_STEPS = 2
+# xLSTM's replay against its prefill, as a relative Frobenius gap: in
+# float64 the two agree to 8e-11 at full depth, while float32 alone puts
+# the prefill 1.0e-3 (relative) from float64 there, through 12 groups'
+# gating (tests/_torch_xlstm_float64.py); a wrong recurrence parts them
+# by O(1)
+DECODE_REL_SSM = 1e-2
+# the FD trainer's B1 fits (a client's private batch, pooled, one
+# centroid) and fused losses at the recurrent archs' widths
+RECURRENT_LLOYD = {"xlstm-350m": (FD_BATCH, 1024, 1),
+                   "recurrentgemma-2b": (FD_BATCH, 2560, 1)}
+RECURRENT_KL = {"xlstm-350m": (FD_CLIENTS * FD_BATCH, 50304),
+                "recurrentgemma-2b": (FD_CLIENTS * FD_BATCH, 256000)}
 
 
 def fd_setup(cfg):
@@ -4176,20 +4270,205 @@ def run_trainer_path(smi):
             f"norms within {n_gap:.3e} (rtol 1e-5), ID fraction "
             f"{res['metrics']['id_fraction']:.4f}")
     out["c"] = dict(local_s=local_s, launches=fd_launches)
+    for label, arch, fd_layers, steps, layers in RECURRENT_RUNS:
+        out[arch] = run_recurrent(label, arch, fd_layers, steps, layers,
+                                  smi, wrappers)
     log(f"  the trainer path took {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def measure_trainer(out, attn_err, kl_err):
-    """Phase 7's rows of the trainer path: B6 at (a)'s shape and the
-    fused loss at (c)'s, beside their plain versions and the library
-    calls (scaled_dot_product_attention; F.kl_div, the weighted mean and
-    autograd), timed only."""
+def run_recurrent(label, arch, fd_layers, steps, layers, smi, wrappers):
+    """The trainer path's (d) or (e) on a recurrent arch: (a)'s
+    ``launch.train`` for ``steps`` at ``layers`` (None: the whole model;
+    else a depth cut, widths as published), the first batch's loss
+    falling (no
+    kernel launched: the recurrences are plain PyTorch as the reference's
+    scans are plain JAX, and hybrid's windowed attention takes B6's plain
+    route, as the reference's dispatch does; for ssm, then a few steps on
+    the sLSTM's plain-autograd route, timed), then ``prefill_then_decode``
+    at (b)'s sizes on the whole model (the trained weights, or after a
+    depth cut a whole model drawn from seed 0; the replay held to the
+    prefill: elementwise at (b)'s tolerance, for ssm by
+    ``DECODE_REL_SSM``), then the FD trainer's ``fd_round_local`` at
+    ``fd_layers`` (one group), B1 and the fused loss launched. Every
+    model's built parameter count is logged beside
+    ``cfg.param_count()``."""
+    import dataclasses
+    import gc
+    import numpy as np
     import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import fd_trainer as FD
+    from repro_torch.launch import decode_demo, train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import sgd
+    t0 = time.perf_counter()
+    whole = get_arch(arch)
+    cfg = whole if layers is None else dataclasses.replace(
+        whole, num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def drawn(c):
+        return Transformer(c, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+    model = drawn(cfg)
+
+    def counted(m, c):
+        return (f"{sum(p.numel() for p in m.parameters())} parameters "
+                f"built, {len(m.blocks)} groups (cfg.param_count() "
+                f"{c.param_count()} for {c.num_layers} layers)")
+    log(f"  {label} {cfg.name} ({cfg.family}), d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}: {counted(model, cfg)} ({smi})")
+    first = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")()
+    with torch.no_grad():
+        before = float(T.train_loss(model, first)[0])
+    for w in wrappers.values():
+        w.launches = 0
+    losses, secs, model = train.train(
+        cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR, device="cuda", log_every=10, model=model,
+        say=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    with torch.no_grad():
+        after = float(T.train_loss(model, first)[0])
+    if not all(finite(v) for v in losses) or not after < before:
+        raise AssertionError(f"{label} the first batch's loss did not "
+                             f"fall: {before} -> {after}; steps {losses}")
+    if launches:
+        raise AssertionError(f"{label} training launched {launches}: no "
+                             "kernel is on this path")
+    step_s = sum(secs[1:]) / len(secs[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    log(f"  {label} launch.train {cfg.name}"
+        + ("" if layers is None else f" at {layers} layers (a depth cut)")
+        + f", {steps} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR:g} ({smi}): step "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, the first batch's "
+        f"loss {before:.4f} -> {after:.4f}; first step {secs[0]:.3f} s, "
+        f"then {step_s:.4f} s a step ({min(secs[1:]):.4f}-"
+        f"{max(secs[1:]):.4f}), {tok_s:.1f} tokens/s; peak "
+        f"{peak / 2**30:.3f} GiB; no kernel launched")
+    res = dict(step_s=step_s, tok_s=tok_s, peak=peak, losses=losses,
+               before=before, after=after)
+    if cfg.family == "ssm":
+        from repro_torch.models import ssm
+        ssm.set_slstm_custom_vjp(False)
+        try:
+            plain, plain_secs, model = train.train(
+                cfg, steps=SLSTM_PLAIN_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR, device="cuda", model=model,
+                say=lambda m: None)
+        finally:
+            ssm.set_slstm_custom_vjp(True)
+        res["plain_step_s"] = sum(plain_secs) / len(plain_secs)
+        log(f"  {label} {SLSTM_PLAIN_STEPS} more steps on the sLSTM's "
+            f"plain-autograd route ({smi}): {res['plain_step_s']:.4f} s a "
+            f"step ({min(plain_secs):.4f}-{max(plain_secs):.4f}), losses "
+            f"{[round(v, 4) for v in plain]} (custom backward: "
+            f"{step_s:.4f} s a step)")
+        if not all(finite(v) for v in plain):
+            raise AssertionError(f"{label} plain-route losses {plain}")
+    if layers is not None:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = whole
+        model = drawn(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)), device="cuda")
+    decode_demo.prefill_then_decode(model, prompt, DECODE_CACHE, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, prefill, replay = decode_demo.prefill_then_decode(
+        model, prompt, DECODE_CACHE, DECODE_NEW, return_logits=True)
+    toks = toks.cpu()
+    dec_s = time.perf_counter() - t
+    err = float((replay - prefill).abs().max())
+    rel = float((replay - prefill).norm() / prefill.norm())
+    if not bool(torch.isfinite(replay).all() & torch.isfinite(prefill).all()):
+        raise AssertionError(f"{label} non-finite decode logits")
+    if cfg.family == "ssm":
+        if not rel <= DECODE_REL_SSM:
+            raise AssertionError(f"{label} the replay parts from the "
+                                 f"prefill by {rel:.3e} (relative)")
+    else:
+        torch.testing.assert_close(replay, prefill, rtol=DECODE_RTOL,
+                                   atol=DECODE_ATOL)
+    if toks.shape != (DECODE_BATCH, DECODE_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label} generated {toks}")
+    res.update(dec_s=dec_s, dec_tok_s=DECODE_BATCH * DECODE_NEW / dec_s,
+               dec_err=err, dec_rel=rel)
+    log(f"  {label} prefill_then_decode on the "
+        + ("trained weights" if layers is None else "whole model drawn "
+           "from seed 0") + f", batch "
+        f"{DECODE_BATCH}, prompt {DECODE_PROMPT}, {DECODE_NEW} new tokens, "
+        f"cache {DECODE_CACHE} ({counted(model, cfg)}; {smi}): "
+        f"{dec_s:.3f} s (the prompt's replay included), "
+        f"{res['dec_tok_s']:.1f} new tokens/s; the replay's logits against "
+        f"the prefill's max|err| {err:.3e}, relative gap {rel:.3e} ("
+        + (f"relative bound {DECODE_REL_SSM:g}" if cfg.family == "ssm"
+           else f"rtol, atol {DECODE_RTOL:g}")
+        + f"); tokens {toks[0, :8].tolist()}")
+    del model, prefill, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(cfg, num_layers=fd_layers)
+    for w in wrappers.values():
+        w.launches = 0
+    models, batches, proxy, owner, cents, thrs = fd_setup(fcfg)
+    opt = sgd(FD_LR)
+    states = [(m, opt.init(list(m.parameters()))) for m in models]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    states, metrics, id_frac = FD.fd_round_local(
+        opt, states, batches, proxy, owner, cents, thrs)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t
+    fd_launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    if fd_launches.get("kd_kl_loss") != FD_CLIENTS \
+            or fd_launches.get("lloyd_step", 0) < FD_CLIENTS \
+            or not all(finite(float(m["loss"])) for m in metrics):
+        raise AssertionError(f"{label} FD round: launches {fd_launches}, "
+                             f"losses {[float(m['loss']) for m in metrics]}")
+    log(f"  {label} fd_round_local, {FD_CLIENTS} clients of "
+        f"{counted(states[0][0], fcfg)} (a depth cut), private {FD_BATCH} x "
+        f"{FD_SEQ}, proxy {FD_CLIENTS * FD_BATCH} rows, SGD {FD_LR:g} "
+        f"({smi}): {local_s:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ID fraction "
+        f"{id_frac:.4f}, losses {[round(float(m['loss']), 6) for m in metrics]}"
+        f", kl {[round(float(m['kl']), 6) for m in metrics]}; launches "
+        f"{json.dumps(fd_launches)} (B1 at (n, d, k) = "
+        f"{RECURRENT_LLOYD[arch]}, the fused loss at {RECURRENT_KL[arch]})")
+    res.update(fd_s=local_s, fd_launches=fd_launches)
+    del states, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {label} took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def measure_trainer(out, attn_err, kl_err, rec_errs):
+    """Phase 7's rows of the trainer path: B6 at (a)'s shape and the
+    fused loss at (c)'s, (d)'s and (e)'s, and B1 at (d)'s and (e)'s FD
+    fits, beside their plain versions and the library calls
+    (scaled_dot_product_attention; F.kl_div, the weighted mean and
+    autograd; none for B1), timed only."""
     import torch.nn.functional as F
-    from repro_torch.kernels.distill_kl import ops as kl_ops
-    from repro_torch.kernels.distill_kl import ref as kl_ref
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.kmeans_dist import ops as kd_ops
+    from repro_torch.kernels.kmeans_dist import ref as kd_ref
     b, n, nkv, s, h = TRAIN_ATTN
     q, k, v = map(model_layout, attn_inputs(b, n, nkv, s, h, seed=3))
     moved = 4 * (2 * q.numel() + k.numel() + v.numel())
@@ -4213,7 +4492,38 @@ def measure_trainer(out, attn_err, kl_err):
              "launches": out["a"]["launches"]["flash_attention"],
              "max_abs_err": attn_err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
-    rows_k, kk = FD_KL
+    rows.append(fd_kl_row("kd_kl_loss_wide_vocab", FD_KL,
+                          out["c"]["launches"]["kd_kl_loss"], kl_err))
+    for _, arch, *_ in RECURRENT_RUNS:
+        fd = out[arch]["fd_launches"]
+        lloyd_err, rec_kl_err = rec_errs[arch]
+        rows.append(fd_kl_row(f"kd_kl_loss_vocab_{RECURRENT_KL[arch][1]}",
+                              RECURRENT_KL[arch], fd["kd_kl_loss"],
+                              rec_kl_err))
+        n, d, k = RECURRENT_LLOYD[arch]
+        x, cents = lloyd_inputs(n, d, k, seed=3)
+        ms, plain_ms, b_ms, b_by, _ = time_row(
+            f"lloyd_step at the FD trainer's fit, {arch}, n={n} d={d} "
+            f"k={k}", lambda: kd_ops.lloyd_step_cuda(x, cents),
+            lambda: kd_ref.lloyd_step(x, cents), *lloyd_cost(n, d, k))
+        rows.append({"name": f"lloyd_step_fd_d{d}", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/lloyd_step.cu",
+                     "replaces": "src/repro/kernels/kmeans_dist/"
+                                 "kernel.py:113",
+                     "launches": fd["lloyd_step"], "max_abs_err": lloyd_err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    return rows
+
+
+def fd_kl_row(name, shape, launches, err):
+    """The fused loss at an FD trainer's (rows, vocab), masked weights:
+    kernel, plain version and library call (F.kl_div, the weighted mean
+    and autograd), timed; its JSON row."""
+    import torch
+    from repro_torch.kernels.distill_kl import ops as kl_ops
+    from repro_torch.kernels.distill_kl import ref as kl_ref
+    rows_k, kk = shape
     st, tt, _ = kl_inputs(rows_k, kk, seed=3)
     w = kl_weights(rows_k, "masked", seed=3)
     s_ = st.clone().requires_grad_(True)
@@ -4232,22 +4542,26 @@ def measure_trainer(out, attn_err, kl_err):
     log(f"    library (F.kl_div, weighted mean, autograd) {lib_ms:.5f}, "
         f"device only {fmt(device_ms(library))}; share of the bound, device"
         " only: " + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
-    rows.append({"name": "kd_kl_loss_wide_vocab", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
-                 "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
-                 "launches": out["c"]["launches"]["kd_kl_loss"],
-                 "max_abs_err": kl_err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-    return rows
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/kd_kl.cu",
+            "replaces": "src/repro/kernels/distill_kl/kernel.py:50",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def check_trainer_kernels():
-    """B6 and the fused loss at the trainer path's shapes against their
-    plain versions (phase 3's checks): the max abs errors."""
+    """B6 and the fused loss at the trainer path's shapes, and B1 and the
+    fused loss at the recurrent archs' FD trainer's, against their plain
+    versions (phase 3's checks): the max abs errors (the recurrent ones
+    by arch)."""
     attn = check_flash(*TRAIN_ATTN)
     check_flash_grads(*TRAIN_ATTN)
     kl = check_kl_loss(*FD_KL, "masked")
-    return attn, max(kl.values())
+    rec = {arch: (check_lloyd(*RECURRENT_LLOYD[arch]),
+                  max(check_kl_loss(*RECURRENT_KL[arch], "masked").values()))
+           for _, arch, *_ in RECURRENT_RUNS}
+    return attn, max(kl.values()), rec
 
 
 def measure_flash_local(launches, err):

@@ -153,7 +153,8 @@ def fd_round_local(optimizer, client_states, private_batches, proxy_tokens,
 
 
 class TransformerClientModel(nn.Module):
-    """A dense transformer whose output is the last position's logits.
+    """A backbone (``models.transformer``: dense, moe, ssm or hybrid)
+    whose output is the last position's logits.
 
     ``kernel_backend`` routes the backbone's attention
     (``kernels.dispatch``): the client's own setting, so ``"torch"`` means

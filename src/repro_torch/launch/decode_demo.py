@@ -4,11 +4,12 @@
 --tokens 32 [--device cuda|cpu]``
 
 The reference's ``repro.launch.decode_demo`` (its flags and defaults; the
-old name ``launch.serve`` shims here). Runs the dense and moe families
-(``models.transformer``); the default arch ``xlstm-350m`` is an ssm and,
-like the hybrid and vlm families, is refused naming ROADMAP queue A item
-11; an encoder-only (audio) arch has no decode path. ``--device``
-defaults to ``cuda`` and raises on a host without a CUDA device.
+old name ``launch.serve`` shims here). Runs the dense, moe, ssm (the
+default arch ``xlstm-350m``: a recurrent state in place of a KV cache)
+and hybrid families (``models.transformer``); the vlm family is refused
+naming ROADMAP queue A item 11, and an encoder-only (audio) arch has no
+decode path. ``--device`` defaults to ``cuda`` and raises on a host
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,10 +33,11 @@ def prefill_then_decode(model: T.Transformer, prompt: torch.Tensor,
     """prompt (B, S0) int -> the greedily generated tokens (B, n_new).
 
     As the reference: a full-sequence prefill forward, then the prompt
-    replayed through decode steps to fill the cache (one code path), then
-    ``n_new`` greedy steps. ``return_logits``: also the prefill's logits
-    and the replay's, (B, S0, V) each, which agree where no expert drops
-    a token."""
+    replayed through decode steps to fill the cache or the recurrent
+    state (one code path), then ``n_new`` greedy steps. ``return_logits``:
+    also the prefill's logits and the replay's, (B, S0, V) each, which
+    agree where no expert drops a token (and, for hybrid, while the
+    prompt fits the cache's ring)."""
     b, s0 = prompt.shape
     prefill = model.forward_aux(prompt)[0]
     cache = T.init_cache(model.cfg, b, cache_len, torch.float32,

@@ -3,9 +3,9 @@
 
 The reference's ``repro.launch.train`` (its flags and defaults), one
 process on one device, end to end: config → model → data → optimizer →
-checkpoint. The model is ``models.transformer.Transformer`` (the dense
-and moe families; the others are refused naming ROADMAP queue A item
-11), its weights drawn on the device from a ``torch.Generator`` seeded 0;
+checkpoint. The model is ``models.transformer.Transformer`` (the dense,
+moe, ssm and hybrid families; vlm and audio are refused naming ROADMAP
+queue A item 11), its weights drawn on the device from a ``torch.Generator`` seeded 0;
 the data are ``make_batch_fn``'s Markov-stream batches (numpy, the
 reference's bit for bit); the optimizer is ``adamw`` on
 ``linear_warmup_cosine(lr, 10, steps)``; ``--ckpt-dir`` writes the

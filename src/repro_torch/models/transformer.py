@@ -1,27 +1,36 @@
-"""The transformer backbone (``repro.models.transformer``, families
-``dense`` and ``moe``) as an ``nn.Module``, with its losses and decode.
+"""The backbone of ``repro.models.transformer`` as an ``nn.Module``, for
+the families ``dense``, ``moe``, ``ssm`` and ``hybrid``, with its losses
+and decode.
 
-Pre-norm GQA attention + SwiGLU (or, family ``moe``, a mixture of
-experts: ``models.moe``) blocks, RoPE on positions ``arange(S)``, causal
-(a sliding window when the config or ``window_override`` asks), a final
-RMSNorm and an LM head (``lm_head (d, V)`` applied as ``x @ head``, or
-the transposed embedding when ``tie_embeddings``). The reference scans
-stacked per-layer parameters with ``lax.scan``; here a Python loop runs
-one module per layer (``remat``: each under ``torch.utils.checkpoint``),
-and ``load_jax_params`` splits the reference's stacked ``blocks``
-(leading layer axis) into them. ``cross_entropy`` and ``train_loss`` are
-the LM objective (CE plus the experts' load-balance loss), ``init_cache``
-and ``decode_step`` one token at a time against a KV cache.
+dense / moe: pre-norm GQA attention + SwiGLU (or, family ``moe``, a
+mixture of experts: ``models.moe``) blocks, RoPE on positions
+``arange(S)``, causal (a sliding window when the config or
+``window_override`` asks). ssm (xLSTM): groups of an mLSTM and an sLSTM
+block (``models.ssm``), ``num_layers // 2`` of them. hybrid (Griffin):
+groups of ``hybrid_period - 1`` RG-LRU blocks (``models.rglru``, each
+with a SwiGLU MLP) and one local-attention block whose window is
+``local_window`` whatever ``cfg.attention`` says, ``num_layers //
+hybrid_period`` of them. Then a final RMSNorm and an LM head (``lm_head
+(d, V)`` applied as ``x @ head``, or the transposed embedding when
+``tie_embeddings``). The reference scans stacked per-layer (or
+per-group) parameters with ``lax.scan``; here a Python loop runs one
+module per layer or group (``remat``: each under
+``torch.utils.checkpoint``), and ``load_jax_params`` splits the
+reference's stacked ``blocks`` (a leading layer or group axis, and
+hybrid's ``rec`` leaves a second ``(period - 1)`` axis) into them.
+``cross_entropy`` and ``train_loss`` are the LM objective (CE plus the
+experts' load-balance loss), ``init_cache`` and ``decode_step`` one
+token at a time against a KV cache or the recurrent state.
 
 Parameters are f32, as the reference's ``init_params`` makes them by
 default (the simulator never passes ``ArchConfig.dtype``). Under a model
-axis (``models.sharding.model_parallel``) the module computes on this
-rank's slices of its leaves (``layers``): a vocab-split ``embed`` looks up
-its local rows and sums over the axis, a vocab-split head gives local
-logits that are gathered whole, and a leaf split any other way is
-gathered before use; the residual stream stays whole on every rank. The
-other families (vlm, audio, ssm, hybrid) are not ported yet (ROADMAP
-queue A item 11).
+axis (``models.sharding.model_parallel``) the dense and moe module
+computes on this rank's slices of its leaves (``layers``): a vocab-split
+``embed`` looks up its local rows and sums over the axis, a vocab-split
+head gives local logits that are gathered whole, and a leaf split any
+other way is gathered before use; the residual stream stays whole on
+every rank. The ssm and hybrid families under a model axis, and the vlm
+and audio families at all, are not ported yet (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -37,13 +46,16 @@ from repro_torch.common.pytree import host_values, targets
 from repro_torch.common.types import ArchConfig, AttentionKind
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import sharding
+from repro_torch.models import ssm as SSM
 
 # ``lookup`` multiplies by the tokens' one-hot rows up to this vocab (the
 # token scenario's, tens of labels); a larger vocab gathers rows
 # (``_EmbedRows``)
 ONEHOT_VOCAB_MAX = 1024
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
 
 
 def refuse_family(cfg: ArchConfig) -> None:
@@ -52,6 +64,15 @@ def refuse_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             "ROADMAP queue A item 11")
+
+
+def _refuse_model_axis(cfg: ArchConfig) -> None:
+    """The recurrent families have no model-axis split yet."""
+    if cfg.family in RECURRENT \
+            and sharding.model_parallel_state() is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) under a model axis is not "
+            "ported yet: ROADMAP queue A item 11")
 
 
 class _EmbedRows(torch.autograd.Function):
@@ -85,8 +106,8 @@ class _EmbedRows(torch.autograd.Function):
 
 class Transformer(nn.Module):
     """``init_params`` + ``forward`` + ``features`` of the reference for
-    the dense and moe families. ``kernel_backend`` routes attention
-    (``kernels.dispatch``; None = the ambient policy)."""
+    the dense, moe, ssm and hybrid families. ``kernel_backend`` routes
+    attention (``kernels.dispatch``; None = the ambient policy)."""
 
     def __init__(self, cfg: ArchConfig, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -107,23 +128,52 @@ class Transformer(nn.Module):
             (d, cfg.vocab_size), 1.0 / math.sqrt(d), generator, device,
             home))
 
+        draw = dict(generator=generator, device=device, home=home)
+
         def block():
             # the reference's split order: attention, then the MLP or
             # the experts
-            attn = L.init_attention(cfg, generator=generator, device=device,
-                                    home=home)
+            attn = L.init_attention(cfg, **draw)
             if cfg.moe is not None:
-                ffn = ("moe", MOE.init_moe(
-                    d, cfg.d_ff, cfg.moe.num_experts, generator=generator,
-                    device=device, home=home))
+                ffn = ("moe", MOE.init_moe(d, cfg.d_ff, cfg.moe.num_experts,
+                                           **draw))
             else:
-                ffn = ("mlp", L.init_mlp(d, cfg.d_ff, generator=generator,
-                                         device=device, home=home))
+                ffn = ("mlp", L.init_mlp(d, cfg.d_ff, **draw))
             return nn.ModuleDict({"ln1": L.init_rmsnorm(d, device=keep),
                                   "attn": attn,
                                   "ln2": L.init_rmsnorm(d, device=keep),
                                   ffn[0]: ffn[1]})
-        self.blocks = nn.ModuleList(block() for _ in range(cfg.num_layers))
+
+        def xlstm_group():
+            return nn.ModuleDict({
+                "mlstm": SSM.init_mlstm(d, cfg.num_heads, **draw),
+                "slstm": SSM.init_slstm(d, cfg.num_heads, **draw)})
+
+        def griffin_group():
+            def rec():
+                return nn.ModuleDict({
+                    "rglru": RG.init_rglru(d, **draw),
+                    "ln2": L.init_rmsnorm(d, device=keep),
+                    "mlp": L.init_mlp(d, cfg.d_ff, **draw)})
+            attn = L.init_attention(cfg, **draw)
+            return nn.ModuleDict({
+                "rec": nn.ModuleList(rec() for _ in
+                                     range(cfg.hybrid_period - 1)),
+                "attn": nn.ModuleDict({
+                    "ln1": L.init_rmsnorm(d, device=keep), "attn": attn,
+                    "ln2": L.init_rmsnorm(d, device=keep),
+                    "mlp": L.init_mlp(d, cfg.d_ff, **draw)})})
+
+        if cfg.family == "ssm":
+            self.blocks = nn.ModuleList(
+                xlstm_group() for _ in range(cfg.num_layers // 2))
+        elif cfg.family == "hybrid":
+            self.blocks = nn.ModuleList(
+                griffin_group()
+                for _ in range(cfg.num_layers // cfg.hybrid_period))
+        else:
+            self.blocks = nn.ModuleList(block()
+                                        for _ in range(cfg.num_layers))
 
     @property
     def window(self) -> int:
@@ -151,6 +201,25 @@ class Transformer(nn.Module):
             return x + y, aux
         return x + L.mlp_forward(blk["mlp"], h, cfg.d_ff), None
 
+    def _group(self, grp, x, positions, window):
+        """One recurrent group (family ssm or hybrid): x -> (x, None)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            x = SSM.mlstm_forward(grp["mlstm"], x, cfg.num_heads)
+            return SSM.slstm_forward(grp["slstm"], x, cfg.num_heads), None
+        for rec in grp["rec"]:
+            x = RG.rglru_forward(rec["rglru"], x, cfg.norm_eps)
+            h = L.rmsnorm(rec["ln2"], x, cfg.norm_eps)
+            x = x + L.mlp_forward(rec["mlp"], h)
+        pa = grp["attn"]
+        h = L.rmsnorm(pa["ln1"], x, cfg.norm_eps)
+        # the local window whatever cfg.attention says, as the reference
+        x = x + L.attention_forward(pa["attn"], h, cfg, positions=positions,
+                                    causal=True, window=cfg.local_window,
+                                    backend=self.kernel_backend)
+        h = L.rmsnorm(pa["ln2"], x, cfg.norm_eps)
+        return x + L.mlp_forward(pa["mlp"], h), None
+
     def forward_aux(self, tokens: torch.Tensor, *, remat: bool = False,
                     window_override: Optional[int] = None):
         """The reference's ``forward``: tokens (B, S) int -> (logits
@@ -159,17 +228,19 @@ class Transformer(nn.Module):
         ``remat``: each block recomputed in the backward
         (``torch.utils.checkpoint``)."""
         cfg = self.cfg
+        _refuse_model_axis(cfg)
         x = self.lookup(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         window = (window_override if window_override is not None
                   else self.window)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        run = self._group if cfg.family in RECURRENT else self._block
         for blk in self.blocks:
             if remat:
-                x, a = checkpoint(self._block, blk, x, positions, window,
+                x, a = checkpoint(run, blk, x, positions, window,
                                   use_reentrant=False)
             else:
-                x, a = self._block(blk, x, positions, window)
+                x, a = run(blk, x, positions, window)
             if a is not None:
                 aux = aux + a
         return self.head(x), aux
@@ -247,10 +318,24 @@ class Transformer(nn.Module):
         """Copy the reference's ``init_params`` pytree, as numpy arrays,
         into this module (no transposes), or, with ``into`` (tensors
         aligned with ``parameters()``, e.g. the SGD momentum), into those
-        tensors: ``blocks`` leaves carry a leading layer axis, which is
-        split across the per-layer modules."""
-        blocks = params["blocks"]
+        tensors: ``blocks`` leaves carry a leading layer (or group) axis,
+        split across the per-layer (per-group) modules, and a nested
+        stack (hybrid's ``rec``) a second axis, split across its list."""
         dst = targets(self, into)
+
+        def load(node, ref, idx, path):
+            if isinstance(node, torch.Tensor):
+                _copy(dst(node), np.asarray(ref)[idx])
+            elif isinstance(node, nn.ModuleList):
+                for j, child in enumerate(node):
+                    load(child, ref, idx + (j,), path)
+            else:
+                if set(node.keys()) != set(ref):
+                    raise ValueError(
+                        f"{path}: reference leaves {sorted(ref)}, model "
+                        f"has {sorted(node.keys())}")
+                for name, child in node.items():
+                    load(child, ref[name], idx, f"{path}.{name}")
         with torch.no_grad():
             _copy(dst(self.embed), params["embed"])
             _copy(dst(self.final_norm["scale"]),
@@ -258,33 +343,36 @@ class Transformer(nn.Module):
             if self.lm_head is not None:
                 _copy(dst(self.lm_head), params["lm_head"])
             for i, blk in enumerate(self.blocks):
-                for part, leaves in blk.items():
-                    if set(leaves.keys()) != set(blocks[part]):
-                        raise ValueError(
-                            f"blocks.{part}: reference leaves "
-                            f"{sorted(blocks[part])}, model has "
-                            f"{sorted(leaves.keys())}")
-                    for name, p in leaves.items():
-                        _copy(dst(p), np.asarray(blocks[part][name])[i])
+                load(blk, params["blocks"], (i,), "blocks")
         return self
 
     def jax_params(self, values=None) -> Dict[str, Any]:
         """The inverse of ``load_jax_params``: this module's weights, or
         ``values`` (tensors aligned with ``parameters()``), as the
         reference's pytree of numpy arrays (blocks stacked on a leading
-        layer axis)."""
+        layer or group axis, a nested list on a second)."""
         host = host_values(self, values)
+
+        def tree(node):
+            if isinstance(node, torch.Tensor):
+                return host[id(node)]
+            if isinstance(node, nn.ModuleList):
+                return _stack([tree(child) for child in node])
+            return {name: tree(child) for name, child in node.items()}
         out: Dict[str, Any] = {"embed": host[id(self.embed)],
                                "final_norm": {"scale": host[id(
                                    self.final_norm["scale"])]}}
         if self.lm_head is not None:
             out["lm_head"] = host[id(self.lm_head)]
-        out["blocks"] = {
-            part: {name: np.stack([host[id(blk[part][name])]
-                                   for blk in self.blocks])
-                   for name in leaves.keys()}
-            for part, leaves in self.blocks[0].items()}
+        out["blocks"] = tree(self.blocks)
         return out
+
+
+def _stack(trees):
+    """Stack same-structured trees of arrays leaf by leaf (axis 0)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -330,15 +418,46 @@ def train_loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, window_override: Optional[int] = None,
                device=None) -> Dict[str, torch.Tensor]:
-    """The decode cache for ``batch`` rows and ``cache_len`` positions:
-    ``{k, v}`` (L, B, C, n_kv, h), C = ``cache_len``, or the window when
-    ``window_override`` is set (a ring buffer)."""
+    """The decode cache for ``batch`` rows and ``cache_len`` positions,
+    the reference's leaves (names, shapes, dtypes):
+
+    dense/moe: ``{k, v}`` (L, B, C, n_kv, h), C = ``cache_len``, or the
+    window when ``window_override`` is set (a ring buffer).
+    ssm: per group (G = L // 2) the mLSTM's ``mlstm_c`` (G, B, N, h, h)
+    and ``mlstm_n`` (G, B, N, h) in f32 (h = 2d / N), the sLSTM's
+    ``slstm_h`` (G, B, d) in ``dtype``, ``slstm_c``/``slstm_n`` in f32 and
+    ``slstm_m`` in f32 filled with -1e9.
+    hybrid: per group (G = L // period) and RG-LRU block (period - 1)
+    ``rg_h`` (G, period - 1, B, d) in f32 and ``rg_conv`` (G, period - 1,
+    B, CONV_W - 1, d), and the local attention's ring ``k``/``v`` (G, B,
+    W, n_kv, h), W = min(local_window, cache_len), in ``dtype``."""
     refuse_family(cfg)
+    f32 = torch.float32
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    h, nkv, d = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model
+    if cfg.family == "ssm":
+        g, n = cfg.num_layers // 2, cfg.num_heads
+        hh = 2 * d // n
+        return {"mlstm_c": zeros((g, batch, n, hh, hh), f32),
+                "mlstm_n": zeros((g, batch, n, hh), f32),
+                "slstm_h": zeros((g, batch, d)),
+                "slstm_c": zeros((g, batch, d), f32),
+                "slstm_n": zeros((g, batch, d), f32),
+                "slstm_m": torch.full((g, batch, d), -1e9, dtype=f32,
+                                      device=device)}
+    if cfg.family == "hybrid":
+        per = cfg.hybrid_period
+        g = cfg.num_layers // per
+        w = min(cfg.local_window, cache_len)
+        return {"rg_h": zeros((g, per - 1, batch, d), f32),
+                "rg_conv": zeros((g, per - 1, batch, RG.CONV_W - 1, d)),
+                "k": zeros((g, batch, w, nkv, h)),
+                "v": zeros((g, batch, w, nkv, h))}
     c = min(cache_len, window_override) if window_override else cache_len
-    shape = (cfg.num_layers, batch, c, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros((cfg.num_layers, batch, c, nkv, h)),
+            "v": zeros((cfg.num_layers, batch, c, nkv, h))}
 
 
 def decode_step(model: Transformer, tokens: torch.Tensor,
@@ -346,11 +465,25 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                 window_override: Optional[int] = None):
     """One decode step: tokens (B, 1) int at position ``pos`` -> (logits
     (B, 1, V), the new cache). The experts run at the default capacity
-    factor, as the reference's decode does."""
+    factor, as the reference's decode does. Hybrid's attention runs its
+    ring at the cache's own length, as the reference's does: past
+    ``cache_len`` the window is ``cache_len``, not ``local_window``."""
     cfg = model.cfg
+    _refuse_model_axis(cfg)
     x = model.lookup(tokens)
-    window = window_override or 0
-    ring = window if (window and cache["k"].shape[2] == window) else 0
+    if cfg.family == "ssm":
+        x, new = _decode_ssm(model, x, cache)
+    elif cfg.family == "hybrid":
+        x, new = _decode_hybrid(model, x, cache, pos)
+    else:
+        window = window_override or 0
+        ring = window if (window and cache["k"].shape[2] == window) else 0
+        x, new = _decode_attention(model, x, cache, pos, ring)
+    return model.head(x), new
+
+
+def _decode_attention(model, x, cache, pos, ring):
+    cfg = model.cfg
     new_k, new_v = [], []
     for i, blk in enumerate(model.blocks):
         h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
@@ -365,4 +498,44 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
             x = x + L.mlp_forward(blk["mlp"], h, cfg.d_ff)
         new_k.append(nk)
         new_v.append(nv)
-    return model.head(x), {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+    return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+
+
+def _decode_ssm(model, x, cache):
+    n = model.cfg.num_heads
+    names = ("mlstm_c", "mlstm_n", "slstm_h", "slstm_c", "slstm_n",
+             "slstm_m")
+    new = {k: [] for k in names}
+    for i, grp in enumerate(model.blocks):
+        x, mst = SSM.mlstm_decode(grp["mlstm"], x, SSM.MLSTMState(
+            cache["mlstm_c"][i], cache["mlstm_n"][i]), n)
+        x, sst = SSM.slstm_decode(grp["slstm"], x, SSM.SLSTMState(
+            *(cache[k][i] for k in names[2:])), n)
+        for k, v in zip(names, (*mst, *sst)):
+            new[k].append(v)
+    return x, {k: torch.stack(v) for k, v in new.items()}
+
+
+def _decode_hybrid(model, x, cache, pos):
+    cfg = model.cfg
+    w = cache["k"].shape[2]
+    new = {k: [] for k in ("rg_h", "rg_conv", "k", "v")}
+    for i, grp in enumerate(model.blocks):
+        hs, convs = [], []
+        for j, rec in enumerate(grp["rec"]):
+            x, st = RG.rglru_decode(rec["rglru"], x, RG.RGLRUState(
+                cache["rg_h"][i, j], cache["rg_conv"][i, j]), cfg.norm_eps)
+            h = L.rmsnorm(rec["ln2"], x, cfg.norm_eps)
+            x = x + L.mlp_forward(rec["mlp"], h)
+            hs.append(st.h)
+            convs.append(st.conv)
+        pa = grp["attn"]
+        h = L.rmsnorm(pa["ln1"], x, cfg.norm_eps)
+        att, nk, nv = L.attention_decode(pa["attn"], h, cfg, cache["k"][i],
+                                         cache["v"][i], pos, window=w)
+        x = x + att
+        h = L.rmsnorm(pa["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp_forward(pa["mlp"], h)
+        for k, v in zip(new, (torch.stack(hs), torch.stack(convs), nk, nv)):
+            new[k].append(v)
+    return x, {k: torch.stack(v) for k, v in new.items()}

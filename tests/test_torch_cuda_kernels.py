@@ -551,3 +551,65 @@ def test_fd_round_on_the_card_matches_the_cpu(smoke):
     torch.testing.assert_close(torch.tensor(res[0][0]),
                                torch.tensor(res[1][0]), rtol=1e-4, atol=0)
     assert res[0][1] == res[1][1]
+
+
+# ------------------------------ the recurrent families (A11.1) on the card
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b"])
+def test_fused_loss_at_the_recurrent_vocabularies(smoke, arch):
+    """The fused KL loss at the recurrent archs' FD trainer rows: (16,
+    50304) and (16, 256000), past the register route's 1024 columns."""
+    smoke.check_kl_loss(*smoke.RECURRENT_KL[arch], "masked")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b"])
+def test_recurrent_forward_and_decode_on_the_card_match_the_cpu(smoke,
+                                                                arch):
+    """Reduced xlstm-350m and recurrentgemma-2b (window cut to 16, so that
+    S = 40 runs past it) on the card against the CPU's plain path from
+    the same weights: logits, the loss and its gradients (both sLSTM
+    routes) within rtol 1e-4, atol 1e-4 (float32 sums in another order),
+    decode step by step likewise over 24 steps against a cache of 16
+    (hybrid's ring wraps); no kernel launched."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.reduced(
+        configs.get_arch(arch), layers=6 if arch.startswith("recurrent")
+        else 4, d_model=64, vocab=64), local_window=16)
+    models = {dev: T.Transformer(cfg, generator=torch.Generator(
+        ).manual_seed(0)).to(dev) for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, 64, (2, 40), generator=gen)
+    lab = torch.randint(0, 64, (2, 40), generator=gen)
+    before = ops.flash_attention_cuda.launches
+    close = dict(rtol=1e-4, atol=1e-4)
+    for custom_vjp in (True, False):
+        ssm.set_slstm_custom_vjp(custom_vjp)
+        try:
+            out = {}
+            for dev, m in models.items():
+                loss, _ = T.train_loss(m, {"tokens": tok.to(dev),
+                                           "labels": lab.to(dev)})
+                grads = torch.autograd.grad(loss, list(m.parameters()))
+                out[dev] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        finally:
+            ssm.set_slstm_custom_vjp(True)
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **close)
+        for a, b in zip(out["cuda"][1], out["cpu"][1]):
+            torch.testing.assert_close(a, b, **close)
+    caches = {dev: T.init_cache(cfg, 2, 16, torch.float32, device=dev)
+              for dev in models}
+    with torch.no_grad():
+        torch.testing.assert_close(models["cuda"](tok.cuda()).cpu(),
+                                   models["cpu"](tok), **close)
+        for t in range(24):
+            lg = {}
+            for dev, m in models.items():
+                lg[dev], caches[dev] = T.decode_step(
+                    m, tok[:, t:t + 1].to(dev), caches[dev], t)
+            torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], **close)
+    assert ops.flash_attention_cuda.launches == before

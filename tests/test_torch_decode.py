@@ -11,6 +11,9 @@ sliding window through the ring buffer). ``decode_step``'s logits hold
 to the reference's within rtol 1e-5, atol 1e-5, ``prefill_then_decode``
 gives the reference's tokens exactly, and ``chunked_attention`` (causal,
 windowed and full, a padded last tile) holds within atol 1e-5.
+``decode_demo.main`` runs at its default arch (xlstm-350m, reduced) and
+refuses vlm and audio; the recurrent families' decode is held to the
+reference in ``tests/test_torch_recurrent_lm.py``.
 """
 import dataclasses
 
@@ -135,8 +138,12 @@ def test_decode_demo_main_and_its_refusals(capsys):
                    "--batch", "2", "--prompt-len", "4", "--tokens", "3"])
     assert toks.shape == (2, 3)
     assert "tok/s" in capsys.readouterr().out
+    # the default arch, xlstm-350m (ssm), at its defaults: batch 4, 16 new
+    toks = D.main(["--device", "cpu", "--reduced"])
+    assert toks.shape == (4, 16)
+    assert "tok/s" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 11"):
-        D.main(["--device", "cpu", "--reduced"])        # xlstm-350m: ssm
+        D.main(["--device", "cpu", "--arch", "llama32-vision", "--reduced"])
     with pytest.raises(SystemExit, match="encoder-only"):
         serve.main(["--device", "cpu", "--arch", "hubert-xlarge",
                     "--reduced"])

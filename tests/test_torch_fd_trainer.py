@@ -1,7 +1,8 @@
 """The port's FD trainer for the large backbones (``core.fd_trainer``)
 against the JAX package's, set up as ``tests/test_fd_trainer.py`` sets it
-up: granite-8b (and granite-moe-1b-a400m for ``fd_loss``) reduced to 2
-layers, d_model 64, vocab 64; three clients whose private tokens come
+up: granite-8b (and granite-moe-1b-a400m for ``fd_loss``; xlstm-350m and
+recurrentgemma-2b for ``fd_round_local``) reduced to 2 layers (3 for
+recurrentgemma's period), d_model 64, vocab 64; three clients whose private tokens come
 from distinct vocab bands, each with a one-centroid KMeans-DRE on pooled
 embeddings (threshold 1.5 times its largest private distance), a proxy of
 one row from each client, SGD at 1e-2.
@@ -45,8 +46,12 @@ def _np_tree(t):
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg_r = RC.reduced(RC.get_arch("granite-8b"), d_model=64, vocab=64)
-    cfg = C.reduced(C.get_arch("granite-8b"), d_model=64, vocab=64)
+    return _setup("granite-8b")
+
+
+def _setup(arch):
+    cfg_r = RC.reduced(RC.get_arch(arch), d_model=64, vocab=64)
+    cfg = C.reduced(C.get_arch(arch), d_model=64, vocab=64)
     key = jax.random.PRNGKey(0)
     n_clients, B, S = 3, 2, 16
     opt = ref_sgd(LR)
@@ -111,6 +116,18 @@ def compiled_reference(monkeypatch):
 
 
 def test_fd_round_local_matches_the_reference(setup):
+    _round_matches_the_reference(setup)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b"])
+def test_fd_round_local_on_the_recurrent_families(arch):
+    """The same round on three clients of the recurrent families: every
+    backbone runs through ``T.forward`` in the reference and
+    ``forward_aux`` in the port, unchanged."""
+    _round_matches_the_reference(_setup(arch))
+
+
+def _round_matches_the_reference(setup):
     (cfg_r, opt, states, batches, proxy, owner, cents, thrs), cfg, arrays \
         = setup
     ref_states, ref_metrics, ref_frac = RFD.fd_round_local(
