@@ -45,14 +45,20 @@ Phases, in order; any failure raises and exits non-zero:
      (16, 50, 10), B2's report at (64, 50, 10) and calibration at (16, 50,
      10), the fused loss at (16, 10), then a 1024-lane grid on every
      client-axis route (B1 and B2 wide, B5 over a stacked b) within CUDA's
-     grid limits;
+     grid limits; B6 at hubert-xlarge's head width 80 on both routes,
+     causal and full (the short route also over an output whose memory
+     held NaN, so an unwritten chunk fails), and at the vlm's
+     cross-attention shapes over 1601 vision keys, with gradients;
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
      weak runs): n_iter, assignments, centroids, DRE thresholds, reported;
      the cohort's batched fit and calibration against each client's own
      fit on the card: n_iter, assignments, centroids, thresholds, bitwise
-     (asserted);
+     (asserted); the proxy's Gaussian mechanism (core/privacy.py) with a
+     CUDA generator: the main path's proxy rows clipped, the noise's std
+     within 10% of sigma, and a KMeans-DRE (B1, B2) filtering privatized
+     rows, balanced accuracy above 0.8 at epsilon 100;
   5. small fed_train runs (edgefd and selective-fd on features, edgefd on
      mnist_like and cifar_like images, cuDNN's TF32 turned on first to
      check that the entry point pins fp32) on the card against the same
@@ -92,7 +98,7 @@ Phases, in order; any failure raises and exits non-zero:
      granite-8b's widths
      (d_model 4096, 32/8 heads of 128, d_ff 14336; depth cut to 2 layers
      and vocab to the 32 labels): lm_tokens edgefd strong, 10 clients,
-     n_train 6000, n_test 1000, 2 rounds, batch 64, proxy batch 256, with
+     n_train 6000, n_test 1000, 1 round, batch 64, proxy batch 256, with
      its peak device memory; each kernel's launch count (counts set to 0
      just before and read just after), the Lloyd kernel's launches by
      (d, k) and by route, the min-distance kernel's by class (calibration
@@ -150,7 +156,7 @@ Phases, in order; any failure raises and exits non-zero:
      group on a file store, the card's name and power limit beside each
      run): (a) a world of one over NCCL, a small mnist_feat cohort run on
      num_devices=1 and on (1, 1) bitwise the unsharded engine's; lm_tokens
-     edgefd strong at granite-8b's widths, 4 clients, 2 rounds, unsharded,
+     edgefd strong at granite-8b's widths, 4 clients, 1 round, unsharded,
      then (b) on two ranks of the one card over gloo on the 1-D client
      mesh and (c) on the (1, 2) mesh (each client's heads, ff and vocab
      split over the ranks), each held to the unsharded run (losses rtol
@@ -167,8 +173,8 @@ Phases, in order; any failure raises and exits non-zero:
      port's ``fed.mesh.init_distributed``; then the trainer path (ROADMAP
      A11): (a) ``launch.train`` on granite-moe-1b-a400m whole (24 layers,
      full widths, batch 8 × 128, AdamW on the reference's warmup-cosine
-     rate, its 50 steps), the first batch's loss falling, seconds a step,
-     tokens a second and the allocator's peak printed, B6 launched on its
+     rate, 25 of its 50 steps), the first batch's loss falling, seconds a
+     step, tokens a second and the allocator's peak printed, B6 launched on its
      long route, two more steps profiled; then the first 3 steps again
      from the same weights, bitwise (a)'s, each step's loss held within
      rtol 1e-3 to the plain attention's on the same weights and batch;
@@ -180,14 +186,23 @@ Phases, in order; any failure raises and exits non-zero:
      of the one card over gloo, one client a rank, held to it (losses
      rtol 1e-4, updated leaves' norms rtol 1e-5); (d) xlstm-350m and (e)
      recurrentgemma-2b (ROADMAP A11.1): ``launch.train`` as (a) ((d)
-     whole for 12 steps, a few more on the sLSTM's plain-autograd route;
-     (e) at 18 of its 24 layers, widths as published: the cuts below),
+     whole for 8 steps, one more on the sLSTM's plain-autograd route;
+     (e) at 18 of its 24 layers for 25 steps, widths as published: the
+     cuts below),
      the first batch's loss falling and no kernel launched; decode as (b)
      on the whole model (the replay held to the prefill); and
      ``fd_round_local`` on two clients at one group (2 and 3 layers, a
      depth cut), B1 and the fused loss launched at the archs' widths and
      vocabularies; each model's built parameter count beside
-     ``cfg.param_count()``;
+     ``cfg.param_count()``; (f) hubert-xlarge whole (ROADMAP A11.2):
+     ``launch.train``'s 50 steps of 8 x 128 frames, the first batch's loss
+     falling, B6 on its long route at h = 80, full, 48 launches a step, 3
+     steps again held to the plain attention, 2 profiled; (g)
+     llama-3.2-vision-90b at full widths and a depth cut, its gates at
+     0.5: one group's train_loss forward and backward held to the plain
+     attention (loss and every gradient's norm), two groups' prefill,
+     ``init_cache(vision=, params=)``, the prompt's replay held to the
+     prefill and 16 new tokens, and ``launch.train.main --reduced``;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -208,7 +223,9 @@ Phases, in order; any failure raises and exits non-zero:
      (1, 2) mesh's local heads, a rank's folded batch of 256; B6 at the
      trainer's (8, 16, 128, 64) with 8 kv heads and the fused loss at the
      FD trainer's (16, 49155), (16, 50304) and (16, 256000), B1 at its
-     fits' (8, 1024, 1) and (8, 2560, 1).
+     fits' (8, 1024, 1) and (8, 2560, 1); B6 at h = 80 on both routes and
+     at the cross-attention shapes over 1601 keys, beside
+     scaled_dot_product_attention.
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -321,10 +338,11 @@ ATTN_SHAPES = (MAIN_ATTN,
 # report's proxy batch, an eval batch (timed also in the model's layout)
 PATH_ATTN = (MAIN_ATTN, (256, 32, 8, 16, 128), (512, 32, 8, 16, 128))
 # depth cut to keep the script inside its time with the mesh path: the
-# main path's and the cohort path's runs and the full-width lm_tokens runs
-# take 2 rounds (were 3)
+# main path's and the cohort path's runs take 2 rounds (were 3), the
+# full-width lm_tokens runs 1 (were 3, then 2: the encoder and vlm
+# families' runs took their time)
 MAIN_ROUNDS = 2
-LM_ROUNDS = 2
+LM_ROUNDS = 1
 LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
                            "indlearn", "server_distill")
@@ -798,11 +816,14 @@ def check_rbf(n, m, d, seed=0):
     return float(err.max())
 
 
-def attn_inputs(b, n, nkv, s, h, seed):
+def attn_inputs(b, n, nkv, s, h, seed, sk=None):
+    """q (b, n, s, h) and k, v (b, nkv, sk, h) (sk: default s) on the
+    card, normal from ``seed``."""
     import torch
     g = torch.Generator().manual_seed(seed)
+    sk = s if sk is None else sk
     q, k, v = (torch.randn(shape, generator=g) for shape in
-               ((b, n, s, h), (b, nkv, s, h), (b, nkv, s, h)))
+               ((b, n, s, h), (b, nkv, sk, h), (b, nkv, sk, h)))
     return q.cuda(), k.cuda(), v.cuda()
 
 
@@ -812,19 +833,32 @@ def model_layout(t):
     return t.transpose(1, 2).contiguous().transpose(1, 2)
 
 
-def check_flash(b, n, nkv, s, h, causal=True, seed=0):
+def check_flash(b, n, nkv, s, h, causal=True, seed=0, sk=None,
+                poison=False):
     """Flash-attention kernel vs plain version; also on strided (B, N, S,
     h) views of (B, S, N, h) tensors (the model's layout), which must give
-    the same bits. Returns the max abs error."""
+    the same bits. ``sk``: keys other than ``s`` (cross-attention).
+    ``poison``: the output's memory holds NaN before the first launch (a
+    block of its size freed to the caching allocator just before), so a
+    column the kernel does not write fails the check. Returns the max abs
+    error."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    q, k, v = attn_inputs(b, n, nkv, s, h, seed)
+    q, k, v = attn_inputs(b, n, nkv, s, h, seed, sk=sk)
+    if poison:
+        nan = torch.full_like(q, float("nan"))
+        ptr = nan.data_ptr()
+        del nan
     got = ops.flash_attention_cuda(q, k, v, causal)
+    if poison and got.data_ptr() != ptr:
+        raise AssertionError("the poisoned block was not reused")
     again = ops.flash_attention_cuda(q, k, v, causal)
     strided = ops.flash_attention_cuda(*map(model_layout, (q, k, v)), causal)
     want = ref.attention_gqa(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    label = f"flash_attention ({b}, {n}, {s}, {h}) kv {nkv} causal={causal}"
+    label = (f"flash_attention ({b}, {n}, {s}, {h}) kv {nkv}"
+             + ("" if sk is None else f" over {sk} keys")
+             + f" causal={causal}" + (", poisoned output" if poison else ""))
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: two runs differ")
     if not torch.equal(got, strided):
@@ -836,27 +870,29 @@ def check_flash(b, n, nkv, s, h, causal=True, seed=0):
     return err
 
 
-def check_flash_grads(b, n, nkv, s, h, seed=0):
+def check_flash_grads(b, n, nkv, s, h, seed=0, causal=True, sk=None):
     """The autograd function (kernel forward, recompute backward) against
     autograd of the plain version: one launch, gradients to q, k, v."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    q, k, v = attn_inputs(b, n, nkv, s, h, seed)
+    q, k, v = attn_inputs(b, n, nkv, s, h, seed, sk=sk)
     g = attn_inputs(b, n, n, s, h, seed + 1)[0]
     kern = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = ops.flash_attention_cuda.launches
-    ops.flash_attention(*kern, causal=True).backward(g)
+    ops.flash_attention(*kern, causal=causal).backward(g)
     if ops.flash_attention_cuda.launches - before != 1:
         raise AssertionError("the autograd function did not launch the "
                              "kernel exactly once")
-    ref.attention_gqa(*plain, causal=True).backward(g)
+    ref.attention_gqa(*plain, causal=causal).backward(g)
     torch.cuda.synchronize()
     errs = []
     for name, a, w in zip("qkv", kern, plain):
         torch.testing.assert_close(a.grad, w.grad, rtol=1e-4, atol=1e-5)
         errs.append(f"d{name} {float((a.grad - w.grad).abs().max()):.3e}")
-    log(f"  flash_attention grads ({b}, {n}, {s}, {h}) kv {nkv}: max|err| "
+    log(f"  flash_attention grads ({b}, {n}, {s}, {h}) kv {nkv}"
+        + ("" if sk is None else f" over {sk} keys")
+        + f" causal={causal}: max|err| "
         + ", ".join(errs) + " (rtol 1e-4, atol 1e-5)")
 
 
@@ -3471,9 +3507,9 @@ def run_service_path():
 # a rank of a torch.distributed group over a file store. (b) and (c) put
 # two ranks on the one card, which NCCL refuses, so they take gloo
 # (REPRO_DIST_BACKEND=gloo: every collective staged through host memory)
-MESH_CLIENTS, MESH_ROUNDS = 4, 2
+MESH_CLIENTS, MESH_ROUNDS = 4, 1
 # depth cut for time: a third of the transformer path's private set a
-# client (its 6000 over 10), a quarter of its test set
+# client (its 6000 over 10), a quarter of its test set, one round (was 2)
 MESH_N_TRAIN, MESH_N_TEST = 800, 256
 # (c)'s training step on a rank: 4 clients' batches of 64 folded, 16 of
 # granite-8b's 32 query heads and 4 of its 8 kv heads
@@ -3925,10 +3961,13 @@ def run_mesh_path(smi):
 # granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base): 24
 # layers, d 1024, 16/8 heads of 64, 32 experts, top 8, expert ff 512,
 # vocab 49155, 1.385 B parameters. (a) trains the whole model at
-# launch.train's defaults (50 steps); (c) cuts depth to 2 layers, widths
-# as published
+# launch.train's defaults but its steps (``MOE_STEPS``); (c) cuts depth
+# to 2 layers, widths as published
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 50, 8, 128, 3e-4
+# (a)'s steps, cut from launch.train's 50 for time (the encoder and vlm
+# families' runs took it)
+MOE_STEPS = 25
 TRAIN_PLAIN_STEPS = 3
 TRAIN_ATTN = (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 64)     # B6 on (a)'s path
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_CACHE = 4, 16, 16, 64
@@ -3941,19 +3980,20 @@ FD_KL = (FD_CLIENTS * FD_BATCH, 49155)               # the fused loss's rows
 # 1024, 4 heads, vocab 50304) and (e) recurrentgemma-2b (arXiv:2402.19427:
 # 26 // 3 = 8 groups of two RG-LRU blocks and a local-attention block, d
 # 2560, 10/1 heads of 256, ff 7680, window 2048, vocab 256000):
-# launch.train at (a)'s settings (the reference's 50 steps), decode at
+# launch.train at (a)'s settings (steps below), decode at
 # (b)'s on the whole model, and the FD trainer at one group (a depth cut,
 # widths as published): (label, arch, the FD trainer's layers, training
-# steps, the trainer's layers or None for the whole model). Two cuts:
-# (d)'s steps from 50 to 12 for time (its sLSTM time loop is host-bound,
-# ~4.8 s a step on the card), and (e)'s training depth from 8 groups to 6
-# (18 layers; decode stays whole): the whole model's AdamW step ran out
-# of the card's 79.18 GiB (parameters, gradients and both moments 50.2
-# GiB, then the update's temporaries of the 2.44 GiB embedding and head)
-RECURRENT_RUNS = (("(d)", "xlstm-350m", 2, 12, None),
-                  ("(e)", "recurrentgemma-2b", 3, TRAIN_STEPS, 18))
+# steps, the trainer's layers or None for the whole model). Three cuts:
+# (d)'s steps from 50 to 8 and (e)'s to 25 for time (the sLSTM's time
+# loop is host-bound, ~5 s a step on the card), and (e)'s training depth
+# from 8 groups to 6 (18 layers; decode stays whole): the whole model's
+# AdamW step ran out of the card's 79.18 GiB (parameters, gradients and
+# both moments 50.2 GiB, then the update's temporaries of the 2.44 GiB
+# embedding and head)
+RECURRENT_RUNS = (("(d)", "xlstm-350m", 2, 8, None),
+                  ("(e)", "recurrentgemma-2b", 3, 25, 18))
 # the sLSTM's plain-autograd route, timed beside its custom backward
-SLSTM_PLAIN_STEPS = 2
+SLSTM_PLAIN_STEPS = 1
 # xLSTM's replay against its prefill, as a relative Frobenius gap: in
 # float64 the two agree to 8e-11 at full depth, while float32 alone puts
 # the prefill 1.0e-3 (relative) from float64 there, through 12 groups'
@@ -4036,7 +4076,7 @@ def fd_step_child(spec):
             "launches": {n: w.launches for n, w in wrappers.items()}}
 
 
-def profile_train_step(model, cfg, steps=2, top=14):
+def profile_train_step(model, cfg, steps=2, top=14, label="(a)"):
     """Two more training steps of ``model`` under ``torch.profiler``
     (CUPTI): the ops with the most device time, each with its calls, and
     the steps' device total; "not measured" when the trace holds no
@@ -4065,11 +4105,12 @@ def profile_train_step(model, cfg, steps=2, top=14):
             and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     if not rows:
-        log("  (a) profile of a training step: not measured (no device "
-            "time in the trace)")
+        log(f"  {label} profile of a training step: not measured (no "
+            "device time in the trace)")
         return
     rows.sort(key=lambda e: -e.self_device_time_total)
-    log(f"  (a) profile of a training step (torch.profiler, {steps} steps): "
+    log(f"  {label} profile of a training step (torch.profiler, {steps} "
+        "steps): "
         f"device time {total:.2f} ms a step, by op (ms a step, calls):")
     for e in rows[:top]:
         log(f"    {e.key[:60]}: {e.self_device_time_total / 1e3 / steps:.2f}"
@@ -4126,7 +4167,7 @@ def run_trainer_path(smi):
     with CountedCalls(fa_ops, "_launch",
                       key=lambda q, *_: tuple(q.shape)) as by_shape:
         losses, secs, model = train.train(
-            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            cfg, steps=MOE_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             lr=TRAIN_LR, device="cuda", log_every=10, model=model,
             say=lambda m: log("    " + m))
     torch.cuda.synchronize()
@@ -4143,7 +4184,7 @@ def run_trainer_path(smi):
                              f"the long route's {want}")
     step_s = sum(secs[1:]) / len(secs[1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    log(f"  (a) launch.train {cfg.name}, {TRAIN_STEPS} steps of "
+    log(f"  (a) launch.train {cfg.name}, {MOE_STEPS} steps of "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR:g} ({smi}): step "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, the first batch's "
         f"loss {before:.4f} -> {after:.4f}; first step {secs[0]:.3f} s, "
@@ -4158,7 +4199,7 @@ def run_trainer_path(smi):
     gc.collect()
     torch.cuda.empty_cache()
     model = drawn()
-    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, MOE_STEPS))
     opt_state = opt.init(list(model.parameters()))
     step = train.make_train_step(model, opt)
     next_batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
@@ -4594,6 +4635,489 @@ def measure_flash_local(launches, err):
             "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+# ------------------------------- phase 6, the encoder and cross-attention
+# families (ROADMAP A11.2): (f) hubert-xlarge (arXiv:2106.07447; 48
+# layers, d 1280, 16 heads of 80, ff 5120, 504 units, 1.26 B parameters)
+# whole, launch.train's 50 steps of 8 x 128 frames; (g) llama-3.2-vision-90b
+# (hf:meta-llama/Llama-3.2-11B-Vision; d 8192, 64/8 heads of 128, ff
+# 28672, vocab 128256, 1601 vision tokens) at full widths, its depth cut:
+# the whole model (90.7 B parameters) does not fit one card, so one group
+# (4 self and 1 cross block) runs a train_loss forward and backward (no
+# optimizer step: any optimizer state on top of 6.5 B parameters and their
+# gradients needs at least ~78 GB more), two groups run prefill and decode
+ENC_ARCH, VLM_ARCH = "hubert-xlarge", "llama-3.2-vision-90b"
+VLM_GRAD_GROUPS, VLM_DECODE_GROUPS = 1, 2
+VLM_GATE = 0.5                 # tanh(0) at init would hide the cross path
+VISION_KEYS = 1601
+# B6 on these paths (b, n, nkv, s, h, keys): hubert's heads of 80, full,
+# on the short and the long route; the vlm's cross-attention over the
+# vision keys on the long route (training) and the short route (decode's
+# prefill of 16)
+ENC_ATTN = ((TRAIN_BATCH, 16, 16, 16, 80, None),
+            (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 80, None))
+CROSS_ATTN = ((TRAIN_BATCH, 64, 8, TRAIN_SEQ, 128, VISION_KEYS),
+              (DECODE_BATCH, 64, 8, DECODE_PROMPT, 128, VISION_KEYS))
+
+
+def check_family_kernels():
+    """Phase 3 for the encoder and vlm families: B6 at h = 80 on both
+    routes (full and causal; the short route also on a poisoned output,
+    where a column left unwritten fails: chunks 16-19 of a row are lanes
+    0-3's third chunk) and at the cross-attention shapes over 1601 keys,
+    each against its plain version; the autograd function at hubert's and
+    the cross block's training shapes. Returns the max abs errors by
+    shape."""
+    errs = {}
+    for b, n, nkv, s, h, sk in ENC_ATTN + CROSS_ATTN:
+        errs[(b, n, nkv, s, h, sk)] = check_flash(b, n, nkv, s, h,
+                                                  causal=False, sk=sk)
+    for b, n, nkv, s, h, _ in ENC_ATTN:
+        check_flash(b, n, nkv, s, h, causal=True)
+    check_flash(*ENC_ATTN[0][:5], causal=False, seed=1, poison=True)
+    check_flash(3, 16, 16, 5, 80, causal=False, sk=37, poison=True)
+    check_flash_grads(*ENC_ATTN[1][:5], causal=False)
+    b, n, nkv, s, h, sk = CROSS_ATTN[0]
+    check_flash_grads(2, n, nkv, s, h, causal=False, sk=sk)
+    return errs
+
+
+def check_privacy():
+    """Phase 4: the proxy's Gaussian mechanism on the card (a CUDA
+    generator): the main path's proxy set (mnist_feat, 10 clients strong,
+    n_train 60000; its first 512 rows of 50) clipped, every row's norm at
+    most clip_norm + 1e-4; the noise's std on 2000 x 8 zeros within 10% of
+    sigma; then tests/test_privacy.py's trade-off from numpy seeds (300
+    private rows N(0, 1) in 8 dimensions, 100 OOD rows shifted by 8): a
+    KMeans-DRE fitted through B1 on the private rows, the privatized rows
+    filtered through B2, the balanced accuracy above 0.8 at epsilon 100
+    (clip 10), printed at 1 and 0.05 too."""
+    import numpy as np
+    import torch
+    from repro_torch.core import privacy as P
+    from repro_torch.core.dre import KMeansDRE
+    from repro_torch.data.partition import partition
+    from repro_torch.data.proxy import build_proxy
+    from repro_torch.data.synthetic import make_dataset
+    log("[4] the proxy's Gaussian mechanism on the card (core/privacy.py)")
+    ds = make_dataset("mnist_feat", n_train=60000, n_test=10000, seed=0)
+    parts = partition(ds.x, ds.y, num_clients=10, num_classes=ds.num_classes,
+                      scenario="strong", seed=0)
+    proxy = torch.as_tensor(build_proxy(parts, 0.1, seed=0).x[:512],
+                            device="cuda")
+    dp = P.make_dp(epsilon=1.0, clip_norm=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = P.privatize_proxy(gen, proxy, dp)
+    norms = P.clip_samples(proxy, dp.clip_norm).norm(dim=1)
+    zeros = P.privatize_proxy(gen, torch.zeros((2000, 8), device="cuda"),
+                              dp)
+    std = float(zeros.std())
+    if out.device.type != "cuda" or out.shape != proxy.shape \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"privatize_proxy gave {out.shape} on "
+                             f"{out.device}")
+    if not float(norms.max()) <= dp.clip_norm + 1e-4:
+        raise AssertionError(f"clipped norms up to {float(norms.max())}")
+    if not abs(std - dp.sigma) / dp.sigma < 0.1:
+        raise AssertionError(f"noise std {std}, sigma {dp.sigma}")
+    log(f"  proxy {tuple(proxy.shape)} (raw norms up to "
+        f"{float(proxy.norm(dim=1).max()):.3f}): clipped norms up to "
+        f"{float(norms.max()):.6f} (clip {dp.clip_norm:g} + 1e-4); noise "
+        f"std on 2000 x 8 zeros {std:.4f} against sigma {dp.sigma:.4f} "
+        f"({abs(std - dp.sigma) / dp.sigma:.2%}, within 10%)")
+    rng = np.random.default_rng(5)
+    private = torch.as_tensor(rng.standard_normal((300, 8)).astype(
+        np.float32), device="cuda")
+    ood = torch.as_tensor(rng.standard_normal((100, 8)).astype(
+        np.float32) + 8.0, device="cuda")
+    wrappers = launch_counts()
+    before = {n: w.launches for n, w in wrappers.items()}
+    dre = KMeansDRE(num_centroids=1).learn(
+        private, generator=torch.Generator().manual_seed(2))
+    accs = {}
+    for i, eps in enumerate((100.0, 1.0, 0.05)):
+        dpi = P.make_dp(epsilon=eps, clip_norm=10.0)
+        noisy_id = P.privatize_proxy(torch.Generator(
+            device="cuda").manual_seed(3 + i), private, dpi)
+        noisy_ood = P.privatize_proxy(torch.Generator(
+            device="cuda").manual_seed(13 + i), ood, dpi)
+        accs[eps] = (float(dre.is_id(noisy_id).float().mean())
+                     + 1 - float(dre.is_id(noisy_ood).float().mean())) / 2
+    launched = {n: w.launches - before[n] for n, w in wrappers.items()
+                if w.launches != before[n]}
+    if not launched.get("lloyd_step") or not launched.get(
+            "min_dist_and_mask"):
+        raise AssertionError(f"the DRE did not run B1 and B2: {launched}")
+    if not accs[100.0] > 0.8 or not accs[100.0] >= accs[0.05]:
+        raise AssertionError(f"balanced accuracies {accs}")
+    log("  KMeans-DRE (B1 fit, B2 filter) on privatized rows, balanced "
+        "accuracy by epsilon (clip 10): "
+        + ", ".join(f"{e:g}: {a:.4f}" for e, a in accs.items())
+        + f" (> 0.8 at 100); launches {json.dumps(launched)}")
+
+
+def set_gates(model, value=VLM_GATE):
+    """Every vlm group's ``gate_attn`` and ``gate_mlp`` to ``value``."""
+    import torch
+    with torch.no_grad():
+        for grp in model.blocks:
+            grp["cross"]["gate_attn"].fill_(value)
+            grp["cross"]["gate_mlp"].fill_(value)
+
+
+def attn_by_shape(fa_ops):
+    """B6's launches by (B, N, Sq, h, Sk) of the operands its autograd
+    function hands the launch."""
+    return CountedCalls(fa_ops, "_launch",
+                        key=lambda q, k, *_: (*q.shape, k.shape[2]))
+
+
+def run_encoder(smi, wrappers):
+    """(f): ``launch.train`` on hubert-xlarge whole at (a)'s settings, the
+    first batch's loss falling, B6 launched only on its long route at
+    h = 80, full, 48 a step; the first 3 steps again from the same
+    weights, each held to the plain attention's loss on the same weights
+    and batch (rtol 1e-3); two more steps profiled."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    t0 = time.perf_counter()
+    cfg = get_arch(ENC_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def drawn():
+        return Transformer(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+    model = drawn()
+    built = sum(p.numel() for p in model.parameters())
+    log(f"  (f) {cfg.name} ({cfg.family}), {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+        f"ff {cfg.d_ff}, {cfg.vocab_size} units: {built} parameters built "
+        f"(cfg.param_count() {cfg.param_count()}; {smi})")
+    first = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")()
+    with torch.no_grad():
+        before = float(T.train_loss(model, first)[0])
+    for w in wrappers.values():
+        w.launches = 0
+    with attn_by_shape(fa_ops) as by_shape:
+        losses, secs, model = train.train(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            lr=TRAIN_LR, device="cuda", log_every=10, model=model,
+            say=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    with torch.no_grad():
+        after = float(T.train_loss(model, first)[0])
+    if not all(finite(v) for v in losses) or not after < before:
+        raise AssertionError(f"(f) the first batch's loss did not fall: "
+                             f"{before} -> {after}; steps {losses}")
+    want = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, 80, TRAIN_SEQ)
+    if by_shape.by_key != {want: cfg.num_layers * TRAIN_STEPS}:
+        raise AssertionError(f"(f) B6 launches {by_shape.by_key}, not "
+                             f"{cfg.num_layers} a step at {want}")
+    step_s = sum(secs[1:]) / len(secs[1:])
+    log(f"  (f) launch.train {cfg.name}, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} frames, lr {TRAIN_LR:g} ({smi}): step "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, the first batch's "
+        f"loss {before:.4f} -> {after:.4f}; first step {secs[0]:.3f} s, "
+        f"then {step_s:.4f} s a step ({min(secs[1:]):.4f}-"
+        f"{max(secs[1:]):.4f}), {TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} "
+        f"frames/s; peak {peak / 2**30:.3f} GiB; launches "
+        f"{json.dumps(launches)} (B6 by (B, N, Sq, h, Sk), full: "
+        f"{by_shape.by_key})")
+    profile_train_step(model, cfg, label="(f)")
+    res = dict(step_s=step_s, peak=peak, losses=losses,
+               launches=dict(by_shape.by_key))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = drawn()
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    opt_state = opt.init(list(model.parameters()))
+    step = train.make_train_step(model, opt)
+    next_batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     device="cuda")
+    again, plain = [], []
+    n0 = wrappers["flash_attention"].launches
+    for _ in range(TRAIN_PLAIN_STEPS):
+        batch = next_batch()
+        model.kernel_backend = "torch"
+        with torch.no_grad():
+            plain.append(float(T.train_loss(model, batch)[0]))
+        model.kernel_backend = None
+        opt_state, loss = step(opt_state, batch)
+        again.append(float(loss))
+    if wrappers["flash_attention"].launches - n0 != \
+            cfg.num_layers * TRAIN_PLAIN_STEPS:
+        raise AssertionError("(f) the plain route launched B6, or the "
+                             "kernel route did not")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(plain, again))
+    log(f"  (f) the first {TRAIN_PLAIN_STEPS} steps again from the same "
+        f"weights: the kernel route's losses {again} (bitwise (f)'s: "
+        f"{again == losses[:TRAIN_PLAIN_STEPS]}); the plain attention's on "
+        f"the same weights and batch {plain}; largest relative gap "
+        f"{gap:.3e} (rtol 1e-3)")
+    if again != losses[:TRAIN_PLAIN_STEPS]:
+        raise AssertionError("(f) two identical training runs differ")
+    if not gap <= 1e-3:
+        raise AssertionError(f"(f) plain and kernel losses part by {gap}")
+    del model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (f) took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def run_vlm(smi, wrappers):
+    """(g): llama-3.2-vision-90b at full widths, depth cut. One group
+    (``VLM_GRAD_GROUPS``), gates at ``VLM_GATE``: ``train_loss`` forward
+    and backward on one batch of 8 x 128 tokens with their 1601 vision
+    embeddings (``make_batch_fn``'s), held to the plain attention on the
+    same weights and batch (loss and every gradient leaf's norm, rtol
+    1e-3), B6 on its long route for the self blocks (causal) and the cross
+    block (full, over 1601 keys). Then two groups: a prefill of batch 4 x
+    16 with vision, ``init_cache(vision=, params=)``, the prompt replayed
+    through ``decode_step`` and held to the prefill's logits (2e-2
+    elementwise, the reference's test tolerance), and 16 greedy new
+    tokens. Then ``launch.train.main`` at ``--reduced`` for its 50 steps
+    (the vision batches through main)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Transformer
+    t0 = time.perf_counter()
+    whole = get_arch(VLM_ARCH)
+    per = whole.cross_attn_every
+    res = {}
+
+    def drawn(groups):
+        cfg = dataclasses.replace(whole, num_layers=groups * per)
+        m = Transformer(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        set_gates(m)
+        log(f"  (g) {cfg.name} ({cfg.family}) at {groups} of "
+            f"{whole.num_layers // per} groups ({cfg.num_layers} layers, a "
+            f"depth cut), d {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_vision_tokens} "
+            f"vision tokens: {sum(p.numel() for p in m.parameters())} "
+            f"parameters built (cfg.param_count() {cfg.param_count()}; "
+            f"whole {whole.param_count()}), gates {VLM_GATE}")
+        return cfg, m
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = drawn(VLM_GRAD_GROUPS)
+    batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")()
+    params = list(model.parameters())
+    out = {}
+    for w in wrappers.values():
+        w.launches = 0
+    for route in (None, "torch"):
+        model.kernel_backend = route
+        n0 = wrappers["flash_attention"].launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with attn_by_shape(fa_ops) as by_shape:
+            loss, _ = T.train_loss(model, batch)
+            grads = torch.autograd.grad(loss, params)
+        norms = [float(g.double().norm()) for g in grads]
+        del grads
+        torch.cuda.synchronize()
+        out[route] = dict(loss=float(loss.detach()), norms=norms,
+                          s=time.perf_counter() - t,
+                          launches=wrappers["flash_attention"].launches - n0,
+                          by_shape=dict(by_shape.by_key))
+        del loss
+    model.kernel_backend = None
+    peak = torch.cuda.max_memory_allocated()
+    k_run, p_run = out[None], out["torch"]
+    loss_gap = abs(k_run["loss"] - p_run["loss"]) / abs(p_run["loss"])
+    norm_gap = max(abs(a - b) / max(b, 1e-30)
+                   for a, b in zip(k_run["norms"], p_run["norms"]))
+    want = {(TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, 128, TRAIN_SEQ):
+            VLM_GRAD_GROUPS * (per - 1),
+            (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, 128, VISION_KEYS):
+            VLM_GRAD_GROUPS}
+    log(f"  (g) train_loss forward and backward, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens with {TRAIN_BATCH} x {VISION_KEYS} vision "
+        f"embeddings ({smi}): loss {k_run['loss']:.6f} (plain attention "
+        f"{p_run['loss']:.6f}, relative gap {loss_gap:.3e}, rtol 1e-3); "
+        f"{len(k_run['norms'])} gradient leaves' norms within "
+        f"{norm_gap:.3e} (rtol 1e-3); {k_run['s']:.3f} s (plain {p_run['s']:.3f}); peak "
+        f"{peak / 2**30:.3f} GiB; B6 by (B, N, Sq, h, Sk) "
+        f"{k_run['by_shape']} (plain route {p_run['launches']})")
+    if not finite(k_run["loss"]) or not loss_gap <= 1e-3 \
+            or not norm_gap <= 1e-3:
+        raise AssertionError(f"(g) kernel and plain part: loss gap "
+                             f"{loss_gap}, norm gap {norm_gap}")
+    if k_run["by_shape"] != want or p_run["launches"]:
+        raise AssertionError(f"(g) B6 launches {k_run['by_shape']} (want "
+                             f"{want}), plain route {p_run['launches']}")
+    res.update(grad_s=k_run["s"], grad_peak=peak,
+               launches=dict(k_run["by_shape"]))
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = drawn(VLM_DECODE_GROUPS)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)), device="cuda")
+    vision = torch.as_tensor(rng.standard_normal(
+        (DECODE_BATCH, VISION_KEYS, cfg.d_model)).astype(np.float32),
+        device="cuda")
+
+    def prefill_then_decode(n_new):
+        prefill = model(prompt, vision=vision)
+        cache = T.init_cache(cfg, DECODE_BATCH, DECODE_CACHE, torch.float32,
+                             device="cuda", vision=vision, params=model)
+        replay = []
+        for t in range(DECODE_PROMPT):
+            lg, cache = T.decode_step(model, prompt[:, t:t + 1], cache, t)
+            replay.append(lg[:, 0])
+        toks = []
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        for i in range(n_new):
+            toks.append(tok)
+            lg, cache = T.decode_step(model, tok, cache, DECODE_PROMPT + i)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+        return torch.cat(toks, dim=1), prefill, torch.stack(replay, dim=1)
+
+    with torch.no_grad():
+        prefill_then_decode(1)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        with attn_by_shape(fa_ops) as by_shape:
+            toks, prefill, replay = prefill_then_decode(DECODE_NEW)
+        toks = toks.cpu()
+        dec_s = time.perf_counter() - t
+    err = float((replay - prefill).abs().max())
+    if not bool(torch.isfinite(prefill).all()):
+        raise AssertionError("(g) non-finite prefill logits")
+    torch.testing.assert_close(replay, prefill, rtol=DECODE_RTOL,
+                               atol=DECODE_ATOL)
+    if toks.shape != (DECODE_BATCH, DECODE_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"(g) generated {toks}")
+    want = {(DECODE_BATCH, cfg.num_heads, DECODE_PROMPT, 128, DECODE_PROMPT):
+            VLM_DECODE_GROUPS * (per - 1),
+            (DECODE_BATCH, cfg.num_heads, DECODE_PROMPT, 128, VISION_KEYS):
+            VLM_DECODE_GROUPS}
+    if by_shape.by_key != want:
+        raise AssertionError(f"(g) prefill B6 launches {by_shape.by_key}, "
+                             f"not {want}")
+    res.update(dec_s=dec_s, dec_tok_s=DECODE_BATCH * DECODE_NEW / dec_s,
+               dec_err=err, prefill_launches=dict(by_shape.by_key))
+    log(f"  (g) prefill (vision {DECODE_BATCH} x {VISION_KEYS}), "
+        f"init_cache(vision=, params=), the prompt's replay and "
+        f"{DECODE_NEW} new tokens, batch {DECODE_BATCH}, prompt "
+        f"{DECODE_PROMPT}, cache {DECODE_CACHE} ({smi}): {dec_s:.3f} s, "
+        f"{res['dec_tok_s']:.1f} new tokens/s; the replay's logits against "
+        f"the prefill's max|err| {err:.3e} (rtol, atol {DECODE_RTOL:g}); "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; B6 "
+        f"by (B, N, Sq, h, Sk) {by_shape.by_key}; tokens "
+        f"{toks[0, :8].tolist()}")
+    del model, prefill, replay, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    losses = train.main(["--arch", VLM_ARCH, "--reduced", "--log-every",
+                         "25"])
+    log(f"  (g) launch.train.main --arch {VLM_ARCH} --reduced: "
+        f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (g) took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def run_family_paths(smi):
+    """The trainer path's (f) and (g), their launches counted from 0."""
+    wrappers = launch_counts()
+    return {"f": run_encoder(smi, wrappers), "g": run_vlm(smi, wrappers)}
+
+
+def measure_families(out, errs):
+    """Phase 7's B6 rows at the encoder and vlm families' shapes (full
+    attention): hubert's h = 80 on both routes, the cross-attention over
+    1601 vision keys on both, per call and device only, beside the plain
+    version and scaled_dot_product_attention (timed only). Launches: (f)'s
+    training and (g)'s gradient pass and prefill."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    launches = {}
+    for by_shape in (out["f"]["launches"], out["g"]["launches"],
+                     out["g"]["prefill_launches"]):
+        for key, n in by_shape.items():
+            launches[key] = launches.get(key, 0) + n
+    names = {ENC_ATTN[0]: "flash_attention_h80_short",
+             ENC_ATTN[1]: "flash_attention_h80_long",
+             CROSS_ATTN[0]: "flash_attention_cross_long",
+             CROSS_ATTN[1]: "flash_attention_cross_short"}
+    rows = []
+    for shape, name in names.items():
+        b, n, nkv, s, h, sk = shape
+        sk = s if sk is None else sk
+        q, k, v = map(model_layout, attn_inputs(b, n, nkv, s, h, seed=3,
+                                                sk=sk))
+        moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+        flops = b * n * s * sk * (4 * h + 5)
+        iters, warm = (50, 5) if sk > 1024 else (200, 20)
+
+        def kern():
+            return ops.flash_attention_cuda(q, k, v, False)
+
+        def plain():
+            return ref.attention_gqa(q, k, v, causal=False)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        ms = time_ms(kern, iters, warm)
+        plain_ms = time_ms(plain, iters, warm)
+        lib_ms = time_ms(library, iters, warm)
+        b_ms, b_by = bound(moved, flops)
+        dev = device_ms(kern)
+        log(f"  {name} ({b}, {n}, {s}, {h}) kv {nkv} over {sk} keys, full, "
+            f"model layout: kernel {ms:.5f} plain {plain_ms:.5f} library "
+            f"{lib_ms:.5f} bound {b_ms:.6f} ({b_by}: {moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP); device only: kernel {fmt(dev)} plain "
+            f"{fmt(device_ms(plain))} library {fmt(device_ms(library))}; "
+            "share of the bound, device only: "
+            + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:76",
+                     "launches": launches.get((b, n, s, h, sk), 0),
+                     "max_abs_err": errs[shape], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+    return rows
 
 
 # ----------------------------------------------------------------- phase 7
@@ -5418,7 +5942,9 @@ def main(argv) -> int:
         return 0
     if trainer_only:
         errs = check_trainer_kernels()
+        family_errs = check_family_kernels()
         rows = measure_trainer(run_trainer_path(smi), *errs)
+        rows += measure_families(run_family_paths(smi), family_errs)
         log(smi)
         print(json.dumps({"kernels": rows}))
         return 0
@@ -5430,9 +5956,11 @@ def main(argv) -> int:
             f"{laps[-1] - laps[-2]:.1f} s")
     (lloyd_err, kl_err, dist_err, rbf_err, attn_err,
      cohort_err) = check_kernels()
+    family_errs = check_family_kernels()
     lap("phase 3")
     check_kmeans_agreement()
     check_kmeans_batched()
+    check_privacy()
     lap("phase 4")
     check_small_run()
     check_small_scheduler_runs()
@@ -5455,6 +5983,7 @@ def main(argv) -> int:
     lap("phase 6, the mesh path")
     trainer_errs = check_trainer_kernels()
     trainer = run_trainer_path(smi)
+    families = run_family_paths(smi)
     lap("phase 6, the trainer path")
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
@@ -5462,6 +5991,7 @@ def main(argv) -> int:
     rows += measure_fleet(at_fleet_wave, cohort_err["fleet"])
     rows.append(measure_flash_local(local_launches, local_err))
     rows += measure_trainer(trainer, *trainer_errs)
+    rows += measure_families(families, family_errs)
     lap("phase 7")
 
     log(smi)

@@ -1,10 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke variants.
 
 The ten records are data copied from the reference ``repro.configs``
-(same names, aliases and published widths). The ``dense``, ``moe``,
-``ssm`` and ``hybrid`` families have a model in the port
-(``repro_torch.models.transformer``); the others are here so that
-``get_arch`` and ``reduced`` resolve every name the reference resolves.
+(same names, aliases and published widths); every family has a model in
+the port (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

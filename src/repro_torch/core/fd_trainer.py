@@ -17,6 +17,12 @@ the reference's), form the ensemble teacher with one all-reduce
 ``CE(private) + λ·T²·KL(student ∥ teacher)`` (``fd_loss``: the fused KL
 loss on the card). ``fd_round_local`` is the single-process form that
 iterates the clients and aggregates like the hub; the two agree.
+
+The dense, moe, ssm and hybrid families only: the vlm's forward needs
+vision embeddings the proxy has not got, and audio has no token
+embedding to pool (the reference's functions fail there too, on the
+missing vision and on ``KeyError: 'embed'``), so every entry point here
+raises a ``ValueError`` for them.
 """
 from __future__ import annotations
 
@@ -36,10 +42,21 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.optim.optimizers import apply_updates
 
 
+def refuse_family(cfg: ArchConfig) -> None:
+    """The FD trainer takes token backbones only (module docstring)."""
+    if cfg.family in ("vlm", "audio"):
+        raise ValueError(
+            f"the FD trainer has no path for family {cfg.family!r} "
+            f"({cfg.name}): "
+            + ("its forward needs vision embeddings" if cfg.family == "vlm"
+               else "it has no token embedding"))
+
+
 def proxy_features(model: Transformer, proxy_tokens: torch.Tensor
                    ) -> torch.Tensor:
     """The reference's filter space for token data: pooled input
     embeddings (model-independent across heterogeneous clients)."""
+    refuse_family(model.cfg)
     return model.features(proxy_tokens)
 
 
@@ -60,6 +77,7 @@ class _CentroidDRE:
 
 
 def _filter_mask(model, proxy_tokens, proxy_owner, centroids, thr, cid):
+    # the first call of every round: proxy_features refuses vlm and audio
     with torch.no_grad():
         feats = proxy_features(model, proxy_tokens)
     return two_stage_filter(_CentroidDRE(centroids, thr), feats,
@@ -73,6 +91,7 @@ def fd_loss(model: Transformer, private_batch: Dict[str, torch.Tensor],
     """Combined objective: local CE (+ the experts' aux loss) plus the
     weighted distillation KL on each proxy sequence's last position
     (``teacher`` (t, V), or (t, S, V) whose last position is taken)."""
+    refuse_family(model.cfg)
     ce, metrics = T.train_loss(model, private_batch, remat=remat)
     student_logits, _ = model.forward_aux(proxy_tokens, remat=remat)
     kl = kd_kl_loss(student_logits[:, -1],
@@ -153,8 +172,9 @@ def fd_round_local(optimizer, client_states, private_batches, proxy_tokens,
 
 
 class TransformerClientModel(nn.Module):
-    """A backbone (``models.transformer``: dense, moe, ssm or hybrid)
-    whose output is the last position's logits.
+    """A backbone (``models.transformer``: dense, moe, ssm or hybrid; the
+    vlm and audio families raise) whose output is the last position's
+    logits.
 
     ``kernel_backend`` routes the backbone's attention
     (``kernels.dispatch``): the client's own setting, so ``"torch"`` means
@@ -169,6 +189,7 @@ class TransformerClientModel(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  kernel_backend: Optional[str] = None, home=None):
         super().__init__()
+        refuse_family(cfg)
         self.cfg = cfg
         self.backbone = Transformer(cfg, generator=generator, device=device,
                                     kernel_backend=kernel_backend, home=home)

@@ -44,6 +44,17 @@
 // of two blocks an SM. Two blocks of 256 threads leave 128 registers a
 // thread: 124 at h = 128, no spills.
 //
+// Head widths: 16, 32, 64, 128 and (hubert-xlarge, d 1280 over 16 heads)
+// 80. At 80 a row is 20 chunks, so the short route's lanes hold chunks
+// kx, kx + 8 and, lanes 0-3 only, kx + 16 (owns_chunk); the long route's
+// 16 threads a row take 5 columns each.
+//
+// Full attention with Sk != Sq (the vlm's cross-attention: 128 or 16
+// queries over 1601 vision keys) runs on both routes as any other: the
+// key loop ends at Sk and the ragged last tile's keys past Sk are masked
+// in place (the reference's wrapper pads Sk to 256-key blocks and masks
+// keys at or past kv_len; no padding copy is made here).
+//
 // Long route (Sq > 32, off the transformer path): one block of 256
 // threads per (64-row query tile, head, batch) loops over 32-key tiles in
 // shared memory (padded rows, 4-byte loads), each thread 4 rows x 2 keys
@@ -83,8 +94,14 @@ constexpr int STHREADS = 32 * SBM / WROWS;  // 8 warps
 constexpr int SBLOCKS = 2;                // blocks an SM (<= 128 registers)
 constexpr int NSTAGE = 2;                 // shared-memory stages a block
 
+// A padded shared row: HD + 4 floats, whole 16-byte chunks, so every TMA
+// row copy lands 16-byte aligned. The eight keys a warp reads at one chunk
+// start 4 * (HD / 4 + 1) banks apart mod 32, which is conflict-free when
+// HD / 4 + 1 is odd (h = 16, 32, 64, 128: 5, 9, 17, 33; h = 80: 21).
 template <int HD>
-__host__ __device__ constexpr int row_floats() {  // padded shared row
+__host__ __device__ constexpr int row_floats() {
+  static_assert(HD % 4 == 0 && (HD / 4 + 1) % 2 == 1,
+                "rows of whole chunks, an odd count of them padded");
   return HD + 4;
 }
 
@@ -201,6 +218,15 @@ __device__ __forceinline__ void tile_scores(const float* s_q,
   }
 }
 
+// Whether lane kx (0..7 of a row's eight) holds output chunk kx + 8cc of a
+// row of C chunks: always when C is a multiple of 8 (compiled away), else
+// only below C (h = 16: lanes 0-3; h = 80: every lane for cc < 2, lanes
+// 0-3 for cc = 2).
+template <int C>
+__device__ __forceinline__ bool owns_chunk(int kx, int cc) {
+  return C % 8 == 0 || kx + 8 * cc < C;
+}
+
 // One work item of the short route: a row tile of one (batch, kv head).
 // Tile row r is position (r0 + r) / group of query head
 // kvh * group + (r0 + r) % group.
@@ -296,7 +322,11 @@ __global__ void __launch_bounds__(STHREADS, SBLOCKS)
 attention_short_kernel(const ShortArgs a) {
   constexpr int LD = row_floats<HD>();
   constexpr int C = HD / 4;               // 16-byte chunks a row
-  constexpr int RC = C < 8 ? 1 : C / 8;   // output chunks a thread
+  // output chunks a thread: lane kx holds chunks kx + 8cc, cc < RC, so RC
+  // rounds up and a ragged last group (C = 20 at h = 80: chunks 16-19 in
+  // lanes 0-3) is masked by owns_chunk
+  constexpr int RC = (C + 7) / 8;
+  static_assert(RC * 8 >= C, "every output chunk has a lane");
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   uint64_t* const bars =
@@ -424,7 +454,7 @@ attention_short_kernel(const ShortArgs a) {
           p[i] = __shfl_sync(FULL, j < 8 ? s[i][0] : s[i][1], j & 7, 8);
 #pragma unroll
         for (int cc = 0; cc < RC; ++cc) {
-          if (C >= 8 || kx < C) {
+          if (owns_chunk<C>(kx, cc)) {
             const float4 vv = ld4(s_v + j * LD + 4 * (kx + 8 * cc));
 #pragma unroll
             for (int i = 0; i < RR; ++i) fma4(acc[i][cc], p[i], vv);
@@ -446,7 +476,7 @@ attention_short_kernel(const ShortArgs a) {
                     pos * a.os.s;
 #pragma unroll
       for (int cc = 0; cc < RC; ++cc) {
-        if (C >= 8 || kx < C) {
+        if (owns_chunk<C>(kx, cc)) {
           const float4 t = acc[i][cc];
           *reinterpret_cast<float4*>(orow + 4 * (kx + 8 * cc)) =
               make_float4(t.x * inv, t.y * inv, t.z * inv, t.w * inv);
@@ -538,6 +568,7 @@ attention_long_kernel(const float* __restrict__ q,
   constexpr int RM = BQ / TY;             // query rows per thread
   constexpr int RN = BK / TX;             // score columns per thread
   constexpr int RC = HD / TX;             // output columns per thread
+  static_assert(HD % TX == 0, "a row's columns split evenly over TX");
   constexpr int QLD = HD + 1;             // padded rows: no bank conflicts
   constexpr int KLD = HD + 1;
   constexpr int PLD = BK + 1;
@@ -704,8 +735,8 @@ extern "C" {
 
 // q (B, N, Sq, h), k and v (B, Nkv, Sk, h), o (B, N, Sq, h), all f32 with
 // the h axis contiguous; strides holds 12 element strides, (batch, head,
-// sequence) of q, k, v and o in that order. h is one of 16, 32, 64, 128;
-// the caller checks shapes, that Nkv divides N, and (for Sq <= 32) that
+// sequence) of q, k, v and o in that order. h is one of 16, 32, 64, 80
+// and 128; the caller checks shapes, that Nkv divides N, and (for Sq <= 32) that
 // every pointer is 16-byte aligned and every stride a multiple of 4.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // any other h).
@@ -734,6 +765,9 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(qp, kp, vp, op, batch, heads, kv_heads, sq, sk, st,
                         scale, causal, s);
+    case 80:
+      return launch<80>(qp, kp, vp, op, batch, heads, kv_heads, sq, sk, st,
+                        scale, causal, s);
     case 128:
       return launch<128>(qp, kp, vp, op, batch, heads, kv_heads, sq, sk, st,
                          scale, causal, s);
@@ -753,6 +787,8 @@ int repro_flash_attention_short_occupancy(int h, int* blocks) {
       return short_occupancy<32>(blocks);
     case 64:
       return short_occupancy<64>(blocks);
+    case 80:
+      return short_occupancy<80>(blocks);
     case 128:
       return short_occupancy<128>(blocks);
     default:

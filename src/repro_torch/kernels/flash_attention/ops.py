@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import require_cuda
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's template instances
 _STRIDES = ctypes.c_longlong * 12
 MAX_GRID_YZ = 65535             # heads and batch are grid axes y and z
 VEC = 4                         # floats in one 16-byte copy

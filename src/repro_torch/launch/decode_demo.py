@@ -6,10 +6,12 @@
 The reference's ``repro.launch.decode_demo`` (its flags and defaults; the
 old name ``launch.serve`` shims here). Runs the dense, moe, ssm (the
 default arch ``xlstm-350m``: a recurrent state in place of a KV cache)
-and hybrid families (``models.transformer``); the vlm family is refused
-naming ROADMAP queue A item 11, and an encoder-only (audio) arch has no
-decode path. ``--device`` defaults to ``cuda`` and raises on a host
-without a CUDA device.
+and hybrid families (``models.transformer``). An encoder-only (audio)
+arch has no decode path (``SystemExit``), and the vlm family fails as
+the reference's does: ``prefill_then_decode`` takes no vision input, so
+its prefill raises a ``ValueError`` naming the missing ``vision``.
+``--device`` defaults to ``cuda`` and raises on a host without a CUDA
+device.
 """
 from __future__ import annotations
 

@@ -3,11 +3,12 @@
 
 The reference's ``repro.launch.train`` (its flags and defaults), one
 process on one device, end to end: config → model → data → optimizer →
-checkpoint. The model is ``models.transformer.Transformer`` (the dense,
-moe, ssm and hybrid families; vlm and audio are refused naming ROADMAP
-queue A item 11), its weights drawn on the device from a ``torch.Generator`` seeded 0;
-the data are ``make_batch_fn``'s Markov-stream batches (numpy, the
-reference's bit for bit); the optimizer is ``adamw`` on
+checkpoint. The model is ``models.transformer.Transformer`` (every
+family), its weights drawn on the device from a ``torch.Generator``
+seeded 0; the data are ``make_batch_fn``'s batches (numpy, the
+reference's bit for bit: Markov-stream tokens, the vlm's with
+``synth_vision`` patch embeddings, audio's ``synth_frames`` and random
+unit labels); the optimizer is ``adamw`` on
 ``linear_warmup_cosine(lr, 10, steps)``; ``--ckpt-dir`` writes the
 weights as the reference's pytree (``jax_params``) through
 ``checkpoint.save_checkpoint``, which the reference's
@@ -27,7 +28,8 @@ import torch
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.common.types import ArchConfig
 from repro_torch.configs import get_arch, reduced as reduce_cfg
-from repro_torch.data.tokens import MarkovTokenStream
+from repro_torch.data.tokens import (MarkovTokenStream, synth_frames,
+                                     synth_vision)
 from repro_torch.fed.simulator import pin_fp32, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates
@@ -36,15 +38,31 @@ from repro_torch.optim.schedules import linear_warmup_cosine
 
 def make_batch_fn(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
                   device="cpu") -> Callable[[], Dict[str, torch.Tensor]]:
-    """The reference's token batches ({tokens, labels} (B, S), labels the
-    next tokens), as int64 tensors on ``device``."""
+    """The reference's batches, drawn in its order, on ``device``:
+    {tokens, labels} (B, S) int64, labels the next tokens; the vlm's
+    also ``vision`` (B, num_vision_tokens, d) f32 from ``synth_vision``
+    (its own rng, seeded ``seed``, drawn after the tokens); audio's
+    {frames (B, S, stub_dim) f32, labels (B, S) int64 units}, frames
+    then labels from that rng."""
     T.refuse_family(cfg)
     stream = MarkovTokenStream(cfg.vocab_size, seed=seed)
+    rng = np.random.default_rng(seed)
+
+    def tensor(a):
+        a = a.astype(np.int64) if a.dtype.kind == "i" else a
+        return torch.as_tensor(a, device=device)
 
     def next_batch():
-        b = stream.batch(batch, seq)
-        return {k: torch.as_tensor(v.astype(np.int64), device=device)
-                for k, v in b.items()}
+        if cfg.family == "audio":
+            frames = synth_frames(rng, batch, seq, cfg.frontend_stub_dim)
+            labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+                np.int32)
+            return {"frames": tensor(frames), "labels": tensor(labels)}
+        out = {k: tensor(v) for k, v in stream.batch(batch, seq).items()}
+        if cfg.family == "vlm":
+            out["vision"] = tensor(synth_vision(
+                rng, batch, cfg.num_vision_tokens, cfg.d_model))
+        return out
 
     return next_batch
 

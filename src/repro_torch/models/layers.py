@@ -21,9 +21,12 @@ every rank from gathered leaves. ``set_attention_options(chunk_q=...)``
 routes full-sequence attention longer than ``chunk_q`` through
 ``chunked_attention`` (the reference's plain query-chunked route, no
 kernel there either), and ``attention_decode`` is one token against a KV
-cache (a ring buffer under a window). The reference's cross-attention
-(``kv_override``) and bf16 partial sums wait for the vlm family (ROADMAP
-queue A item 11).
+cache (a ring buffer under a window). ``attention_forward(...,
+kv_override=(k, v))`` is the vlm family's cross-attention (keys and
+values given, no RoPE). ``set_attention_options(bf16_psum=True)`` gives
+the partial-sum projections (attention out-projection, MLP
+down-projection, the experts' dispatch and combine) a bf16 result, as
+the reference's ``psum_einsum``: computed in f32, rounded once.
 """
 from __future__ import annotations
 
@@ -49,16 +52,25 @@ def set_attention_options(*, chunk_q: int = 0,
                           bf16_psum: bool = False) -> None:
     """``chunk_q > 0``: full-sequence attention over more than ``chunk_q``
     queries runs ``chunked_attention`` (scores a (chunk_q, S) tile at a
-    time). The reference's ``bf16_psum`` (bf16 partial sums of the
-    model-axis projections) is not ported: True raises."""
-    if bf16_psum:
-        raise NotImplementedError(
-            "bf16_psum is not ported yet: ROADMAP queue A item 11")
+    time). ``bf16_psum``: the projections whose results are partial sums
+    over the model axis (attention out-projection, MLP down-projection,
+    the experts' dispatch and combine) give bf16 (``psum_einsum``)."""
     _opts.chunk_q = chunk_q
+    _opts.bf16_psum = bf16_psum
 
 
 def get_chunk_q() -> int:
     return getattr(_opts, "chunk_q", 0)
+
+
+def psum_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of a partial-sum-producing projection: under
+    ``bf16_psum`` its result in bf16, computed in the operands' type and
+    rounded once, as ``jnp.einsum(..., preferred_element_type=bf16)``
+    does on f32 operands."""
+    out = torch.einsum(spec, a, b)
+    return out.to(torch.bfloat16) if getattr(_opts, "bf16_psum", False) \
+        else out
 
 
 def _normal(shape, std: float, generator, device, home=None
@@ -191,28 +203,42 @@ def make_mask(sq: int, sk: int, *, causal: bool, window: int = 0,
 def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
                       positions: Optional[torch.Tensor] = None,
                       causal: bool = True, window: int = 0,
-                      backend: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence self-attention, x (B, S, d) -> (B, S, d).
+                      backend: Optional[str] = None,
+                      kv_override=None) -> torch.Tensor:
+    """Full-sequence attention, x (B, S, d) -> (B, S, d).
 
     ``backend`` picks the attention route (``kernels.dispatch``): the
     reference follows only the ambient policy here, the port also takes
     the client's ``kernel_backend``, so ``"torch"`` means plain attention
-    too. The kv heads go to the dispatch unexpanded."""
+    too. The kv heads go to the dispatch unexpanded. ``kv_override``: (k,
+    v) (B, Sk, n_kv, h) for cross-attention; x gives only the queries
+    (``wq``, ``bq``), and neither side gets RoPE, as the reference's (which
+    also projects x's own k and v and drops them)."""
     mp = sharding.model_parallel_state()
-    if mp is not None:
-        if cfg.num_heads % mp.size == 0:
-            return _attention_heads(p, x, cfg, mp, positions=positions,
-                                    causal=causal, window=window,
-                                    backend=backend)
-        # heads the model axis does not divide: whole on every rank
-        p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
-             for k, w in p.items()}
-    q, k, v = _qkv(p, x)
-    if positions is not None:
-        cos, sin = rope_angles(positions, cfg.resolved_head_dim,
-                               cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if kv_override is not None:
+        if mp is not None:
+            raise NotImplementedError(
+                "cross-attention under a model axis is not ported yet: "
+                "ROADMAP queue A item 11")
+        q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = kv_override
+    else:
+        if mp is not None:
+            if cfg.num_heads % mp.size == 0:
+                return _attention_heads(p, x, cfg, mp, positions=positions,
+                                        causal=causal, window=window,
+                                        backend=backend)
+            # heads the model axis does not divide: whole on every rank
+            p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
+                 for k, w in p.items()}
+        q, k, v = _qkv(p, x)
+        if positions is not None:
+            cos, sin = rope_angles(positions, cfg.resolved_head_dim,
+                                   cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
     chunk = get_chunk_q()
     if chunk and x.shape[1] > chunk:
         n_rep = cfg.num_heads // cfg.num_kv_heads
@@ -221,7 +247,7 @@ def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
     else:
         o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
                                      backend=backend)
-    return torch.einsum("bsnh,nhd->bsd", o, p["wo"])
+    return psum_einsum("bsnh,nhd->bsd", o, p["wo"])
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -345,7 +371,7 @@ def _attention_heads(p, x, cfg, mp, *, positions, causal, window, backend):
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
                                  backend=backend)
-    out = torch.einsum("bsnh,nhd->bsd", o, leaf("wo", 0, lo, hi))
+    out = psum_einsum("bsnh,nhd->bsd", o, leaf("wo", 0, lo, hi))
     return sharding.reduce_from_model(out)
 
 
@@ -388,8 +414,8 @@ def mlp_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             u = torch.einsum("bsd,df->bsf", xf, leaf("wu", 1))
             h = torch.nn.functional.silu(g) * u
             return sharding.reduce_from_model(
-                torch.einsum("bsf,fd->bsd", h, leaf("wd", 0)))
+                psum_einsum("bsf,fd->bsd", h, leaf("wd", 0)))
     g = torch.einsum("bsd,df->bsf", x, p["wg"])
     u = torch.einsum("bsd,df->bsf", x, p["wu"])
     h = torch.nn.functional.silu(g) * u
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+    return psum_einsum("bsf,fd->bsd", h, p["wd"])

@@ -9,7 +9,11 @@ and a fixed capacity ``C = min(ceil(cf·S·k/E), S)`` per expert per batch
 row, slots filled in token order with each token's k slots adjacent
 (``repeat_interleave``), overflowing slots dropped. Dispatch and combine
 are dense one-hot einsums over the capacity buffer, as in the reference
-(which has no kernel here either).
+(which has no kernel here either). Under ``layers.set_attention_options(
+bf16_psum=True)`` dispatch and combine give bf16 (``psum_einsum``); the
+experts' FFN then runs on the bf16 buffer cast to the weights' f32 (the
+type ``jnp.einsum`` promotes the pair to; ``torch.einsum`` would refuse
+the mix), and the combined slots are summed in bf16, as the reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import sharding
-from repro_torch.models.layers import _normal
+from repro_torch.models.layers import _normal, psum_einsum
 
 
 def init_moe(d_model: int, d_ff: int, num_experts: int, *,
@@ -91,11 +95,14 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     combine = dispatch * gates_flat[..., None, None].to(x.dtype)
 
     xf = torch.repeat_interleave(x, top_k, dim=1)      # (b, s*k, d)
-    expert_in = torch.einsum("btec,btd->becd", dispatch, xf)
+    expert_in = psum_einsum("btec,btd->becd", dispatch, xf)
+    # bf16 under bf16_psum: promoted to the weights' type, as jnp.einsum
+    expert_in = expert_in.to(torch.promote_types(expert_in.dtype,
+                                                 p["wg"].dtype))
     g = torch.einsum("becd,edf->becf", expert_in, p["wg"])
     u = torch.einsum("becd,edf->becf", expert_in, p["wu"])
     h = torch.nn.functional.silu(g) * u
     expert_out = torch.einsum("becf,efd->becd", h, p["wd"])
-    yf = torch.einsum("btec,becd->btd", combine, expert_out)
+    yf = psum_einsum("btec,becd->btd", combine, expert_out)
     # a token's k slots are adjacent: their sum merges the top-k
     return yf.reshape(b, s, top_k, d).sum(dim=2), aux

@@ -1,14 +1,23 @@
 """The backbone of ``repro.models.transformer`` as an ``nn.Module``, for
-the families ``dense``, ``moe``, ``ssm`` and ``hybrid``, with its losses
-and decode.
+every family of the reference (dense, moe, vlm, audio, ssm, hybrid), with
+its losses and decode.
 
 dense / moe: pre-norm GQA attention + SwiGLU (or, family ``moe``, a
 mixture of experts: ``models.moe``) blocks, RoPE on positions
 ``arange(S)``, causal (a sliding window when the config or
-``window_override`` asks). ssm (xLSTM): groups of an mLSTM and an sLSTM
-block (``models.ssm``), ``num_layers // 2`` of them. hybrid (Griffin):
-groups of ``hybrid_period - 1`` RG-LRU blocks (``models.rglru``, each
-with a SwiGLU MLP) and one local-attention block whose window is
+``window_override`` asks). audio (hubert): the same blocks over frame
+embeddings, bidirectional (``causal=False``, RoPE kept, as the
+reference's ``_dense_block``), the input a ``frame_proj (stub_dim, d)``
+projection in place of ``embed`` (the stubbed frontend's last layer).
+vlm (llama-3.2-vision): ``num_layers // cross_attn_every`` groups of
+``cross_attn_every - 1`` causal self blocks and one cross block whose
+keys and values are the vision embeddings (B, V, d) projected by its own
+``wk``/``wv`` (no bias, no RoPE), its attention and MLP outputs scaled
+by ``tanh`` of the scalar gates ``gate_attn`` and ``gate_mlp`` (zero at
+init). ssm (xLSTM): groups of an mLSTM and an sLSTM block
+(``models.ssm``), ``num_layers // 2`` of them. hybrid (Griffin): groups
+of ``hybrid_period - 1`` RG-LRU blocks (``models.rglru``, each with a
+SwiGLU MLP) and one local-attention block whose window is
 ``local_window`` whatever ``cfg.attention`` says, ``num_layers //
 hybrid_period`` of them. Then a final RMSNorm and an LM head (``lm_head
 (d, V)`` applied as ``x @ head``, or the transposed embedding when
@@ -16,11 +25,13 @@ hybrid_period`` of them. Then a final RMSNorm and an LM head (``lm_head
 per-group) parameters with ``lax.scan``; here a Python loop runs one
 module per layer or group (``remat``: each under
 ``torch.utils.checkpoint``), and ``load_jax_params`` splits the
-reference's stacked ``blocks`` (a leading layer or group axis, and
-hybrid's ``rec`` leaves a second ``(period - 1)`` axis) into them.
+reference's stacked ``blocks`` (a leading layer or group axis; hybrid's
+``rec`` and vlm's ``self`` leaves a second axis) into them.
 ``cross_entropy`` and ``train_loss`` are the LM objective (CE plus the
-experts' load-balance loss), ``init_cache`` and ``decode_step`` one
-token at a time against a KV cache or the recurrent state.
+experts' load-balance loss; audio's frame-level unit prediction),
+``init_cache`` and ``decode_step`` one token at a time against a KV
+cache (vlm: and the cross keys and values precomputed per group) or the
+recurrent state. The audio family is encoder-only: no cache, no decode.
 
 Parameters are f32, as the reference's ``init_params`` makes them by
 default (the simulator never passes ``ArchConfig.dtype``). Under a model
@@ -29,8 +40,8 @@ computes on this rank's slices of its leaves (``layers``): a vocab-split
 ``embed`` looks up its local rows and sums over the axis, a vocab-split
 head gives local logits that are gathered whole, and a leaf split any
 other way is gathered before use; the residual stream stays whole on
-every rank. The ssm and hybrid families under a model axis, and the vlm
-and audio families at all, are not ported yet (ROADMAP queue A item 11).
+every rank. The ssm, hybrid, vlm and audio families under a model axis
+are not ported yet (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -54,25 +65,52 @@ from repro_torch.models import ssm as SSM
 # token scenario's, tens of labels); a larger vocab gathers rows
 # (``_EmbedRows``)
 ONEHOT_VOCAB_MAX = 1024
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 RECURRENT = ("ssm", "hybrid")
+NO_VISION = ("the vlm family's forward needs vision= (B, "
+             "num_vision_tokens, d_model)")
+# families without a model-axis split yet (ROADMAP queue A item 11)
+UNSHARDED = RECURRENT + ("vlm", "audio")
 
 
 def refuse_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not build yet, naming its item."""
+    """Raise for a family the reference does not know either."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            "ROADMAP queue A item 11")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
 def _refuse_model_axis(cfg: ArchConfig) -> None:
-    """The recurrent families have no model-axis split yet."""
-    if cfg.family in RECURRENT \
+    """The recurrent, vlm and audio families have no model-axis split
+    yet."""
+    if cfg.family in UNSHARDED \
             and sharding.model_parallel_state() is not None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) under a model axis is not "
             "ported yet: ROADMAP queue A item 11")
+
+
+class _Gated(nn.Module):
+    """Named children, sub-modules and parameters alike, read as a
+    mapping (``keys``, ``items``, ``[name]``, ``in``): the vlm's cross
+    block, whose scalar gates sit beside its norms, attention and MLP."""
+
+    def __init__(self, children: Dict[str, Any]):
+        super().__init__()
+        self._names = list(children)
+        for name, child in children.items():
+            setattr(self, name, child)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._names
+
+    def keys(self):
+        return list(self._names)
+
+    def items(self):
+        return [(name, self[name]) for name in self._names]
 
 
 class _EmbedRows(torch.autograd.Function):
@@ -106,8 +144,8 @@ class _EmbedRows(torch.autograd.Function):
 
 class Transformer(nn.Module):
     """``init_params`` + ``forward`` + ``features`` of the reference for
-    the dense, moe, ssm and hybrid families. ``kernel_backend`` routes
-    attention (``kernels.dispatch``; None = the ambient policy)."""
+    every family. ``kernel_backend`` routes attention
+    (``kernels.dispatch``; None = the ambient policy)."""
 
     def __init__(self, cfg: ArchConfig, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -121,8 +159,17 @@ class Transformer(nn.Module):
         self.kernel_backend = kernel_backend
         d = cfg.d_model
         keep = device if home is None else home
-        self.embed = L._normal((cfg.vocab_size, d), 0.02, generator, device,
-                               home)
+        if cfg.family == "audio":
+            # the frontend stub's output projection stands in for embed
+            self.embed = None
+            self.frame_proj = L._normal(
+                (cfg.frontend_stub_dim, d),
+                1.0 / math.sqrt(cfg.frontend_stub_dim), generator, device,
+                home)
+        else:
+            self.embed = L._normal((cfg.vocab_size, d), 0.02, generator,
+                                   device, home)
+            self.frame_proj = None
         self.final_norm = L.init_rmsnorm(d, device=keep)
         self.lm_head = (None if cfg.tie_embeddings else L._normal(
             (d, cfg.vocab_size), 1.0 / math.sqrt(d), generator, device,
@@ -164,9 +211,26 @@ class Transformer(nn.Module):
                     "ln2": L.init_rmsnorm(d, device=keep),
                     "mlp": L.init_mlp(d, cfg.d_ff, **draw)})})
 
+        def vlm_group():
+            selfs = nn.ModuleList(block()
+                                  for _ in range(cfg.cross_attn_every - 1))
+            attn = L.init_attention(cfg, **draw)
+            mlp = L.init_mlp(d, cfg.d_ff, **draw)
+
+            def gate():                     # tanh-gated, zero at init
+                return nn.Parameter(torch.zeros((), device=keep))
+            return nn.ModuleDict({"self": selfs, "cross": _Gated({
+                "ln1": L.init_rmsnorm(d, device=keep), "attn": attn,
+                "gate_attn": gate(), "ln2": L.init_rmsnorm(d, device=keep),
+                "mlp": mlp, "gate_mlp": gate()})})
+
         if cfg.family == "ssm":
             self.blocks = nn.ModuleList(
                 xlstm_group() for _ in range(cfg.num_layers // 2))
+        elif cfg.family == "vlm":
+            self.blocks = nn.ModuleList(
+                vlm_group()
+                for _ in range(cfg.num_layers // cfg.cross_attn_every))
         elif cfg.family == "hybrid":
             self.blocks = nn.ModuleList(
                 griffin_group()
@@ -180,16 +244,18 @@ class Transformer(nn.Module):
         return (self.cfg.local_window
                 if self.cfg.attention == AttentionKind.SLIDING else 0)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> logits (B, S, V)."""
-        return self.forward_aux(tokens)[0]
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                **kw) -> torch.Tensor:
+        """tokens (B, S) int (audio: ``frames=``; vlm: also ``vision=``)
+        -> logits (B, S, V)."""
+        return self.forward_aux(tokens, **kw)[0]
 
-    def _block(self, blk, x, positions, window):
+    def _block(self, blk, x, positions, window, causal=True):
         """One block: x -> (x, the experts' aux loss or None)."""
         cfg = self.cfg
         h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
         x = x + L.attention_forward(blk["attn"], h, cfg,
-                                    positions=positions, causal=True,
+                                    positions=positions, causal=causal,
                                     window=window,
                                     backend=self.kernel_backend)
         h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
@@ -220,21 +286,67 @@ class Transformer(nn.Module):
         h = L.rmsnorm(pa["ln2"], x, cfg.norm_eps)
         return x + L.mlp_forward(pa["mlp"], h), None
 
-    def forward_aux(self, tokens: torch.Tensor, *, remat: bool = False,
+    def _vlm_group(self, grp, x, positions, window, vision):
+        """One vlm group: its causal self blocks, then the gated cross
+        block on ``vision``'s keys and values: x -> (x, None)."""
+        cfg = self.cfg
+        for blk in grp["self"]:
+            x, _ = self._block(blk, x, positions, window)
+        pc = grp["cross"]
+        h = L.rmsnorm(pc["ln1"], x, cfg.norm_eps)
+        att = L.attention_forward(pc["attn"], h, cfg, causal=False,
+                                  backend=self.kernel_backend,
+                                  kv_override=self.vision_kv(pc, vision))
+        # a bf16 partial sum (bf16_psum) meets the f32 gate in f32, as
+        # jnp promotes the pair
+        x = x + torch.tanh(pc["gate_attn"]) * att.to(x.dtype)
+        h = L.rmsnorm(pc["ln2"], x, cfg.norm_eps)
+        y = L.mlp_forward(pc["mlp"], h, cfg.d_ff)
+        return x + torch.tanh(pc["gate_mlp"]) * y.to(x.dtype), None
+
+    @staticmethod
+    def vision_kv(pc, vision: torch.Tensor):
+        """A cross block's keys and values from the vision embeddings
+        (B, V, d): (B, V, n_kv, h) each, unexpanded, no bias."""
+        return (torch.einsum("bvd,dnh->bvnh", vision, pc["attn"]["wk"]),
+                torch.einsum("bvd,dnh->bvnh", vision, pc["attn"]["wv"]))
+
+    def forward_aux(self, tokens: Optional[torch.Tensor] = None, *,
+                    frames: Optional[torch.Tensor] = None,
+                    vision: Optional[torch.Tensor] = None,
+                    remat: bool = False,
                     window_override: Optional[int] = None):
-        """The reference's ``forward``: tokens (B, S) int -> (logits
-        (B, S, V), the experts' aux loss summed over the layers, 0-d f32).
-        ``window_override``: sliding-window attention of that width;
-        ``remat``: each block recomputed in the backward
+        """The reference's ``forward``: tokens (B, S) int, or for audio
+        ``frames`` (B, S, stub_dim), and for vlm ``vision`` (B, V, d) ->
+        (logits (B, S, V), the experts' aux loss summed over the layers,
+        0-d f32). ``window_override``: sliding-window attention of that
+        width; ``remat``: each block (group) recomputed in the backward
         (``torch.utils.checkpoint``)."""
         cfg = self.cfg
         _refuse_model_axis(cfg)
-        x = self.lookup(tokens)
+        if cfg.family == "audio":
+            if frames is None:
+                raise ValueError("the audio family's forward takes frames= "
+                                 "(B, S, frontend_stub_dim)")
+            x = torch.einsum("bsf,fd->bsd", frames, self.frame_proj)
+        else:
+            x = self.lookup(tokens)
+        if cfg.family == "vlm" and vision is None:
+            raise ValueError(NO_VISION)
         positions = torch.arange(x.shape[1], device=x.device)
         window = (window_override if window_override is not None
                   else self.window)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        run = self._group if cfg.family in RECURRENT else self._block
+        if cfg.family in RECURRENT:
+            run = self._group
+        elif cfg.family == "vlm":
+            def run(grp, x, positions, window):
+                return self._vlm_group(grp, x, positions, window, vision)
+        else:
+            causal = cfg.family != "audio"       # the encoder sees both ways
+
+            def run(blk, x, positions, window):
+                return self._block(blk, x, positions, window, causal)
         for blk in self.blocks:
             if remat:
                 x, a = checkpoint(run, blk, x, positions, window,
@@ -268,10 +380,13 @@ class Transformer(nn.Module):
         logits = torch.einsum("bsd,dv->bsv", xf, w.T if vdim == 0 else w)
         return sharding.gather_from_model(logits, -1)
 
-    def features(self, tokens: torch.Tensor) -> torch.Tensor:
+    def features(self, tokens: Optional[torch.Tensor] = None, *,
+                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pooled input embeddings (B, d): the reference's
-        model-independent filter space for token data."""
-        return torch.mean(self.lookup(tokens), dim=1)
+        model-independent filter space for token data; without tokens the
+        frames themselves, pooled (B, stub_dim), as the reference's."""
+        x = self.lookup(tokens) if tokens is not None else frames
+        return torch.mean(x, dim=1)
 
     def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``tokens`` (..., S) -> (..., S, d), as a
@@ -288,6 +403,9 @@ class Transformer(nn.Module):
         product as small as the batch (``_EmbedRows``), again in a fixed
         order. (The comparison, unlike ``F.one_hot``, needs no range
         check on the host, so the one-hot route runs under ``vmap``.)"""
+        if self.embed is None:
+            raise ValueError(f"{self.cfg.name} ({self.cfg.family}) has no "
+                             "token embedding: it takes frames")
         mp = sharding.model_parallel_state()
         if mp is not None:
             return self._lookup_sharded(tokens, mp)
@@ -320,7 +438,9 @@ class Transformer(nn.Module):
         aligned with ``parameters()``, e.g. the SGD momentum), into those
         tensors: ``blocks`` leaves carry a leading layer (or group) axis,
         split across the per-layer (per-group) modules, and a nested
-        stack (hybrid's ``rec``) a second axis, split across its list."""
+        stack (hybrid's ``rec``, vlm's ``self``) a second axis, split
+        across its list; the vlm's gates are (G,). Audio's ``frame_proj``
+        stands where ``embed`` is."""
         dst = targets(self, into)
 
         def load(node, ref, idx, path):
@@ -337,7 +457,9 @@ class Transformer(nn.Module):
                 for name, child in node.items():
                     load(child, ref[name], idx, f"{path}.{name}")
         with torch.no_grad():
-            _copy(dst(self.embed), params["embed"])
+            for name in ("embed", "frame_proj"):
+                if getattr(self, name) is not None:
+                    _copy(dst(getattr(self, name)), params[name])
             _copy(dst(self.final_norm["scale"]),
                   params["final_norm"]["scale"])
             if self.lm_head is not None:
@@ -359,9 +481,11 @@ class Transformer(nn.Module):
             if isinstance(node, nn.ModuleList):
                 return _stack([tree(child) for child in node])
             return {name: tree(child) for name, child in node.items()}
-        out: Dict[str, Any] = {"embed": host[id(self.embed)],
-                               "final_norm": {"scale": host[id(
-                                   self.final_norm["scale"])]}}
+        out: Dict[str, Any] = {
+            name: host[id(getattr(self, name))]
+            for name in ("embed", "frame_proj")
+            if getattr(self, name) is not None}
+        out["final_norm"] = {"scale": host[id(self.final_norm["scale"])]}
         if self.lm_head is not None:
             out["lm_head"] = host[id(self.lm_head)]
         out["blocks"] = tree(self.blocks)
@@ -405,8 +529,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
 
 def train_loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
                remat: bool = False, aux_weight: float = 0.01):
-    """batch {tokens, labels} -> (ce + aux_weight·aux, {ce, aux})."""
-    logits, aux = model.forward_aux(batch["tokens"], remat=remat)
+    """batch {tokens, labels} (vlm: and vision; audio: {frames, labels},
+    frame-level unit prediction) -> (ce + aux_weight·aux, {ce, aux})."""
+    fam = model.cfg.family
+    if fam == "audio":
+        logits, aux = model.forward_aux(frames=batch["frames"], remat=remat)
+    else:
+        kw = {"vision": batch["vision"]} if fam == "vlm" else {}
+        logits, aux = model.forward_aux(batch["tokens"], remat=remat, **kw)
     ce = cross_entropy(logits, batch["labels"])
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -417,7 +547,9 @@ def train_loss(model: Transformer, batch: Dict[str, torch.Tensor], *,
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, window_override: Optional[int] = None,
-               device=None) -> Dict[str, torch.Tensor]:
+               device=None, vision: Optional[torch.Tensor] = None,
+               params: Optional[Transformer] = None
+               ) -> Dict[str, Any]:
     """The decode cache for ``batch`` rows and ``cache_len`` positions,
     the reference's leaves (names, shapes, dtypes):
 
@@ -430,9 +562,19 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     hybrid: per group (G = L // period) and RG-LRU block (period - 1)
     ``rg_h`` (G, period - 1, B, d) in f32 and ``rg_conv`` (G, period - 1,
     B, CONV_W - 1, d), and the local attention's ring ``k``/``v`` (G, B,
-    W, n_kv, h), W = min(local_window, cache_len), in ``dtype``."""
+    W, n_kv, h), W = min(local_window, cache_len), in ``dtype``.
+    vlm: per group (G = L // cross_attn_every) and self block ``k``/``v``
+    (G, per - 1, B, C, n_kv, h) as dense's, and ``cross`` {``ck``,
+    ``cv``} (G, B, V, n_kv, h): the keys and values of ``vision`` (B, V,
+    d) under each group's cross block of ``params`` (the model), in
+    ``dtype``, or zeros of V = num_vision_tokens when either is missing.
+    audio: encoder-only, no cache (ValueError), as the reference.
+    ``device``: where the leaves go (default: ``vision``'s device, else
+    the default device)."""
     refuse_family(cfg)
     f32 = torch.float32
+    if device is None and vision is not None:
+        device = vision.device
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -455,7 +597,27 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                 "rg_conv": zeros((g, per - 1, batch, RG.CONV_W - 1, d)),
                 "k": zeros((g, batch, w, nkv, h)),
                 "v": zeros((g, batch, w, nkv, h))}
+    if cfg.family == "audio":
+        raise ValueError(f"no decode cache for family {cfg.family!r} "
+                         f"({cfg.name}): encoder-only")
     c = min(cache_len, window_override) if window_override else cache_len
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        g = cfg.num_layers // per
+        cache: Dict[str, Any] = {
+            "k": zeros((g, per - 1, batch, c, nkv, h)),
+            "v": zeros((g, per - 1, batch, c, nkv, h))}
+        if vision is not None and params is not None:
+            kv = [params.vision_kv(grp["cross"], vision)
+                  for grp in params.blocks]
+            cache["cross"] = {
+                "ck": torch.stack([k for k, _ in kv]).to(dtype),
+                "cv": torch.stack([v for _, v in kv]).to(dtype)}
+        else:
+            nv = cfg.num_vision_tokens
+            cache["cross"] = {"ck": zeros((g, batch, nv, nkv, h)),
+                              "cv": zeros((g, batch, nv, nkv, h))}
+        return cache
     return {"k": zeros((cfg.num_layers, batch, c, nkv, h)),
             "v": zeros((cfg.num_layers, batch, c, nkv, h))}
 
@@ -467,14 +629,24 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     (B, 1, V), the new cache). The experts run at the default capacity
     factor, as the reference's decode does. Hybrid's attention runs its
     ring at the cache's own length, as the reference's does: past
-    ``cache_len`` the window is ``cache_len``, not ``local_window``."""
+    ``cache_len`` the window is ``cache_len``, not ``local_window``. The
+    vlm's cross blocks attend to the cache's ``cross`` keys and values by
+    the plain scores (``layers.attention_scores``, no kernel, as the
+    reference's decode). Audio has no decode (ValueError)."""
     cfg = model.cfg
     _refuse_model_axis(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"decode unsupported for family {cfg.family!r} "
+                         f"({cfg.name}): encoder-only")
     x = model.lookup(tokens)
     if cfg.family == "ssm":
         x, new = _decode_ssm(model, x, cache)
     elif cfg.family == "hybrid":
         x, new = _decode_hybrid(model, x, cache, pos)
+    elif cfg.family == "vlm":
+        window = window_override or 0
+        ring = window if (window and cache["k"].shape[3] == window) else 0
+        x, new = _decode_vlm(model, x, cache, pos, ring)
     else:
         window = window_override or 0
         ring = window if (window and cache["k"].shape[2] == window) else 0
@@ -482,23 +654,59 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     return model.head(x), new
 
 
+def _decode_block(cfg, blk, x, ck, cv, pos, ring):
+    """One dense (or experts') block's decode step: x -> (x, new k, new
+    v)."""
+    h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+    att, nk, nv = L.attention_decode(blk["attn"], h, cfg, ck, cv, pos,
+                                     window=ring)
+    x = x + att
+    h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
+    if "moe" in blk:
+        y, _ = MOE.moe_forward(blk["moe"], h, top_k=cfg.moe.top_k)
+        return x + y, nk, nv
+    return x + L.mlp_forward(blk["mlp"], h, cfg.d_ff), nk, nv
+
+
 def _decode_attention(model, x, cache, pos, ring):
-    cfg = model.cfg
     new_k, new_v = [], []
     for i, blk in enumerate(model.blocks):
-        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        att, nk, nv = L.attention_decode(blk["attn"], h, cfg, cache["k"][i],
-                                         cache["v"][i], pos, window=ring)
-        x = x + att
-        h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
-        if "moe" in blk:
-            y, _ = MOE.moe_forward(blk["moe"], h, top_k=cfg.moe.top_k)
-            x = x + y
-        else:
-            x = x + L.mlp_forward(blk["mlp"], h, cfg.d_ff)
+        x, nk, nv = _decode_block(model.cfg, blk, x, cache["k"][i],
+                                  cache["v"][i], pos, ring)
         new_k.append(nk)
         new_v.append(nv)
     return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+
+
+def _decode_vlm(model, x, cache, pos, ring):
+    cfg = model.cfg
+    nrep = cfg.num_heads // cfg.num_kv_heads
+    new_k, new_v = [], []
+    for i, grp in enumerate(model.blocks):
+        ks, vs = [], []
+        for j, blk in enumerate(grp["self"]):
+            x, nk, nv = _decode_block(cfg, blk, x, cache["k"][i, j],
+                                      cache["v"][i, j], pos, ring)
+            ks.append(nk)
+            vs.append(nv)
+        new_k.append(torch.stack(ks))
+        new_v.append(torch.stack(vs))
+        pc = grp["cross"]
+        h = L.rmsnorm(pc["ln1"], x, cfg.norm_eps)
+        q = torch.einsum("bsd,dnh->bsnh", h, pc["attn"]["wq"])
+        if "bq" in pc["attn"]:
+            q = q + pc["attn"]["bq"]
+        ck, cv = cache["cross"]["ck"][i], cache["cross"]["cv"][i]
+        mask = torch.ones((1, 1, 1, ck.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        att = L.attention_scores(q, L._expand_kv(ck.to(q.dtype), nrep),
+                                 L._expand_kv(cv.to(q.dtype), nrep), mask)
+        att = torch.einsum("bsnh,nhd->bsd", att, pc["attn"]["wo"])
+        x = x + torch.tanh(pc["gate_attn"]) * att
+        h = L.rmsnorm(pc["ln2"], x, cfg.norm_eps)
+        y = L.mlp_forward(pc["mlp"], h, cfg.d_ff)
+        x = x + torch.tanh(pc["gate_mlp"]) * y.to(x.dtype)
+    return x, dict(cache, k=torch.stack(new_k), v=torch.stack(new_v))
 
 
 def _decode_ssm(model, x, cache):

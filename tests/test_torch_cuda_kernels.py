@@ -255,6 +255,45 @@ def test_flash_attention_under_vmap_launches_once_for_the_clients(
     smoke.check_flash_clients(c, b, n, nkv, s, h)
 
 
+@pytest.mark.parametrize("b,n,nkv,s,h", [(8, 16, 16, 16, 80),
+                                         (8, 16, 16, 128, 80),
+                                         (3, 16, 4, 33, 80)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_width_80_matches_plain(smoke, b, n, nkv, s,
+                                                        h, causal):
+    """hubert-xlarge's heads of 80: 20 16-byte chunks a row, the short
+    route's lanes 0-3 holding a third chunk each (16-19), the long
+    route's threads 5 columns each."""
+    smoke.check_flash(b, n, nkv, s, h, causal=causal)
+
+
+@pytest.mark.parametrize("b,n,nkv,s,h,sk", [(8, 16, 16, 16, 80, None),
+                                            (3, 16, 16, 5, 80, 37),
+                                            (2, 4, 4, 32, 80, 3)])
+def test_flash_attention_writes_every_chunk_at_head_width_80(smoke, b, n,
+                                                             nkv, s, h, sk):
+    """The short route's output over memory that held NaN: with the old
+    ``RC = C / 8`` lanes (two chunks each, chunks 0-15 only) columns 64-79
+    of every row would keep the NaN."""
+    smoke.check_flash(b, n, nkv, s, h, causal=False, sk=sk, poison=True)
+
+
+@pytest.mark.parametrize("b,n,nkv,s,h,sk", [(8, 64, 8, 128, 128, 1601),
+                                            (4, 64, 8, 16, 128, 1601),
+                                            (2, 16, 16, 40, 80, 77),
+                                            (2, 8, 2, 1, 64, 1601)])
+def test_flash_attention_cross_attention_over_ragged_keys(smoke, b, n, nkv,
+                                                          s, h, sk):
+    """Full attention with Sk != Sq and a ragged last key tile: the vlm's
+    cross-attention, 64 query heads over 8 kv heads and 1601 vision keys,
+    on the long route (training, Sq 128) and the short one (a prefill of
+    16); and the gradients through the autograd function there."""
+    smoke.check_flash(b, n, nkv, s, h, causal=False, sk=sk)
+    if s > 1:
+        smoke.check_flash_grads(min(b, 2), n, nkv, s, h, causal=False,
+                                sk=sk)
+
+
 def test_flash_attention_folded_batch_past_grid_z_launches_in_chunks(smoke):
     smoke.check_flash_chunked(*smoke.CHUNKED_ATTN)
 

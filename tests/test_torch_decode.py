@@ -11,9 +11,13 @@ sliding window through the ring buffer). ``decode_step``'s logits hold
 to the reference's within rtol 1e-5, atol 1e-5, ``prefill_then_decode``
 gives the reference's tokens exactly, and ``chunked_attention`` (causal,
 windowed and full, a padded last tile) holds within atol 1e-5.
-``decode_demo.main`` runs at its default arch (xlstm-350m, reduced) and
-refuses vlm and audio; the recurrent families' decode is held to the
-reference in ``tests/test_torch_recurrent_lm.py``.
+``decode_demo.main`` runs at its default arch (xlstm-350m, reduced),
+refuses audio (encoder-only) and fails on the vlm as the reference's does
+(its prefill has no vision input); the recurrent families' decode is held
+to the reference in ``tests/test_torch_recurrent_lm.py``, the vlm's in
+``tests/test_torch_vlm_audio.py``. Under ``bf16_psum`` the model's
+logits hold to the reference's within one bf16 ulp at their scale (that
+file's docstring says why).
 """
 import dataclasses
 
@@ -142,7 +146,7 @@ def test_decode_demo_main_and_its_refusals(capsys):
     toks = D.main(["--device", "cpu", "--reduced"])
     assert toks.shape == (4, 16)
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="vision"):
         D.main(["--device", "cpu", "--arch", "llama32-vision", "--reduced"])
     with pytest.raises(SystemExit, match="encoder-only"):
         serve.main(["--device", "cpu", "--arch", "hubert-xlarge",
@@ -180,5 +184,18 @@ def test_attention_options_route_through_chunks():
             L.set_attention_options(chunk_q=0)
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        L.set_attention_options(bf16_psum=True)
+    # bf16 partial sums, in both packages, on the chunked route
+    params = jax.tree.map(jnp.asarray, model.jax_params())
+    fwd = jax.jit(lambda p, t: RT.forward(p, cfg_r, t)[0])
+    with torch.no_grad():
+        L.set_attention_options(chunk_q=8, bf16_psum=True)
+        RL.set_attention_options(chunk_q=8, bf16_psum=True)
+        try:
+            got = model(tokens).numpy()
+            want = np.asarray(fwd(params, tokens.numpy().astype(np.int32)))
+        finally:
+            L.set_attention_options()
+            RL.set_attention_options()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got - want).max() <= ulp + 1e-5
+    assert np.abs(got - whole.numpy()).max() > 1e-4

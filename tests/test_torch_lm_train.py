@@ -206,9 +206,17 @@ def _main_and_its_checkpoint(arch, tmp_path, capsys, steps=30):
     assert np.isfinite(np.asarray(logits)).all()
 
 
-def test_main_refuses_what_is_not_ported_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TR.main(["--device", "cpu", "--arch", "hubert-xlarge", "--reduced"])
+def test_main_refuses_what_is_not_ported_and_a_missing_card(monkeypatch):
+    with pytest.raises(KeyError, match="unknown arch"):
+        TR.main(["--device", "cpu", "--arch", "no-such-arch", "--reduced"])
+    from repro_torch.models import sharding
+    with monkeypatch.context() as mp:
+        mp.setattr(sharding, "model_parallel_state", lambda: object())
+        for arch in ("hubert-xlarge", "llama32-vision"):
+            with pytest.raises(NotImplementedError,
+                               match="model axis.*item 11"):
+                TR.main(["--device", "cpu", "--arch", arch, "--reduced",
+                         "--steps", "1", "--batch", "1", "--seq", "4"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TR.main(["--arch", "granite-moe", "--reduced", "--steps", "1"])

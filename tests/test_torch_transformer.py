@@ -296,10 +296,23 @@ def test_transformer_init_is_seeded_and_scaled():
 
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "hubert-xlarge"])
-def test_other_families_are_refused_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 11"):
-        Transformer(configs.reduced(configs.get_arch(name), d_model=32,
-                                    vocab=16))
+def test_other_families_are_refused_naming_their_item(name, monkeypatch):
+    """The vlm and audio families build and run unsharded
+    (``tests/test_torch_vlm_audio.py``); under a model axis their
+    forward is refused, naming its item."""
+    from repro_torch.models import sharding
+    cfg = configs.reduced(configs.get_arch(name), d_model=32, vocab=16)
+    model = Transformer(cfg)
+    if cfg.family == "audio":
+        kw = {"frames": torch.zeros((1, 4, cfg.frontend_stub_dim))}
+    else:
+        kw = {"tokens": torch.zeros((1, 4)).long(),
+              "vision": torch.zeros((1, cfg.num_vision_tokens, 32))}
+    assert model(**kw).shape == (1, 4, 16)
+    monkeypatch.setattr(sharding, "model_parallel_state", lambda: object())
+    with pytest.raises(NotImplementedError,
+                       match="model axis.*ROADMAP queue A item 11"):
+        model(**kw)
 
 
 @pytest.mark.parametrize("vocab", [32, 2048])
