@@ -48,7 +48,11 @@ Phases, in order; any failure raises and exits non-zero:
      grid limits; B6 at hubert-xlarge's head width 80 on both routes,
      causal and full (the short route also over an output whose memory
      held NaN, so an unwritten chunk fails), and at the vlm's
-     cross-attention shapes over 1601 vision keys, with gradients;
+     cross-attention shapes over 1601 vision keys, with gradients; B6 at
+     the (1, 2) mesh's local heads of the model axis's runs (hubert's 8
+     of 16 heads of 80, full; the vlm's 32 of 64 query heads over 4 of 8
+     kv heads, causal, and over 1601 vision keys at the training step's
+     and the prefill's shapes);
   4. k-means fits through the kernel on the card against fits through
      the plain version on the card and on the CPU, from the same seeds (an
      unclustered input and every client of the main path's strong and
@@ -86,7 +90,7 @@ Phases, in order; any failure raises and exits non-zero:
      watchdog card vs CPU (rollbacks, quarantined clients and finiteness
      equal);
   6. the main path: fed_train, 10 clients with MNIST's split sizes
-     (n_train 60000, n_test 10000), 2 rounds, proxy batch 512 — edgefd and
+     (n_train 60000, n_test 10000), 1 round, proxy batch 512 — edgefd and
      selective-fd, strong and weak, and the seven methods without a kernel
      of their own (fedmd, feded, dsfl, fkd, pls, indlearn, server_distill),
      strong — the image path at the same sizes with the Tables I/II CNN
@@ -170,10 +174,16 @@ Phases, in order; any failure raises and exits non-zero:
      kernel has it and ``ru_maxrss`` (ROADMAP C11, C12), B6
      launched at (c)'s local 16/4 heads and checked there
      against its plain version; each rank opens its group through the
-     port's ``fed.mesh.init_distributed``; then the trainer path (ROADMAP
+     port's ``fed.mesh.init_distributed``; (d) token clients of the ssm
+     and hybrid families (ROADMAP A11.7) at published widths, one group
+     each (xlstm-350m's mLSTM and sLSTM blocks; recurrentgemma-2b's two
+     RG-LRU blocks and its local attention), vocab 32, at (c)'s sizes,
+     unsharded, then on (1, 2) over gloo: held to the unsharded run as
+     (c), each rank's state bytes printed beside it, B1, B2 and the fused
+     loss launched on every rank, B6 on none; then the trainer path (ROADMAP
      A11): (a) ``launch.train`` on granite-moe-1b-a400m whole (24 layers,
      full widths, batch 8 × 128, AdamW on the reference's warmup-cosine
-     rate, 25 of its 50 steps), the first batch's loss falling, seconds a
+     rate, 12 of its 50 steps), the first batch's loss falling, seconds a
      step, tokens a second and the allocator's peak printed, B6 launched on its
      long route, two more steps profiled; then the first 3 steps again
      from the same weights, bitwise (a)'s, each step's loss held within
@@ -187,7 +197,7 @@ Phases, in order; any failure raises and exits non-zero:
      rtol 1e-4, updated leaves' norms rtol 1e-5); (d) xlstm-350m and (e)
      recurrentgemma-2b (ROADMAP A11.1): ``launch.train`` as (a) ((d)
      whole for 8 steps, one more on the sLSTM's plain-autograd route;
-     (e) at 18 of its 24 layers for 25 steps, widths as published: the
+     (e) at 18 of its 24 layers for 10 steps, widths as published: the
      cuts below),
      the first batch's loss falling and no kernel launched; decode as (b)
      on the whole model (the replay held to the prefill); and
@@ -195,7 +205,7 @@ Phases, in order; any failure raises and exits non-zero:
      depth cut), B1 and the fused loss launched at the archs' widths and
      vocabularies; each model's built parameter count beside
      ``cfg.param_count()``; (f) hubert-xlarge whole (ROADMAP A11.2):
-     ``launch.train``'s 50 steps of 8 x 128 frames, the first batch's loss
+     ``launch.train``'s 25 steps of 8 x 128 frames, the first batch's loss
      falling, B6 on its long route at h = 80, full, 48 launches a step, 3
      steps again held to the plain attention, 2 profiled; (g)
      llama-3.2-vision-90b at full widths and a depth cut, its gates at
@@ -203,6 +213,24 @@ Phases, in order; any failure raises and exits non-zero:
      attention (loss and every gradient's norm), two groups' prefill,
      ``init_cache(vision=, params=)``, the prompt's replay held to the
      prefill and 16 new tokens, and ``launch.train.main --reduced``;
+     then the model axis (ROADMAP A11.7), one world of two
+     ``--mesh-child`` ranks of the card over gloo on the (1, 2) mesh,
+     each run held to the unsharded run of the same weights and batch,
+     drawn here first: (h) hubert-xlarge whole, one AdamW step (loss and
+     every gradient leaf's norm rtol 1e-3, B6 at the local 8 of 16 heads
+     of 80, 48 launches a rank), a second timed, a third under bf16_psum
+     (loss within 1e-2 relative), each rank's peak and the step's
+     all-reduces and gathers with their bytes; (i) the vlm's one group's
+     train_loss forward and backward at (g)'s batch (loss and every
+     gradient's norm rtol 1e-3; B6 at 32 of 64 query heads over 4 of 8
+     kv heads) and its two groups' prefill and decode (the tokens equal,
+     the logits within 2e-2); (j) xlstm-350m, recurrentgemma-2b and
+     granite-moe-1b-a400m whole, prefill and decode at (b)'s sizes (the
+     tokens equal and the logits within 1e-3; xLSTM's logits within
+     1e-2 relative and its greedy choices where the unsharded margin
+     clears twice the gap: float32 through its gating parts any two
+     orders of summation by more), new tokens a second beside the
+     unsharded run's;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -224,7 +252,8 @@ Phases, in order; any failure raises and exits non-zero:
      trainer's (8, 16, 128, 64) with 8 kv heads and the fused loss at the
      FD trainer's (16, 49155), (16, 50304) and (16, 256000), B1 at its
      fits' (8, 1024, 1) and (8, 2560, 1); B6 at h = 80 on both routes and
-     at the cross-attention shapes over 1601 keys, beside
+     at the cross-attention shapes over 1601 keys, and at the (1, 2)
+     mesh's local heads of (h) and (i), beside
      scaled_dot_product_attention.
 The next-to-last line is the kernels JSON, the last line the ok JSON.
 Without a CUDA device, or without the repository beside it, it exits
@@ -235,6 +264,7 @@ non-zero and prints no result.
     python3 chip_smoke.py --serve FED_SERVE_ARGS...
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --trainer
+    python3 chip_smoke.py --ssm-witness
     python3 chip_smoke.py --mesh-child OUT SPEC
 
 time only B6 at the transformer path's shapes, per call and device only,
@@ -247,9 +277,10 @@ them on one card. ``--serve`` runs ``python -m repro_torch.launch.fed_serve
 FED_SERVE_ARGS`` in-process with the launch counters and timers of phase 6
 around it (a ``serve-stats {json}`` line after every node). ``--mesh``
 runs phases 1 and 2 and the mesh path alone (with its phase-7 row),
-``--trainer`` the trainer path alone (with its rows); ``--mesh-child``
-is one rank of the mesh path or of the trainer path's (c)
-(``mesh_child``).
+``--trainer`` the trainer path alone (with its rows), ``--ssm-witness``
+the xLSTM decode's witness (``run_ssm_witness``); ``--mesh-child``
+is one rank of the mesh path, of the trainer path's (c) or of the model
+axis (``mesh_child``).
 """
 from __future__ import annotations
 
@@ -338,10 +369,11 @@ ATTN_SHAPES = (MAIN_ATTN,
 # report's proxy batch, an eval batch (timed also in the model's layout)
 PATH_ATTN = (MAIN_ATTN, (256, 32, 8, 16, 128), (512, 32, 8, 16, 128))
 # depth cut to keep the script inside its time with the mesh path: the
-# main path's and the cohort path's runs take 2 rounds (were 3), the
-# full-width lm_tokens runs 1 (were 3, then 2: the encoder and vlm
-# families' runs took their time)
-MAIN_ROUNDS = 2
+# main path's and the cohort path's runs take 1 round (were 3, then 2:
+# the model axis's runs took their time; edgefd strong still passes 0.7
+# after one), the full-width lm_tokens runs 1 (were 3, then 2: the
+# encoder and vlm families' runs took their time)
+MAIN_ROUNDS = 1
 LM_ROUNDS = 1
 LM_LR = 5e-4          # see run_lm_full_width
 METHODS_WITHOUT_KERNELS = ("fedmd", "feded", "dsfl", "fkd", "pls",
@@ -2769,22 +2801,23 @@ def check_small_resume_runs():
 # uniform fraction 0.5, decay 0.5, bursty arrivals over 60 s, churn and
 # dropout 0.05, sync rounds, waves of a quarter of the fleet, 4 edge
 # aggregators) on BENCH_async's 128 clients, held to a flat server's run
-# depth cut for time: 3 rounds, was 10
-FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=3,
+# depth cut for time: 2 rounds, was 10, then 3; the zoo and round robin
+# 2, were 3; the heavy traffic 3, was 5
+FLEET = dict(method="edgefd", scenario="iid", num_clients=128, rounds=2,
              proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
              participation_fraction=0.5, participation_policy="uniform",
              staleness_decay=0.5, straggler_factor=4.0, max_inflight=2)
-ZOO = dict(method="edgefd", scenario="iid", num_clients=30, rounds=3,
+ZOO = dict(method="edgefd", scenario="iid", num_clients=30, rounds=2,
            proxy_batch=256, batch_size=32, lr=1e-2, seed=0, engine="cohort",
            zoo="mixed", round_mode="overlap", straggler_factor=1.0)
-HEAVY = dict(method="edgefd", scenario="iid", num_clients=128, rounds=5,
+HEAVY = dict(method="edgefd", scenario="iid", num_clients=128, rounds=3,
              proxy_batch=256, batch_size=32, lr=1e-2, seed=0,
              engine="cohort", participation_fraction=0.5,
              participation_policy="uniform", staleness_decay=0.5,
              arrival_process="bursty", arrival_spread=60.0,
              churn_prob=0.05, dropout_prob=0.05, wave_size=32,
              round_mode="sync", num_edge_aggregators=4)
-ROBIN = dict(scenario="strong", num_clients=10, rounds=3, proxy_batch=512,
+ROBIN = dict(scenario="strong", num_clients=10, rounds=2, proxy_batch=512,
              seed=0, participation_fraction=0.5,
              participation_policy="roundrobin", staleness_decay=0.0,
              round_mode="overlap", max_inflight=2)
@@ -2942,10 +2975,10 @@ def run_scheduler_path():
 
 # ----------------------------------------------------- phase 6, robustness
 # (e) benchmarks/robust_agg.py's accuracy knobs at the main path's split:
-# edgefd iid, 10 clients, 3 rounds (was 6: a depth cut for time),
-# proxy batch 96, batch 32, lr 1e-2, mnist_feat with n_train 60000 and
-# n_test 10000, cohort engine
-ROBUST_ACC = dict(method="edgefd", scenario="iid", num_clients=10, rounds=3,
+# edgefd iid, 10 clients, 2 rounds (was 6, then 3: depth cuts for
+# time), proxy batch 96, batch 32, lr 1e-2, mnist_feat with n_train 60000
+# and n_test 10000, cohort engine
+ROBUST_ACC = dict(method="edgefd", scenario="iid", num_clients=10, rounds=2,
                   proxy_batch=96, batch_size=32, lr=1e-2, seed=0,
                   engine="cohort")
 FLIP = dict(fault_mode="colluding_flip", byzantine_frac=0.3)
@@ -3634,11 +3667,12 @@ def mesh_run(spec):
         with host, CountedCalls(
                 fa_ops, "_launch",
                 key=lambda q, k, *_: f"{q.shape[1]}/{k.shape[1]}") as heads:
+            arch = (axis_token_arch(spec["arch"]) if spec.get("arch")
+                    else lm_full_width_arch() if lm else None)
             res = simulator.run(
                 cfg, spec["dataset"], n_train=spec["n_train"],
                 n_test=spec["n_test"], device="cuda",
-                transformer_cfg=lm_full_width_arch() if lm else None,
-                sim_phase_costs=spec.get("costs"))
+                transformer_cfg=arch, sim_phase_costs=spec.get("costs"))
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             eng = engines[0]
@@ -3725,8 +3759,9 @@ def mesh_child(args) -> int:
             one = torch.ones(4, device="cuda") * (rank + 1)
             dist.all_reduce(one)
             assert float(one.sum()) == 4 * world * (world + 1) / 2
-        results = [fd_step_child(run) if run.get("kind") == "fd_step"
-                   else mesh_run(run) for run in spec["runs"]]
+        kinds = {"fd_step": fd_step_child, "axis": axis_child}
+        results = [kinds.get(run.get("kind"), mesh_run)(run)
+                   for run in spec["runs"]]
         if world > 1 and "allreduce" in spec:
             # the port's all-reduce of a 64 MB card tensor (a rank's
             # folded training batch of activations at granite-8b's width)
@@ -3951,9 +3986,74 @@ def run_mesh_path(smi):
         if not r["attn_heads"].get("16/4"):
             raise AssertionError("(c): B6 never launched at the local "
                                  "16/4 heads")
+    run_token_families(smi)
     err = check_flash(*MESH_LOCAL_ATTN)
     log(f"  the mesh path took {time.perf_counter() - t0:.1f} s")
     return sum(r["attn_heads"]["16/4"] for r in c), err
+
+
+# (d) token clients of the recurrent families on the (1, 2) mesh (ROADMAP
+# A11.7): each family's published widths, depth cut to one group
+# (xlstm-350m: d 1024, 4 heads, one mLSTM and one sLSTM block;
+# recurrentgemma-2b: d 2560, 10/1 heads of 256, ff 7680, two RG-LRU blocks
+# and one local-attention block), vocab cut to lm_tokens' 32 labels:
+# (family, arch, layers)
+AXIS_TOKEN_ARCHS = (("ssm", "xlstm-350m", 2), ("hybrid", "recurrentgemma-2b",
+                                               3))
+
+
+def axis_token_arch(family):
+    """(d)'s token-client config of ``family``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    _, arch, layers = next(a for a in AXIS_TOKEN_ARCHS if a[0] == family)
+    return dataclasses.replace(get_arch(arch), num_layers=layers,
+                               vocab_size=32)
+
+
+def run_token_families(smi):
+    """(d): lm_tokens edgefd strong at (c)'s sizes with the ssm and hybrid
+    families' token clients (``AXIS_TOKEN_ARCHS``), unsharded in this
+    process, then on the (1, 2) mesh of two ranks of the card over gloo:
+    held to the unsharded run (losses rtol 1e-3, accuracies within a test
+    sample), every rank's logs equal, each rank's state bytes beside the
+    unsharded run's; B1, B2 and the fused loss launched on every rank, B6
+    on none (the hybrid's local attention takes the plain route, a window,
+    as in the reference's dispatch)."""
+    import tempfile
+    lm = dict(dataset="lm_tokens", n_train=MESH_N_TRAIN, n_test=MESH_N_TEST)
+    runs = [dict(kw=mesh_kw(2, 2), arch=fam, **lm)
+            for fam, _, _ in AXIS_TOKEN_ARCHS]
+    whole = [mesh_run(dict(kw=mesh_kw(0, 0), arch=fam, **lm))
+             for fam, _, _ in AXIS_TOKEN_ARCHS]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mesh_world(2, "gloo", runs, tmp)
+    for i, (fam, arch, layers) in enumerate(AXIS_TOKEN_ARCHS):
+        got = [r[i] for r in ranks]
+        for r in got[1:]:
+            if r["logs"] != got[0]["logs"]:
+                raise AssertionError(f"(d) {fam}: the ranks' logs differ")
+        label = f"(d) {fam} ({arch}, {layers} layers) {got[0]['mesh']}"
+        compare_runs(f"{label} vs unsharded", as_run(got[0]["logs"]),
+                     as_run(whole[i]["logs"]), MESH_N_TEST,
+                     names=("mesh", "unsharded"))
+        for k, r in enumerate(got):
+            for name in ("lloyd_step", "min_dist_and_mask_clients",
+                         "kd_kl_loss_clients"):
+                if not r["launches"][name]:
+                    raise AssertionError(f"{label}: {name} never launched "
+                                         f"on rank {k}")
+            if r["launches"]["flash_attention"]:
+                raise AssertionError(f"{label}: B6 launched")
+            log(f"    rank {k}: rounds {r['rounds_s']:.3f} s (unsharded "
+                f"{whole[i]['rounds_s']:.3f}), state {r['state_bytes']} B "
+                f"({r['state_bytes'] / whole[i]['state_bytes']:.3f} of the "
+                f"unsharded run's {whole[i]['state_bytes']}), card peak "
+                f"{r['peak_bytes'] / 2**30:.3f} GiB (unsharded "
+                f"{whole[i]['peak_bytes'] / 2**30:.3f}), host peak "
+                f"{r['host_peak_bytes'] / 2**30:.3f} GiB; launches "
+                + json.dumps({k2: v for k2, v in r["launches"].items()
+                              if v}) + f" ({smi})")
 
 
 # ------------------------------------------------- phase 6, the trainer path
@@ -3965,9 +4065,10 @@ def run_mesh_path(smi):
 # to 2 layers, widths as published
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 50, 8, 128, 3e-4
-# (a)'s steps, cut from launch.train's 50 for time (the encoder and vlm
-# families' runs took it)
-MOE_STEPS = 25
+# (a)'s steps, cut from launch.train's 50 for time (to 25 for the encoder
+# and vlm families' runs, to 12 for the model axis's), and (f)'s, to 25
+MOE_STEPS = 12
+ENC_STEPS = 25
 TRAIN_PLAIN_STEPS = 3
 TRAIN_ATTN = (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 64)     # B6 on (a)'s path
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_CACHE = 4, 16, 16, 64
@@ -3984,14 +4085,15 @@ FD_KL = (FD_CLIENTS * FD_BATCH, 49155)               # the fused loss's rows
 # (b)'s on the whole model, and the FD trainer at one group (a depth cut,
 # widths as published): (label, arch, the FD trainer's layers, training
 # steps, the trainer's layers or None for the whole model). Three cuts:
-# (d)'s steps from 50 to 8 and (e)'s to 25 for time (the sLSTM's time
-# loop is host-bound, ~5 s a step on the card), and (e)'s training depth
+# (d)'s steps from 50 to 8 (4 left its first batch's loss risen) and
+# (e)'s to 25, then 10, for time (the sLSTM's time loop is host-bound,
+# 5-7 s a step on the card), and (e)'s training depth
 # from 8 groups to 6 (18 layers; decode stays whole): the whole model's
 # AdamW step ran out of the card's 79.18 GiB (parameters, gradients and
 # both moments 50.2 GiB, then the update's temporaries of the 2.44 GiB
 # embedding and head)
 RECURRENT_RUNS = (("(d)", "xlstm-350m", 2, 8, None),
-                  ("(e)", "recurrentgemma-2b", 3, 25, 18))
+                  ("(e)", "recurrentgemma-2b", 3, 10, 18))
 # the sLSTM's plain-autograd route, timed beside its custom backward
 SLSTM_PLAIN_STEPS = 1
 # xLSTM's replay against its prefill, as a relative Frobenius gap: in
@@ -4640,7 +4742,7 @@ def measure_flash_local(launches, err):
 # ------------------------------- phase 6, the encoder and cross-attention
 # families (ROADMAP A11.2): (f) hubert-xlarge (arXiv:2106.07447; 48
 # layers, d 1280, 16 heads of 80, ff 5120, 504 units, 1.26 B parameters)
-# whole, launch.train's 50 steps of 8 x 128 frames; (g) llama-3.2-vision-90b
+# whole, 25 of launch.train's 50 steps of 8 x 128 frames; (g) llama-3.2-vision-90b
 # (hf:meta-llama/Llama-3.2-11B-Vision; d 8192, 64/8 heads of 128, ff
 # 28672, vocab 128256, 1601 vision tokens) at full widths, its depth cut:
 # the whole model (90.7 B parameters) does not fit one card, so one group
@@ -4774,7 +4876,8 @@ def attn_by_shape(fa_ops):
 
 
 def run_encoder(smi, wrappers):
-    """(f): ``launch.train`` on hubert-xlarge whole at (a)'s settings, the
+    """(f): ``launch.train`` on hubert-xlarge whole at (a)'s settings
+    (``ENC_STEPS`` steps), the
     first batch's loss falling, B6 launched only on its long route at
     h = 80, full, 48 a step; the first 3 steps again from the same
     weights, each held to the plain attention's loss on the same weights
@@ -4811,7 +4914,7 @@ def run_encoder(smi, wrappers):
         w.launches = 0
     with attn_by_shape(fa_ops) as by_shape:
         losses, secs, model = train.train(
-            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            cfg, steps=ENC_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             lr=TRAIN_LR, device="cuda", log_every=10, model=model,
             say=lambda m: log("    " + m))
     torch.cuda.synchronize()
@@ -4823,11 +4926,11 @@ def run_encoder(smi, wrappers):
         raise AssertionError(f"(f) the first batch's loss did not fall: "
                              f"{before} -> {after}; steps {losses}")
     want = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, 80, TRAIN_SEQ)
-    if by_shape.by_key != {want: cfg.num_layers * TRAIN_STEPS}:
+    if by_shape.by_key != {want: cfg.num_layers * ENC_STEPS}:
         raise AssertionError(f"(f) B6 launches {by_shape.by_key}, not "
                              f"{cfg.num_layers} a step at {want}")
     step_s = sum(secs[1:]) / len(secs[1:])
-    log(f"  (f) launch.train {cfg.name}, {TRAIN_STEPS} steps of "
+    log(f"  (f) launch.train {cfg.name}, {ENC_STEPS} steps of "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} frames, lr {TRAIN_LR:g} ({smi}): step "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, the first batch's "
         f"loss {before:.4f} -> {after:.4f}; first step {secs[0]:.3f} s, "
@@ -4843,7 +4946,7 @@ def run_encoder(smi, wrappers):
     gc.collect()
     torch.cuda.empty_cache()
     model = drawn()
-    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, ENC_STEPS))
     opt_state = opt.init(list(model.parameters()))
     step = train.make_train_step(model, opt)
     next_batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
@@ -4973,7 +5076,8 @@ def run_vlm(smi, wrappers):
         raise AssertionError(f"(g) B6 launches {k_run['by_shape']} (want "
                              f"{want}), plain route {p_run['launches']}")
     res.update(grad_s=k_run["s"], grad_peak=peak,
-               launches=dict(k_run["by_shape"]))
+               launches=dict(k_run["by_shape"]), grad_loss=k_run["loss"],
+               grad_norms=k_run["norms"])
     del model, params, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -5029,7 +5133,8 @@ def run_vlm(smi, wrappers):
         raise AssertionError(f"(g) prefill B6 launches {by_shape.by_key}, "
                              f"not {want}")
     res.update(dec_s=dec_s, dec_tok_s=DECODE_BATCH * DECODE_NEW / dec_s,
-               dec_err=err, prefill_launches=dict(by_shape.by_key))
+               dec_err=err, prefill_launches=dict(by_shape.by_key),
+               decoded=(toks, prefill.cpu(), replay.cpu()))
     log(f"  (g) prefill (vision {DECODE_BATCH} x {VISION_KEYS}), "
         f"init_cache(vision=, params=), the prompt's replay and "
         f"{DECODE_NEW} new tokens, batch {DECODE_BATCH}, prompt "
@@ -5115,6 +5220,600 @@ def measure_families(out, errs):
                                  "kernel.py:76",
                      "launches": launches.get((b, n, s, h, sk), 0),
                      "max_abs_err": errs[shape], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+# ------------------------------------ phase 6, the model axis (ROADMAP A11.7)
+# (h)-(j): the trainer path's families on the (1, 2) mesh, two ranks of the
+# card over gloo (NCCL refuses two ranks on one device), one world of
+# --mesh-child ranks; each held to the unsharded run of the same weights
+# (drawn from a CUDA generator seeded 0) and batch, run in this process
+# first. (h) hubert-xlarge whole: one AdamW step, then one under
+# bf16_psum; (i) llama-3.2-vision-90b at full widths: (g)'s one group's
+# train_loss forward and backward at (g)'s batch (both ranks fit on the
+# card together at 8 x 128), and (g)'s two groups' prefill and decode;
+# (j) xlstm-350m, recurrentgemma-2b and granite-moe-1b-a400m (no expert
+# dropping, as (b)) whole, prefill and decode at (b)'s sizes
+AXIS_DECODE_ARCHS = ("xlstm-350m", "recurrentgemma-2b", TRAIN_ARCH)
+AXIS_DECODE_ATOL = 1e-3
+# xlstm-350m whole (12 groups): float32 through the groups' gating moves
+# its logits past AXIS_DECODE_ATOL however the sums are ordered. Measured
+# by run_ssm_witness (H100 80GB HBM3, 700 W): the unsharded weights
+# decoded on the host's CPU part from the card's run by 1.906e-2 (1.030e-3
+# relative), the (1, 2) mesh by 1.469e-2 (6.195e-4), and both gaps grow
+# alike with depth (3.1e-5 / 3.6e-5 at 1 group). Its decode is held to
+# the reference's decode tolerance (DECODE_ATOL), to twice the CPU run's
+# relative gap, to equal new tokens up to AXIS_DECODE_PREFIX_SSM (the
+# mesh's 15th flips, a near-tie) and to the replay's greedy choices
+# wherever the unsharded margin clears twice the gap.
+AXIS_DECODE_REL_SSM = 2e-3
+AXIS_DECODE_PREFIX_SSM = 12
+# B6 at the (1, 2) mesh's local heads: (b, n, nkv, s, h, keys, causal) and
+# the key of its launches (B, N, Sq, h, Sk)
+LOCAL_ATTN = {
+    "flash_attention_h80_local": (TRAIN_BATCH, 8, 8, TRAIN_SEQ, 80, None,
+                                  False),
+    "flash_attention_vlm_self_local": (TRAIN_BATCH, 32, 4, TRAIN_SEQ, 128,
+                                       None, True),
+    "flash_attention_cross_local": (TRAIN_BATCH, 32, 4, TRAIN_SEQ, 128,
+                                    VISION_KEYS, False),
+    "flash_attention_cross_prefill_local": (DECODE_BATCH, 32, 4,
+                                            DECODE_PROMPT, 128, VISION_KEYS,
+                                            False)}
+
+
+def local_key(shape):
+    b, n, _, s, h, sk, _ = shape
+    return (b, n, s, h, s if sk is None else sk)
+
+
+def check_local_head_kernels():
+    """Phase 3: B6 at the (1, 2) mesh's local heads (``LOCAL_ATTN``)
+    against its plain version. Returns the max abs errors by name."""
+    return {name: check_flash(b, n, nkv, s, h, causal=causal, sk=sk)
+            for name, (b, n, nkv, s, h, sk, causal) in LOCAL_ATTN.items()}
+
+
+class Collectives:
+    """Counts a mesh's ``all_reduce`` and ``gather`` calls and the bytes
+    each hands its backend, while in effect."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls, self.bytes = mesh, {}, {}
+
+    def __enter__(self):
+        for name in ("all_reduce", "gather"):
+            orig = getattr(self.mesh, name)
+
+            def counted(t, *a, _orig=orig, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                self.bytes[_name] = (self.bytes.get(_name, 0)
+                                     + t.numel() * t.element_size())
+                return _orig(t, *a, **kw)
+            setattr(self.mesh, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("all_reduce", "gather"):
+            delattr(self.mesh, name)
+
+
+def draw_model(cfg, mesh=None):
+    """``cfg``'s weights as every run here draws them (a CUDA generator
+    seeded 0) on the card, or with ``mesh`` this rank's slices of them
+    (``Transformer.shard``): the ranks draw in turn, so the card holds one
+    whole model at a time beside the other ranks' slices (the vlm's two
+    groups: 42.7 GB whole beside 21.3)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.transformer import Transformer
+
+    def draw():
+        return Transformer(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+    if mesh is None:
+        return draw()
+    model = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            model = draw().shard(mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return model
+
+
+def whole_norms(model, tensors):
+    """Each tensor's norm as a whole leaf (float64): a split leaf's squared
+    norm summed over the model axis."""
+    import torch
+    sq = torch.stack([t.detach().double().square().sum() for t in tensors])
+    split = torch.tensor([model._splits.get(id(p)) is not None
+                          for p in model.parameters()], device=sq.device)
+    if model.mesh is not None:
+        from repro_torch.fed.mesh import model_axis_name
+        sq = torch.where(split, model.mesh.all_reduce(
+            torch.where(split, sq, 0.0), model_axis_name(model.mesh)), sq)
+    return [float(v) for v in sq.sqrt()]
+
+
+def hubert_steps(model):
+    """(h)'s three AdamW steps on ``model`` (under the installed model
+    axis, if any): the first step's loss, gradient norms (whole), B6's
+    launches by shape and the collectives; the second step's seconds;
+    the third step's loss, under bf16_psum."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, apply_updates
+    from repro_torch.optim.schedules import linear_warmup_cosine
+    cfg = model.cfg
+    params = list(model.parameters())
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    opt_state = opt.init(params)
+    next_batch = train.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     device="cuda")
+    batch = next_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = model.mesh
+    coll = Collectives(mesh) if mesh is not None else None
+    t = time.perf_counter()
+    with attn_by_shape(fa_ops) as by_shape, \
+            (coll if coll is not None else contextlib.nullcontext()):
+        loss, _ = T.train_loss(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        upd, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, upd)
+        loss = float(loss.detach())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    norms = whole_norms(model, grads)
+    del grads, upd
+    step = train.make_train_step(model, opt)
+    batch = next_batch()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    opt_state, _ = step(opt_state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    L.set_attention_options(bf16_psum=True)
+    try:
+        _, loss2 = step(opt_state, next_batch())
+    finally:
+        L.set_attention_options()
+    return {"loss": loss, "first_s": first_s, "step_s": step_s,
+            "peak": peak, "norms": norms,
+            "launches": {str(k): v for k, v in by_shape.by_key.items()},
+            "collectives": None if coll is None else
+            {"calls": coll.calls, "bytes": coll.bytes},
+            "bf16_loss": float(loss2)}
+
+
+def vlm_grad_pass(model):
+    """(i)'s train_loss forward and backward at (g)'s batch: loss, norms
+    (whole), peak and B6's launches by shape of the first pass, the
+    seconds of a second."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    batch = train.make_batch_fn(model.cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device="cuda")()
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with attn_by_shape(fa_ops) as by_shape:
+        loss, _ = T.train_loss(model, batch)
+        grads = torch.autograd.grad(loss, params)
+    out = {"loss": float(loss.detach()),
+           "peak": torch.cuda.max_memory_allocated(),
+           "launches": {str(k): v for k, v in by_shape.by_key.items()},
+           "norms": whole_norms(model, grads)}
+    del loss, grads
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, _ = T.train_loss(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def decode_inputs(cfg, vision=False, device="cuda"):
+    """(b)'s and (g)'s prompt (and vision embeddings) from numpy's seed 0."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)), device=device)
+    if not vision:
+        return prompt, None
+    return prompt, torch.as_tensor(rng.standard_normal(
+        (DECODE_BATCH, VISION_KEYS, cfg.d_model)).astype(np.float32),
+        device=device)
+
+
+def decode_run(model):
+    """A warm-up (a prefill and one decode step), then the timed
+    prefill-then-decode at (b)'s sizes (the vlm's through
+    ``init_cache(vision=, params=)``, as (g)): (tokens, prefill logits,
+    the replay's logits, seconds, B6's launches by shape), on the
+    model's device."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    device = next(model.parameters()).device
+    prompt, vision = decode_inputs(cfg, cfg.family == "vlm", device)
+
+    def run(n_new, replay=DECODE_PROMPT):
+        if vision is None and replay == DECODE_PROMPT:
+            return decode_demo.prefill_then_decode(
+                model, prompt, DECODE_CACHE, n_new, return_logits=True)
+        prefill = model(prompt, vision=vision)
+        cache = T.init_cache(cfg, DECODE_BATCH, DECODE_CACHE, torch.float32,
+                             device=device, vision=vision, params=model)
+        logits = []
+        for t in range(replay):
+            lg, cache = T.decode_step(model, prompt[:, t:t + 1], cache, t)
+            logits.append(lg[:, 0])
+        toks = []
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        for i in range(n_new):
+            toks.append(tok)
+            lg, cache = T.decode_step(model, tok, cache, replay + i)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+        return torch.cat(toks, dim=1), prefill, torch.stack(logits, dim=1)
+    with torch.no_grad():
+        run(1, replay=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with attn_by_shape(fa_ops) as by_shape:
+            toks, prefill, replay = run(DECODE_NEW)
+        toks = toks.cpu()
+        secs = time.perf_counter() - t
+    return (toks, prefill.cpu(), replay.cpu(), secs,
+            {str(k): v for k, v in by_shape.by_key.items()})
+
+
+def decode_gap(got, want):
+    """Two ``decode_run`` results against each other: whether the tokens
+    are equal, the new tokens equal from the first on (the least over the
+    rows), the largest abs gap of the prefill's and the replay's logits,
+    their relative Frobenius gap, and whether the replay's greedy choices
+    agree wherever ``want``'s top-2 margin exceeds twice the abs gap (and
+    at how many of its steps)."""
+    import torch
+    gaps = [a - b for a, b in zip(got[1:3], want[1:3])]
+    gap = max(float(g.abs().max()) for g in gaps)
+    top2 = want[2].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    return {"tokens_equal": bool(torch.equal(got[0], want[0])),
+            "prefix": int((got[0] == want[0]).int().cumprod(dim=1)
+                          .sum(dim=1).min()),
+            "gap": gap,
+            "rel": max(float(g.norm() / w.norm())
+                       for g, w in zip(gaps, want[1:3])),
+            "clear_agree": bool((got[2].argmax(-1) == want[2].argmax(-1))
+                                [clear].all()),
+            "clear": int(clear.sum()), "steps": int(clear.numel())}
+
+
+def axis_cfg(what):
+    """The model-axis runs' configs: (h) hubert whole, (i) one or two vlm
+    groups, (j) a decode arch whole (granite-moe without expert
+    dropping)."""
+    import dataclasses
+    from repro_torch.common.types import MoEConfig
+    from repro_torch.configs import get_arch
+    if what == "h":
+        return get_arch(ENC_ARCH)
+    if what in ("i_grad", "i_decode"):
+        whole = get_arch(VLM_ARCH)
+        groups = VLM_GRAD_GROUPS if what == "i_grad" else VLM_DECODE_GROUPS
+        return dataclasses.replace(
+            whole, num_layers=groups * whole.cross_attn_every)
+    if "@" in what:
+        # the xLSTM witness: xlstm-350m cut to this many groups
+        arch, groups = what.split("@")
+        return dataclasses.replace(get_arch(arch), num_layers=2 * int(groups))
+    cfg = get_arch(what)
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(e, cfg.moe.top_k,
+                                                     float(e)))
+    return cfg
+
+
+def axis_child(run):
+    """A ``--mesh-child`` rank's model-axis run (``run["what"]``: "h",
+    "i_grad", "i_decode", a (j) arch or a witness's cut one) on the (1, 2)
+    mesh of the world,
+    held to the unsharded results in ``run["want"]`` (a file) where they
+    are tensors."""
+    import gc
+    import torch
+    from repro_torch.fed import mesh as fed_mesh
+    from repro_torch.models import sharding
+    mesh = fed_mesh.build_mesh((1, 2), ("data", "model"), device="cuda")
+    what = run["what"]
+    cfg = axis_cfg(what)
+    model = draw_model(cfg, mesh)
+    if cfg.family == "vlm":
+        set_gates(model)
+    out = {"state_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    with sharding.model_parallel(mesh):
+        if what == "h":
+            out.update(hubert_steps(model))
+        elif what == "i_grad":
+            out.update(vlm_grad_pass(model))
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            got = decode_run(model)
+            out.update(decode_gap(got, torch.load(run["want"])), s=got[3],
+                       launches=got[4], tokens=got[0][0, :8].tolist(),
+                       peak=torch.cuda.max_memory_allocated())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_model_axis_path(smi, families):
+    """(h), (i) and (j) (above): the unsharded runs here, then one world of
+    two ranks over gloo, every run held to its unsharded one, every
+    rank's results equal. Returns B6's launches by shape over the ranks
+    and the runs."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.models import sharding
+    t0 = time.perf_counter()
+    log(f"[6] the model axis (ROADMAP A11.7): the (1, 2) mesh on two ranks "
+        f"of the card over gloo, {smi}")
+    want = {}
+    model = draw_model(axis_cfg("h"))
+    want["h"] = hubert_steps(model)
+    want["h"]["state_bytes"] = sum(p.numel() * p.element_size()
+                                   for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = families["g"]
+    want["i_grad"] = {"loss": g["grad_loss"], "norms": g["grad_norms"],
+                      "s": g["grad_s"], "peak": g["grad_peak"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"i_decode": os.path.join(tmp, "i_decode.pt")}
+        toks, prefill, replay = g["decoded"]
+        torch.save((toks, prefill, replay), files["i_decode"])
+        want["i_decode"] = {"s": g["dec_s"]}
+        for arch in AXIS_DECODE_ARCHS:
+            model = draw_model(axis_cfg(arch))
+            torch.cuda.reset_peak_memory_stats()
+            with sharding.model_parallel(None):
+                got = decode_run(model)
+            files[arch] = os.path.join(tmp, f"{arch}.pt")
+            torch.save(got[:3], files[arch])
+            want[arch] = {"s": got[3],
+                          "peak": torch.cuda.max_memory_allocated()}
+            del model, got
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs = [dict(kind="axis", what=w, want=files.get(w))
+                for w in ("h", "i_grad", "i_decode") + AXIS_DECODE_ARCHS]
+        ranks = mesh_world(2, "gloo", runs, tmp, timeout=900)
+    launches = {}
+    for rank in ranks:
+        for res in rank:
+            for key, n in res.get("launches", {}).items():
+                launches[key] = launches.get(key, 0) + n
+    # (h)
+    h = [r[0] for r in ranks]
+    for r in h:
+        gap = abs(r["loss"] - want["h"]["loss"]) / abs(want["h"]["loss"])
+        n_gap = max(abs(a - b) / max(b, 1e-30)
+                    for a, b in zip(r["norms"], want["h"]["norms"]))
+        b_gap = abs(r["bf16_loss"] - want["h"]["bf16_loss"]) / abs(
+            want["h"]["bf16_loss"])
+        if not gap <= 1e-3 or not n_gap <= 1e-3 or not b_gap <= 1e-2:
+            raise AssertionError(f"(h) loss gap {gap}, norm gap {n_gap}, "
+                                 f"bf16_psum loss gap {b_gap}")
+    key = str(local_key(LOCAL_ATTN["flash_attention_h80_local"]))
+    for r in h:
+        if r["launches"] != {key: axis_cfg("h").num_layers}:
+            raise AssertionError(f"(h) B6 launches {r['launches']}, not "
+                                 f"48 at {key}")
+    log(f"  (h) {ENC_ARCH} whole, one AdamW step of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} frames on (1, 2) ({smi}): loss {h[0]['loss']:.6f} "
+        f"(unsharded {want['h']['loss']:.6f}, relative gap "
+        f"{abs(h[0]['loss'] - want['h']['loss']) / want['h']['loss']:.3e}, "
+        f"rtol 1e-3), every gradient leaf's norm within "
+        f"{max(abs(a - b) / max(b, 1e-30) for a, b in zip(h[0]['norms'], want['h']['norms'])):.3e}"
+        f" (rtol 1e-3); the first step {h[0]['first_s']:.3f} / "
+        f"{h[1]['first_s']:.3f} s a rank (unsharded "
+        f"{want['h']['first_s']:.3f}), the second "
+        f"{h[0]['step_s']:.3f} / {h[1]['step_s']:.3f} s (unsharded "
+        f"{want['h']['step_s']:.3f}); card peak "
+        + " / ".join(f"{r['peak'] / 2**30:.3f}" for r in h)
+        + f" GiB (unsharded {want['h']['peak'] / 2**30:.3f}); state "
+        + " / ".join(str(r["state_bytes"]) for r in h)
+        + f" B (unsharded {want['h']['state_bytes']}); collectives a step "
+        f"{json.dumps(h[0]['collectives'])}; then under bf16_psum loss "
+        f"{h[0]['bf16_loss']:.6f} (unsharded {want['h']['bf16_loss']:.6f}, "
+        f"rtol 1e-2); B6 a rank {h[0]['launches']}")
+    # (i)
+    ig = [r[1] for r in ranks]
+    for r in ig:
+        gap = abs(r["loss"] - want["i_grad"]["loss"]) / abs(
+            want["i_grad"]["loss"])
+        n_gap = max(abs(a - b) / max(b, 1e-30)
+                    for a, b in zip(r["norms"], want["i_grad"]["norms"]))
+        if not gap <= 1e-3 or not n_gap <= 1e-3:
+            raise AssertionError(f"(i) loss gap {gap}, norm gap {n_gap}")
+    per = axis_cfg("i_grad").cross_attn_every
+    wants = {str(local_key(LOCAL_ATTN["flash_attention_vlm_self_local"])):
+             VLM_GRAD_GROUPS * (per - 1),
+             str(local_key(LOCAL_ATTN["flash_attention_cross_local"])):
+             VLM_GRAD_GROUPS}
+    if any(r["launches"] != wants for r in ig):
+        raise AssertionError(f"(i) B6 launches {ig[0]['launches']}, not "
+                             f"{wants}")
+    self_key = (DECODE_BATCH, 32, DECODE_PROMPT, 128, DECODE_PROMPT)
+    wants = {str(self_key): VLM_DECODE_GROUPS * (per - 1), str(local_key(
+        LOCAL_ATTN["flash_attention_cross_prefill_local"])):
+        VLM_DECODE_GROUPS}
+    if any(r[2]["launches"] != wants for r in ranks):
+        raise AssertionError(f"(i) prefill's B6 launches "
+                             f"{ranks[0][2]['launches']}, not {wants}")
+    log(f"  (i) {VLM_ARCH}, {VLM_GRAD_GROUPS} group at full widths, "
+        f"train_loss forward and backward, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens with {VISION_KEYS} vision keys, on (1, 2) ({smi}): loss "
+        f"{ig[0]['loss']:.6f} (unsharded {want['i_grad']['loss']:.6f}), "
+        f"every gradient leaf's norm within "
+        f"{max(abs(a - b) / max(b, 1e-30) for a, b in zip(ig[0]['norms'], want['i_grad']['norms'])):.3e}"
+        f" (rtol 1e-3); a second pass {ig[0]['s']:.3f} / {ig[1]['s']:.3f} "
+        f"s a rank (unsharded, (g)'s first {want['i_grad']['s']:.3f}); "
+        f"card peak "
+        + " / ".join(f"{r['peak'] / 2**30:.3f}" for r in ig)
+        + f" GiB (unsharded {want['i_grad']['peak'] / 2**30:.3f}); B6 a "
+        f"rank {ig[0]['launches']}")
+    # (i) decode and (j)
+    for j, what in enumerate(("i_decode",) + AXIS_DECODE_ARCHS):
+        got = [r[2 + j] for r in ranks]
+        ssm = what != "i_decode" and axis_cfg(what).family == "ssm"
+        tol = DECODE_ATOL if what == "i_decode" or ssm else AXIS_DECODE_ATOL
+        for r in got:
+            # xLSTM: AXIS_DECODE_REL_SSM above
+            held = r["gap"] <= tol and (
+                r["rel"] <= AXIS_DECODE_REL_SSM and r["clear_agree"]
+                and r["prefix"] >= AXIS_DECODE_PREFIX_SSM
+                if ssm else r["tokens_equal"])
+            if not held:
+                raise AssertionError(f"{what} on (1, 2): {r}")
+        if got[0]["tokens"] != got[1]["tokens"]:
+            raise AssertionError(f"{what}: the ranks' tokens differ")
+        name = VLM_ARCH + f", {VLM_DECODE_GROUPS} groups" \
+            if what == "i_decode" else what
+        rate = DECODE_BATCH * DECODE_NEW
+        log(f"  ({'i' if what == 'i_decode' else 'j'}) {name} prefill and "
+            f"decode, batch {DECODE_BATCH}, prompt {DECODE_PROMPT}, "
+            f"{DECODE_NEW} new tokens on (1, 2) ({smi}): tokens equal the "
+            f"unsharded run's: {got[0]['tokens_equal']} (the first "
+            f"{got[0]['prefix']} of each row), prefill and replay logits "
+            f"within {max(r['gap'] for r in got):.3e} "
+            + f"(atol {tol:g}"
+            + (f", relative {max(r['rel'] for r in got):.3e} of rtol "
+               f"{AXIS_DECODE_REL_SSM:g}, equal tokens held to the first "
+               f"{AXIS_DECODE_PREFIX_SSM}; the replay's greedy choices agree "
+               f"at the {got[0]['clear']} of {got[0]['steps']} steps whose "
+               f"unsharded margin clears twice the gap" if ssm else "")
+            + "); "
+            f"{rate / got[0]['s']:.1f} new tokens/s (unsharded "
+            f"{rate / want[what]['s']:.1f}); state "
+            + " / ".join(str(r["state_bytes"]) for r in got)
+            + " B a rank; decode's card peak "
+            + " / ".join(f"{r['peak'] / 2**30:.3f}" for r in got)
+            + " GiB a rank"
+            + (f" (unsharded {want[what]['peak'] / 2**30:.3f})"
+               if "peak" in want[what] else "")
+            + f"; B6 a rank {got[0]['launches']}")
+    log(f"  the model axis took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# The xLSTM decode's witness (chip_smoke.py --ssm-witness): xlstm-350m's
+# widths at 1, 3, 6 and 12 groups (12: the whole model), prefill and
+# decode at (b)'s sizes, from the same weights and prompt. The (1, 2)
+# mesh's gap to the unsharded run on the card, beside the gap of the same
+# unsharded weights decoded on the host's CPU (the same algorithm, its
+# float32 sums in another order) to the card's.
+SSM_WITNESS_GROUPS = (1, 3, 6, 12)
+
+
+def run_ssm_witness(smi):
+    """The witness above; logs each depth's two gaps (``decode_gap``)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.models import sharding
+    log(f"the xLSTM decode's witness: xlstm-350m's widths at "
+        f"{SSM_WITNESS_GROUPS} groups, batch {DECODE_BATCH}, prompt "
+        f"{DECODE_PROMPT}, {DECODE_NEW} new tokens ({smi})")
+    cpu = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for g in SSM_WITNESS_GROUPS:
+            what = f"xlstm-350m@{g}"
+            model = draw_model(axis_cfg(what))
+            with sharding.model_parallel(None):
+                card = decode_run(model)
+                cpu[g] = decode_gap(decode_run(model.to("cpu")), card)
+            files[what] = os.path.join(tmp, f"{g}.pt")
+            torch.save(card[:3], files[what])
+            del model, card
+            gc.collect()
+            torch.cuda.empty_cache()
+        ranks = mesh_world(2, "gloo", [dict(kind="axis", what=w, want=f)
+                                       for w, f in files.items()], tmp,
+                           timeout=600)
+    for i, g in enumerate(SSM_WITNESS_GROUPS):
+        if ranks[0][i]["tokens"] != ranks[1][i]["tokens"]:
+            raise AssertionError(f"{g} groups: the ranks' tokens differ")
+        for name, r in (("(1, 2) mesh", ranks[0][i]), ("CPU", cpu[g])):
+            log(f"  {g} groups, {name} against the card's unsharded run: "
+                f"logits within {r['gap']:.4e} (relative {r['rel']:.4e}), "
+                f"new tokens equal from the first on: {r['prefix']} of "
+                f"{DECODE_NEW} (least over the rows), the replay's choices "
+                f"agree where the margin clears twice the gap: "
+                f"{r['clear_agree']} ({r['clear']} of {r['steps']})")
+        log("  " + json.dumps({"groups": g, "mesh": ranks[0][i],
+                               "cpu": cpu[g]}))
+
+
+def measure_local_heads(launches, errs):
+    """Phase 7's B6 rows at the (1, 2) mesh's local heads (``LOCAL_ATTN``),
+    the model's layout: per call and device only, the plain version and
+    scaled_dot_product_attention (timed only); launches over the ranks of
+    (h) and (i)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    rows = []
+    for name, shape in LOCAL_ATTN.items():
+        b, n, nkv, s, h, sk, causal = shape
+        sk = s if sk is None else sk
+        q, k, v = map(model_layout, attn_inputs(b, n, nkv, s, h, seed=4,
+                                                sk=sk))
+        moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+        pairs = s * (s + 1) // 2 if causal else s * sk
+        flops = b * n * pairs * (4 * h + 5)
+        ms, plain_ms, b_ms, b_by, dev = time_row(
+            f"{name} ({b}, {n}, {s}, {h}) kv {nkv} over {sk} keys, causal="
+            f"{causal}, model layout",
+            lambda: ops.flash_attention_cuda(q, k, v, causal),
+            lambda: ref.attention_gqa(q, k, v, causal=causal), moved, flops)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        lib_ms = time_ms(library)
+        log(f"    library (scaled_dot_product_attention) {lib_ms:.5f}, "
+            f"device only {fmt(device_ms(library))}; {flops / 1e9:.3f} "
+            f"GFLOP, {moved / 1e6:.1f} MB; share of the bound, device only: "
+            + ("not measured" if dev is None else f"{b_ms / dev:.3f}"))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:76",
+                     "launches": launches.get(str(local_key(shape)), 0),
+                     "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
     return rows
@@ -5885,12 +6584,13 @@ def main(argv) -> int:
     src, timer = SRC, timers.get(argv[0]) if argv else None
     mesh_only = argv == ["--mesh"]
     trainer_only = argv == ["--trainer"]
+    witness_only = argv == ["--ssm-witness"]
     if timer and argv[1:2] == ["--src"] and len(argv) == 3:
         src = Path(argv[2]).resolve()
     elif argv and not (timer and len(argv) == 1) and not mesh_only \
-            and not trainer_only:
-        print("usage: chip_smoke.py [--mesh | --trainer | --time-flash | "
-              "--time-kernels [--src DIR]]", file=sys.stderr)
+            and not trainer_only and not witness_only:
+        print("usage: chip_smoke.py [--mesh | --trainer | --ssm-witness | "
+              "--time-flash | --time-kernels [--src DIR]]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -5935,6 +6635,10 @@ def main(argv) -> int:
         + ", ".join(f"{h}: {fa_ops.short_route_occupancy(h)}"
                     for h in fa_ops.HEAD_DIMS))
 
+    if witness_only:
+        run_ssm_witness(smi)
+        log(smi)
+        return 0
     if mesh_only:
         row = measure_flash_local(*run_mesh_path(smi))
         log(smi)
@@ -5943,8 +6647,12 @@ def main(argv) -> int:
     if trainer_only:
         errs = check_trainer_kernels()
         family_errs = check_family_kernels()
+        local_errs = check_local_head_kernels()
         rows = measure_trainer(run_trainer_path(smi), *errs)
-        rows += measure_families(run_family_paths(smi), family_errs)
+        families = run_family_paths(smi)
+        rows += measure_families(families, family_errs)
+        rows += measure_local_heads(run_model_axis_path(smi, families),
+                                    local_errs)
         log(smi)
         print(json.dumps({"kernels": rows}))
         return 0
@@ -5957,6 +6665,7 @@ def main(argv) -> int:
     (lloyd_err, kl_err, dist_err, rbf_err, attn_err,
      cohort_err) = check_kernels()
     family_errs = check_family_kernels()
+    local_errs = check_local_head_kernels()
     lap("phase 3")
     check_kmeans_agreement()
     check_kmeans_batched()
@@ -5985,6 +6694,8 @@ def main(argv) -> int:
     trainer = run_trainer_path(smi)
     families = run_family_paths(smi)
     lap("phase 6, the trainer path")
+    axis_launches = run_model_axis_path(smi, families)
+    lap("phase 6, the model axis")
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)
@@ -5992,6 +6703,7 @@ def main(argv) -> int:
     rows.append(measure_flash_local(local_launches, local_err))
     rows += measure_trainer(trainer, *trainer_errs)
     rows += measure_families(families, family_errs)
+    rows += measure_local_heads(axis_launches, local_errs)
     lap("phase 7")
 
     log(smi)

@@ -21,12 +21,18 @@ every rank from gathered leaves. ``set_attention_options(chunk_q=...)``
 routes full-sequence attention longer than ``chunk_q`` through
 ``chunked_attention`` (the reference's plain query-chunked route, no
 kernel there either), and ``attention_decode`` is one token against a KV
-cache (a ring buffer under a window). ``attention_forward(...,
-kv_override=(k, v))`` is the vlm family's cross-attention (keys and
-values given, no RoPE). ``set_attention_options(bf16_psum=True)`` gives
-the partial-sum projections (attention out-projection, MLP
+cache (a ring buffer under a window); under a model axis it runs the
+local query heads against a cache of the kv heads they read
+(``local_kv_heads``: a rank's own kv heads where they split, else the
+shared ones whole). ``attention_forward(..., kv_override=(k, v))`` is
+the vlm family's cross-attention (keys and values given, no RoPE; under
+a model axis ``project_kv``'s local kv heads), ``attention_given_kv``
+its decode against cached keys. ``set_attention_options(bf16_psum=True)``
+gives the partial-sum projections (attention out-projection, MLP
 down-projection, the experts' dispatch and combine) a bf16 result, as
-the reference's ``psum_einsum``: computed in f32, rounded once.
+the reference's ``psum_einsum``: computed in f32, rounded once; under a
+model axis each rank rounds its partial product and the ranks' bf16
+values are summed (``models.sharding``).
 """
 from __future__ import annotations
 
@@ -215,24 +221,20 @@ def attention_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
     (``wq``, ``bq``), and neither side gets RoPE, as the reference's (which
     also projects x's own k and v and drops them)."""
     mp = sharding.model_parallel_state()
+    if mp is not None and cfg.num_heads % mp.size == 0:
+        return _attention_heads(p, x, cfg, mp, positions=positions,
+                                causal=causal, window=window,
+                                backend=backend, kv=kv_override)
+    if mp is not None:
+        # heads the model axis does not divide: whole on every rank
+        p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
+             for k, w in p.items()}
     if kv_override is not None:
-        if mp is not None:
-            raise NotImplementedError(
-                "cross-attention under a model axis is not ported yet: "
-                "ROADMAP queue A item 11")
         q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
         k, v = kv_override
     else:
-        if mp is not None:
-            if cfg.num_heads % mp.size == 0:
-                return _attention_heads(p, x, cfg, mp, positions=positions,
-                                        causal=causal, window=window,
-                                        backend=backend)
-            # heads the model axis does not divide: whole on every rank
-            p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
-                 for k, w in p.items()}
         q, k, v = _qkv(p, x)
         if positions is not None:
             cos, sin = rope_angles(positions, cfg.resolved_head_dim,
@@ -291,38 +293,60 @@ def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
     the caches with this token's key and value written at ``pos``
     (``pos mod C``, a ring buffer, when ``window`` > 0), new tensors as
     the reference's ``dynamic_update_slice`` makes them. Grouped-query
-    einsums: the cache is never expanded to the query heads."""
-    if sharding.model_parallel_state() is not None:
-        raise NotImplementedError(
-            "decode under a model axis is not ported yet: ROADMAP queue A "
-            "item 11")
-    b = x.shape[0]
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    nrep = nq // nkv
+    einsums: the cache is never expanded to the query heads. Under a
+    model axis the cache holds ``local_kv_heads``: the local query heads
+    attend to it, ``wo`` is row-parallel and the partial outputs are
+    summed."""
+    mp = sharding.model_parallel_state()
+    if mp is not None and cfg.num_heads % mp.size == 0:
+        q, k, v, kv_of, wo = _head_projections(p, x, cfg, mp)
+        o, new_k, new_v = _decode_heads(q, k, v, cfg, cache_k, cache_v, pos,
+                                        window, kv_of)
+        out = torch.einsum("bsnh,nhd->bsd", o, wo)
+        return sharding.reduce_from_model(out), new_k, new_v
+    if mp is not None:
+        p = {k: sharding.whole(w, k, _attn_shape(k, cfg))
+             for k, w in p.items()}
     q, k, v = _qkv(p, x)
+    o, new_k, new_v = _decode_heads(q, k, v, cfg, cache_k, cache_v, pos,
+                                    window, None)
+    return torch.einsum("bsnh,nhd->bsd", o, p["wo"]), new_k, new_v
+
+
+def _decode_heads(q, k, v, cfg, cache_k, cache_v, pos, window, kv_of):
+    """``attention_decode``'s core on projected q (B, 1, n, h) and k, v
+    (B, 1, n_kv, h): RoPE at ``pos``, the token written into the caches,
+    the grouped scores. ``kv_of``: each query head's cache head when the
+    heads do not map onto whole groups in order (the cache's heads are
+    then picked per query), else None."""
+    b, _, nq, _ = q.shape
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if window > 0 else pos
-    cos, sin = rope_angles(torch.tensor([pos], device=x.device),
+    cos, sin = rope_angles(torch.tensor([pos], device=q.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     new_k, new_v = cache_k.clone(), cache_v.clone()
     new_k[:, slot] = k[:, 0].to(cache_k.dtype)
     new_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    kpos = torch.arange(s_cache, device=x.device)
+    kpos = torch.arange(s_cache, device=q.device)
     # a ring slot is valid once pos >= C; before that only slots <= pos
     valid = (torch.ones_like(kpos, dtype=torch.bool)
              if window > 0 and pos >= s_cache else kpos <= pos)
     h = q.shape[-1]
-    qg = q.reshape(b, 1, nkv, nrep, h)
+    ck, cv = new_k, new_v
+    if kv_of is not None:
+        idx = kv_of.to(ck.device)
+        ck, cv = ck.index_select(2, idx), cv.index_select(2, idx)
+    nkv = ck.shape[2]
+    qg = q.reshape(b, 1, nkv, nq // nkv, h)
     scale = 1.0 / math.sqrt(h)
     logits = torch.einsum("bqgrh,bkgh->bgrqk", qg,
-                          new_k.to(qg.dtype)).to(torch.float32) * scale
+                          ck.to(qg.dtype)).to(torch.float32) * scale
     logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    og = torch.einsum("bgrqk,bkgh->bqgrh", probs, new_v.to(x.dtype))
-    o = og.reshape(b, 1, nq, h)
-    return torch.einsum("bsnh,nhd->bsd", o, p["wo"]), new_k, new_v
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    og = torch.einsum("bgrqk,bkgh->bqgrh", probs, cv.to(q.dtype))
+    return og.reshape(b, 1, nq, h), new_k, new_v
 
 
 def _attn_shape(name: str, cfg) -> tuple:
@@ -334,45 +358,142 @@ def _attn_shape(name: str, cfg) -> tuple:
             "bv": (nkv, h)}[name]
 
 
-def _attention_heads(p, x, cfg, mp, *, positions, causal, window, backend):
-    """Attention over this rank's block of query heads: ``wq`` (and
-    ``bq``) column-parallel, the kv heads those queries read (this rank's
-    own ``wk``/``wv`` slice when the kv heads split alike, else cut from
-    the gathered leaves), ``wo`` row-parallel and the partial outputs
-    summed over the model axis. The kernel sees the local GQA ratio; kv
-    heads are repeated per query only when the local block does not map
-    onto whole groups."""
+def _head_block(cfg, mp):
+    """This rank's query heads ``[lo, hi)`` (the model axis divides them),
+    the kv heads they read ``[kv_lo, kv_hi)``, and each local query's head
+    among those (a tensor) when the block does not map onto whole groups
+    in order, else None."""
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     n = nq // mp.size
     lo, hi = mp.index * n, (mp.index + 1) * n
     group = nq // nkv
     kv_lo, kv_hi = lo // group, (hi - 1) // group + 1
+    kv_of = torch.arange(lo, hi) // group - kv_lo    # each query's kv head
+    ratio = n // (kv_hi - kv_lo)
+    if n % (kv_hi - kv_lo) == 0 and torch.equal(kv_of,
+                                                torch.arange(n) // ratio):
+        kv_of = None
+    return lo, hi, kv_lo, kv_hi, kv_of
+
+
+def local_kv_heads(cfg) -> int:
+    """The kv heads a rank's cache holds: those its query heads read
+    under the installed model axis (its own block where the kv heads
+    split, else the shared ones whole), all of them without one or when
+    the axis does not divide the query heads."""
+    mp = sharding.model_parallel_state()
+    if mp is None or cfg.num_heads % mp.size:
+        return cfg.num_kv_heads
+    _, _, kv_lo, kv_hi, _ = _head_block(cfg, mp)
+    return kv_hi - kv_lo
+
+
+def project_kv(p: Mapping[str, torch.Tensor], src: torch.Tensor, cfg):
+    """Keys and values of ``src`` (B, Sk, d) by ``p``'s ``wk``/``wv`` (no
+    bias, no RoPE: the vlm's cross keys), (B, Sk, n_kv, h) each,
+    unexpanded; under a model axis the kv heads this rank's query heads
+    read (``local_kv_heads``), as ``attention_forward(kv_override=)`` and
+    ``attention_given_kv`` take them."""
+    mp = sharding.model_parallel_state()
+    wk, wv = p["wk"], p["wv"]
+    if mp is not None and cfg.num_heads % mp.size == 0:
+        _, _, kv_lo, kv_hi, _ = _head_block(cfg, mp)
+        src = sharding.copy_to_model(src)
+        wk, wv = (sharding.part(p[n], n, _attn_shape(n, cfg), 1, kv_lo,
+                                kv_hi) for n in ("wk", "wv"))
+    elif mp is not None:
+        wk, wv = (sharding.whole(p[n], n, _attn_shape(n, cfg))
+                  for n in ("wk", "wv"))
+    return (torch.einsum("bvd,dnh->bvnh", src, wk),
+            torch.einsum("bvd,dnh->bvnh", src, wv))
+
+
+def attention_given_kv(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                       cfg, k: torch.Tensor, v: torch.Tensor
+                       ) -> torch.Tensor:
+    """x's queries (``wq``, ``bq``; no RoPE) against the keys and values
+    ``k``, ``v`` (B, Sk, n_kv, h), every key visible, by the plain scores
+    (no kernel, as the reference's decode of the vlm's cross block); the
+    out-projection without ``psum_einsum``, as there. Under a model axis
+    the local query heads against ``project_kv``'s local kv heads, ``wo``
+    row-parallel and the partial outputs summed."""
+    mp = sharding.model_parallel_state()
+    split = mp is not None and cfg.num_heads % mp.size == 0
+    if split:
+        q, k, v, kv_of, wo = _head_projections(p, x, cfg, mp, kv=(k, v))
+        if kv_of is not None:
+            idx = kv_of.to(k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    else:
+        if mp is not None:
+            p = {n: sharding.whole(w, n, _attn_shape(n, cfg))
+                 for n, w in p.items()}
+        q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        wo = p["wo"]
+    nrep = q.shape[2] // k.shape[2]
+    mask = torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    att = attention_scores(q, _expand_kv(k.to(q.dtype), nrep),
+                           _expand_kv(v.to(q.dtype), nrep), mask)
+    out = torch.einsum("bsnh,nhd->bsd", att, wo)
+    return sharding.reduce_from_model(out) if split else out
+
+
+def _attention_heads(p, x, cfg, mp, *, positions, causal, window, backend,
+                     kv=None):
+    """Attention over this rank's block of query heads
+    (``_head_projections``; ``kv``: given, for cross-attention, without
+    RoPE), ``wo`` row-parallel and the partial outputs summed over the
+    model axis. The kernel sees the local GQA ratio; kv heads are
+    repeated per query only when the local block does not map onto whole
+    groups."""
+    q, k, v, kv_of, wo = _head_projections(p, x, cfg, mp, kv)
+    if kv is None and positions is not None:
+        cos, sin = rope_angles(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if kv_of is not None:
+        idx = kv_of.to(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    chunk = get_chunk_q()
+    if chunk and x.shape[1] > chunk:
+        n_rep = q.shape[2] // k.shape[2]
+        o = chunked_attention(q, _expand_kv(k, n_rep), _expand_kv(v, n_rep),
+                              causal=causal, window=window, chunk_q=chunk)
+    else:
+        o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
+                                     backend=backend)
+    out = psum_einsum("bsnh,nhd->bsd", o, wo)
+    return sharding.reduce_from_model(out)
+
+
+def _head_projections(p, x, cfg, mp, kv=None):
+    """This rank's block of query heads (the model axis divides them):
+    q (``wq`` column-parallel, ``bq``), the kv heads those queries read
+    (this rank's own ``wk``/``wv`` slice when the kv heads split alike,
+    else cut from the gathered leaves; ``kv``: given, as ``project_kv``
+    gives them) and the rows of ``wo`` for the block. Returns (q, k, v,
+    ``_head_block``'s per-query kv heads or None, wo)."""
+    lo, hi, kv_lo, kv_hi, kv_of = _head_block(cfg, mp)
     xf = sharding.copy_to_model(x)
 
     def leaf(name, dim, a, b):
         return sharding.part(p[name], name, _attn_shape(name, cfg), dim, a, b)
     q = torch.einsum("bsd,dnh->bsnh", xf, leaf("wq", 1, lo, hi))
-    k = torch.einsum("bsd,dnh->bsnh", xf, leaf("wk", 1, kv_lo, kv_hi))
-    v = torch.einsum("bsd,dnh->bsnh", xf, leaf("wv", 1, kv_lo, kv_hi))
     if "bq" in p:
         q = q + leaf("bq", 0, lo, hi)
-        k = k + leaf("bk", 0, kv_lo, kv_hi)
-        v = v + leaf("bv", 0, kv_lo, kv_hi)
-    if positions is not None:
-        cos, sin = rope_angles(positions, cfg.resolved_head_dim,
-                               cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    kv_of = torch.arange(lo, hi) // group - kv_lo    # each query's kv head
-    ratio = n // (kv_hi - kv_lo)
-    if n % (kv_hi - kv_lo) or not torch.equal(
-            kv_of, torch.arange(n) // ratio):
-        idx = kv_of.to(k.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
-                                 backend=backend)
-    out = psum_einsum("bsnh,nhd->bsd", o, leaf("wo", 0, lo, hi))
-    return sharding.reduce_from_model(out)
+    if kv is not None:
+        k, v = kv
+    else:
+        k = torch.einsum("bsd,dnh->bsnh", xf, leaf("wk", 1, kv_lo, kv_hi))
+        v = torch.einsum("bsd,dnh->bsnh", xf, leaf("wv", 1, kv_lo, kv_hi))
+        if "bq" in p:
+            k = k + leaf("bk", 0, kv_lo, kv_hi)
+            v = v + leaf("bv", 0, kv_lo, kv_hi)
+    return q, k, v, kv_of, leaf("wo", 0, lo, hi)
 
 
 # ---------------------------------------------------------------------------

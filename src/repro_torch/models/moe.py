@@ -14,6 +14,13 @@ bf16_psum=True)`` dispatch and combine give bf16 (``psum_einsum``); the
 experts' FFN then runs on the bf16 buffer cast to the weights' f32 (the
 type ``jnp.einsum`` promotes the pair to; ``torch.einsum`` would refuse
 the mix), and the combined slots are summed in bf16, as the reference's.
+
+Under a model axis (``models.sharding.model_parallel``) whose split of
+the experts' leaves is on the expert dim (``fed.mesh.model_split``) each
+rank runs its own block of experts: the router (gathered whole) and the
+dispatch run the same on every rank, a rank fills and runs only its
+experts' capacity buffers and combines their outputs, and the ranks'
+partial combines are summed over the axis.
 """
 from __future__ import annotations
 
@@ -54,14 +61,23 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
                 num_experts: Optional[int] = None,
                 d_ff: Optional[int] = None):
     """x (B, S, d) -> (out (B, S, d), aux loss 0-d f32). Under a model
-    axis (``num_experts``, ``d_ff``: the whole widths) the experts run
-    whole on every rank from gathered leaves."""
+    axis (``num_experts``, ``d_ff``: the whole widths) each rank runs its
+    block of experts where the axis splits them on the expert dim, else
+    the experts run whole on every rank from gathered leaves."""
     b, s, d = x.shape
-    if sharding.model_parallel_state() is not None:
+    mp = sharding.model_parallel_state()
+    local = None
+    if mp is not None:
         e, f = num_experts, d_ff
         shapes = {"router": (d, e), "wg": (e, d, f), "wu": (e, d, f),
                   "wd": (e, f, d)}
-        p = {k: sharding.whole(w, k, shapes[k]) for k, w in p.items()}
+        if e % mp.size == 0 and all(mp.split_dim(k, shapes[k]) == 0
+                                    for k in ("wg", "wu", "wd")):
+            local = sharding.block(e)
+            p = {k: w if k != "router" else sharding.whole(w, k, shapes[k])
+                 for k, w in p.items()}
+        else:
+            p = {k: sharding.whole(w, k, shapes[k]) for k, w in p.items()}
     e = p["router"].shape[-1]
     cap = max(1, int(math.ceil(capacity_factor * s * top_k / e)))
     cap = min(cap, s)
@@ -95,6 +111,12 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     combine = dispatch * gates_flat[..., None, None].to(x.dtype)
 
     xf = torch.repeat_interleave(x, top_k, dim=1)      # (b, s*k, d)
+    if local is not None:
+        # this rank's experts: its capacity buffers and its share of the
+        # combine (the gates' gradient gathered from every rank's share)
+        dispatch = dispatch[:, :, local[0]:local[1]]
+        combine = sharding.scatter_to_model(combine, 2)
+        xf = sharding.copy_to_model(xf)
     expert_in = psum_einsum("btec,btd->becd", dispatch, xf)
     # bf16 under bf16_psum: promoted to the weights' type, as jnp.einsum
     expert_in = expert_in.to(torch.promote_types(expert_in.dtype,
@@ -104,5 +126,7 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     h = torch.nn.functional.silu(g) * u
     expert_out = torch.einsum("becf,efd->becd", h, p["wd"])
     yf = psum_einsum("btec,becd->btd", combine, expert_out)
+    if local is not None:
+        yf = sharding.reduce_from_model(yf)
     # a token's k slots are adjacent: their sum merges the top-k
     return yf.reshape(b, s, top_k, d).sum(dim=2), aux

@@ -16,7 +16,19 @@ slices the cohort engine gives it, as ``repro_torch.fed.mesh.model_split``
 * a value that must be whole (a leaf split on a dim that is neither its
   input nor its output, vocab-split logits) goes through
   ``gather_from_model`` (all-gather forward; the backward takes the local
-  slice, since what follows runs the same on every rank).
+  slice, since what follows runs the same on every rank);
+* a whole value that a rank reads only a block of (the input of a
+  contraction-split product, a recurrence on a local width block) goes
+  through ``scatter_to_model`` (this rank's block forward, the blocks'
+  gradients gathered backward), and a partial sum that a rank reads only a
+  block of through ``reduce_then_block`` (an all-reduce of the whole sum,
+  then this rank's block: twice the bytes of a reduce-scatter, which
+  gloo lacks; the gradients gathered backward).
+
+A partial sum in bf16 (``layers.psum_einsum`` under ``bf16_psum``) is
+summed in f32 and rounded to bf16 once: at two ranks that is a bf16 add,
+the result of the reference's GSPMD all-reduce, whatever the backend sums
+bf16 in.
 
 Each collective is a ``torch.autograd.Function`` with a ``vmap`` rule (the
 cohort engine vmaps the forward over its client axis): the rule runs the
@@ -174,12 +186,28 @@ class _CopyToModel(torch.autograd.Function):
         return _CopyToModel.apply(x, mp), in_dims[0]
 
 
+def _sum(x: torch.Tensor, mp: "ModelParallel") -> torch.Tensor:
+    """Every rank's ``x`` summed over the model axis: a bf16 ``x`` in f32,
+    rounded once (exact at two ranks: the two bf16 values' f32 sum is
+    exact, so its rounding is the bf16 add's)."""
+    if x.dtype == torch.bfloat16:
+        return mp.mesh.all_reduce(x.to(torch.float32),
+                                  mp.axis).to(torch.bfloat16)
+    return mp.mesh.all_reduce(x, mp.axis)
+
+
+def _own(x: torch.Tensor, dim: int, mp: "ModelParallel") -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``."""
+    n = x.shape[dim] // mp.size
+    return x.narrow(dim, mp.index * n, n).contiguous()
+
+
 class _ReduceFromModel(torch.autograd.Function):
     """All-reduce forward over the model axis, identity backward."""
 
     @staticmethod
     def forward(x, mp):
-        return mp.mesh.all_reduce(x, mp.axis)
+        return _sum(x, mp)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -222,6 +250,34 @@ class _GatherFromModel(torch.autograd.Function):
             x, _ndim_dim(dim, x.ndim - 1) + 1, mp), 0
 
 
+class _ToModelBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` of ``x``, a value whole on every
+    rank, or (``reduce``) of the sum of every rank's partial ``x``; the
+    backward gathers every rank's block of the gradient (each rank's use
+    is of its own block alone)."""
+
+    @staticmethod
+    def forward(x, dim, mp, reduce):
+        return _own(_sum(x, mp) if reduce else x, dim, mp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.mp = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.mesh.gather(g, ctx.mp.axis, ctx.dim), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, mp, reduce):
+        bd = in_dims[0]
+        if bd is None:
+            return _ToModelBlock.apply(x, dim, mp, reduce), None
+        x = x.movedim(bd, 0)
+        return _ToModelBlock.apply(
+            x, _ndim_dim(dim, x.ndim - 1) + 1, mp, reduce), 0
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """The input of a column-parallel product (identity without a model
     axis)."""
@@ -244,15 +300,64 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _GatherFromModel.apply(x, _ndim_dim(dim, x.ndim), mp)
 
 
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (whole on every rank) along ``dim``."""
+    mp = model_parallel_state()
+    if mp is None:
+        return x
+    return _ToModelBlock.apply(x, _ndim_dim(dim, x.ndim), mp, False)
+
+
+def reduce_then_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's partial
+    ``x``: the whole sum all-reduced, then cut (twice a reduce-scatter's
+    bytes; gloo has no reduce-scatter)."""
+    mp = model_parallel_state()
+    if mp is None:
+        return x
+    return _ToModelBlock.apply(x, _ndim_dim(dim, x.ndim), mp, True)
+
+
+def block(n: int) -> tuple:
+    """This rank's ``[lo, hi)`` of a dim of ``n`` split evenly over the
+    model axis (``(0, n)`` without one)."""
+    mp = model_parallel_state()
+    if mp is None:
+        return 0, n
+    k = n // mp.size
+    return mp.index * k, (mp.index + 1) * k
+
+
+def splits(n: int) -> bool:
+    """Whether a dim of ``n`` splits evenly over the installed model axis
+    (False without one)."""
+    mp = model_parallel_state()
+    return mp is not None and n % mp.size == 0
+
+
 def whole(w: torch.Tensor, name: str, shape: Sequence[int]) -> torch.Tensor:
     """Leaf ``name`` whole (``shape``), from this rank's slice ``w``, for
     compute that runs the same on every rank; ``w`` itself when it is not
-    split."""
+    split. Gathered at every call: nothing is kept between calls."""
     mp = model_parallel_state()
     if mp is None:
         return w
     s = mp.split_dim(name, shape)
     return w if s is None else gather_from_model(w, s)
+
+
+def whole_all(ws: Sequence[torch.Tensor], names: Sequence[str],
+              shape: Sequence[int]) -> list:
+    """``whole`` of several leaves of one whole ``shape``: in one gather
+    where the model axis splits them alike."""
+    mp = model_parallel_state()
+    if mp is None:
+        return list(ws)
+    dims = {mp.split_dim(n, shape) for n in names}
+    if len(dims) > 1 or dims == {None}:
+        return [whole(w, n, shape) for w, n in zip(ws, names)]
+    return list(gather_from_model(torch.stack(list(ws)),
+                                  dims.pop() + 1).unbind(0))
 
 
 def part(w: torch.Tensor, name: str, shape: Sequence[int], dim: int,

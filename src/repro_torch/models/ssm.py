@@ -16,6 +16,27 @@ recurrent weights' gradient with the batch axis kept, summed once after
 the loop), or plain autograd through the loop. Decode carries state that
 is O(1) in the sequence length. No TPU kernel is on this path: the
 reference's scans are plain JAX, and these are plain PyTorch.
+
+Under a model axis (``models.sharding.model_parallel``) each block takes
+this rank's slices as ``fed.mesh.model_split`` places them, with no
+collective inside the chunk loop or the time loop. mLSTM: ``wup`` and
+``wgate`` column-parallel (a block of d_in), ``u`` gathered whole, the
+gate preactivations from the contraction-split ``wi``/``wf`` summed over
+the axis, and ``wdown`` row-parallel; where ``wq``/``wk``/``wv`` split on
+heads the chunk loop runs the local heads (its output is the rank's
+block of d_in), where they split on ``h`` (heads the axis does not
+divide) the projections' h blocks are gathered, so the scores contract
+over the whole of h, and every head runs on every rank. sLSTM: the four
+input projections' partial sums (``wz``/``wi``/``wf`` split on their
+contraction dim; the replicated ``wo`` cut alike) reduced in one
+all-reduce before the loop, the recurrent matrices (split on ``h``, not
+on heads) gathered whole once a forward, and the recurrence run whole
+on every rank: it is bound by its per-step launches, not its arithmetic,
+so local heads would save no time and would need a gather of its output
+(and heads the axis divides); its gated MLP contraction-split in, the
+odd ff width whole, ``wdown`` column-parallel out and gathered. The
+sLSTM's custom backward runs under ``vmap`` (the cohort engine's client
+axis) one lane at a time.
 """
 from __future__ import annotations
 
@@ -26,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding
 from repro_torch.models.layers import _normal, init_rmsnorm, rmsnorm
 
 CHUNK = 256
@@ -97,13 +119,107 @@ def _mlstm_gates(p: Mapping[str, torch.Tensor], u: torch.Tensor):
     k = torch.einsum("bsd,dnh->bsnh", u, p["wk"]) / math.sqrt(
         p["wk"].shape[-1])
     v = torch.einsum("bsd,dnh->bsnh", u, p["wv"])
-    log_i = torch.clamp(
-        (torch.einsum("bsd,dn->bsn", u, p["wi"]) + p["bi"]).to(
-            torch.float32), -_CLAMP, _CLAMP)
-    log_f = F.logsigmoid(
-        (torch.einsum("bsd,dn->bsn", u, p["wf"]) + p["bf"]).to(
-            torch.float32))
+    log_i, log_f = _log_gates(torch.einsum("bsd,dn->bsn", u, p["wi"]),
+                              torch.einsum("bsd,dn->bsn", u, p["wf"]),
+                              p["bi"], p["bf"])
     return q, k, v, log_i, log_f
+
+
+def _log_gates(pre_i, pre_f, bi, bf):
+    log_i = torch.clamp((pre_i + bi).to(torch.float32), -_CLAMP, _CLAMP)
+    log_f = F.logsigmoid((pre_f + bf).to(torch.float32))
+    return log_i, log_f
+
+
+def _mlstm_shapes(d: int, num_heads: int) -> dict:
+    d_in = 2 * d
+    h = d_in // num_heads
+    return {"wup": (d, d_in), "wgate": (d, d_in),
+            "wq": (d_in, num_heads, h), "wk": (d_in, num_heads, h),
+            "wv": (d_in, num_heads, h), "wi": (d_in, num_heads),
+            "wf": (d_in, num_heads), "bi": (num_heads,),
+            "bf": (num_heads,), "wdown": (d_in, d)}
+
+
+def _mlstm_split(d: int, num_heads: int) -> Optional[int]:
+    """Under a model axis, the dim of ``wq`` the split compute follows: 1
+    (local heads) or 2 (h blocks, gathered); None without an axis, or
+    where d_in or that dim does not split (the block then runs whole on
+    every rank from gathered leaves)."""
+    mp = sharding.model_parallel_state()
+    if mp is None or (2 * d) % mp.size:
+        return None
+    s = mp.split_dim("wq", _mlstm_shapes(d, num_heads)["wq"])
+    return s if s in (1, 2) else None
+
+
+def mlstm_local_heads(d: int, num_heads: int) -> int:
+    """The heads whose state a rank carries under the installed model
+    axis (all of them without one)."""
+    mp = sharding.model_parallel_state()
+    return num_heads // mp.size if _mlstm_split(d, num_heads) == 1 \
+        else num_heads
+
+
+def _mlstm_in(p: Mapping[str, torch.Tensor], xn: torch.Tensor,
+              num_heads: int):
+    """The normed input xn (B, S, d) -> (q, k, v, log i, log f, out):
+    this rank's heads' (all of them unsharded) projections and gates, and
+    ``out(o)``, o (B, S, heads·h) the chunk loop's output, the block's
+    projection back to d (summed over the model axis)."""
+    dt = xn.dtype
+    d = xn.shape[-1]
+    split = _mlstm_split(d, num_heads)
+    mp = sharding.model_parallel_state()
+    shapes = _mlstm_shapes(d, num_heads)
+    if split is None:
+        if mp is not None:
+            p = {k: sharding.whole(w, k, shapes.get(k, (d,)))
+                 for k, w in p.items() if k != "norm"}
+        u = torch.einsum("bsd,de->bse", xn, p["wup"])
+        gate = F.silu(torch.einsum("bsd,de->bse", xn, p["wgate"]))
+        q, k, v, log_i, log_f = _mlstm_gates(p, u)
+
+        def out(o):
+            return torch.einsum("bse,ed->bsd", o.to(dt) * gate, p["wdown"])
+        return q, k, v, log_i, log_f, out
+
+    def leaf(name, dim, lo, hi):
+        return sharding.part(p[name], name, shapes[name], dim, lo, hi)
+    h = shapes["wq"][2]
+    e_lo, e_hi = sharding.block(2 * d)
+    xf = sharding.copy_to_model(xn)
+    u_loc = torch.einsum("bsd,de->bse", xf, leaf("wup", 1, e_lo, e_hi))
+    gate = F.silu(torch.einsum("bsd,de->bse", xf,
+                               leaf("wgate", 1, e_lo, e_hi)))
+    # u whole on every rank; its gradient, partial on each (its heads' or
+    # its h block's), summed over the axis
+    u = sharding.copy_to_model(sharding.gather_from_model(u_loc, -1))
+    pre = sharding.reduce_from_model(torch.stack(
+        [torch.einsum("bsd,dn->bsn", u_loc, leaf(w, 0, e_lo, e_hi))
+         for w in ("wi", "wf")], dim=-2))                 # (B, S, 2, N)
+    if split == 1:
+        n_lo, n_hi = sharding.block(num_heads)
+        q, k, v = (torch.einsum("bsd,dnh->bsnh", u, leaf(w, 1, n_lo, n_hi))
+                   for w in ("wq", "wk", "wv"))
+        pre = sharding.scatter_to_model(pre, -1)
+        bi, bf = leaf("bi", 0, n_lo, n_hi), leaf("bf", 0, n_lo, n_hi)
+    else:
+        h_lo, h_hi = sharding.block(h)
+        q, k, v = (sharding.gather_from_model(torch.einsum(
+            "bsd,dnh->bsnh", u, leaf(w, 2, h_lo, h_hi)), -1)
+            for w in ("wq", "wk", "wv"))
+        bi, bf = sharding.whole_all([p["bi"], p["bf"]], ["bi", "bf"],
+                                    shapes["bi"])
+    k = k / math.sqrt(h)
+    log_i, log_f = _log_gates(pre[..., 0, :], pre[..., 1, :], bi, bf)
+
+    def out(o):
+        if split == 2:                  # every head ran: this rank's block
+            o = sharding.scatter_to_model(o, -1)
+        return sharding.reduce_from_model(torch.einsum(
+            "bse,ed->bsd", o.to(dt) * gate, leaf("wdown", 0, e_lo, e_hi)))
+    return q, k, v, log_i, log_f, out
 
 
 def _mlstm_chunk(q, k, v, log_i, log_f, state: MLSTMState):
@@ -151,17 +267,15 @@ def mlstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     in q, k, v, log i and log f, as the reference pads it."""
     b, s, _ = x.shape
     xn = rmsnorm(p["norm"], x, eps)
-    u = torch.einsum("bsd,de->bse", xn, p["wup"])
-    gate = F.silu(torch.einsum("bsd,de->bse", xn, p["wgate"]))
-    q, k, v, log_i, log_f = _mlstm_gates(p, u)
-    h = q.shape[-1]
+    q, k, v, log_i, log_f, proj = _mlstm_in(p, xn, num_heads)
+    n, h = q.shape[2], q.shape[-1]
     L = min(chunk, s)
     pad = (-s) % L
     if pad:
         def padf(a):
             return torch.cat([a, a.new_zeros((b, pad) + a.shape[2:])], 1)
         q, k, v, log_i, log_f = map(padf, (q, k, v, log_i, log_f))
-    state = mlstm_zero_state(b, num_heads, h, device=x.device)
+    state = mlstm_zero_state(b, n, h, device=x.device)
     outs = []
     for c in range(0, s + pad, L):
         out, state = _mlstm_chunk(q[:, c:c + L], k[:, c:c + L],
@@ -169,8 +283,7 @@ def mlstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                                   log_f[:, c:c + L], state)
         outs.append(out)
     out = torch.cat(outs, dim=1)[:, :s]
-    out = out.reshape(b, s, -1).to(x.dtype) * gate
-    return x + torch.einsum("bse,ed->bsd", out, p["wdown"])
+    return x + proj(out.reshape(b, s, -1))
 
 
 def mlstm_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -178,9 +291,7 @@ def mlstm_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     """x (B, 1, d) -> (y, the new state)."""
     b = x.shape[0]
     xn = rmsnorm(p["norm"], x, eps)
-    u = torch.einsum("bsd,de->bse", xn, p["wup"])
-    gate = F.silu(torch.einsum("bsd,de->bse", xn, p["wgate"]))
-    q, k, v, log_i, log_f = _mlstm_gates(p, u)
+    q, k, v, log_i, log_f, proj = _mlstm_in(p, xn, num_heads)
     qf, kf, vf = (a[:, 0].to(torch.float32) for a in (q, k, v))
     i_t = torch.exp(log_i[:, 0])                          # (B, N)
     f_t = torch.exp(log_f[:, 0])
@@ -190,8 +301,7 @@ def mlstm_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     num = torch.einsum("bnh,bnhg->bng", qf, c)
     denom = torch.clamp_min(torch.abs(torch.einsum("bnh,bnh->bn", qf, n)),
                             1.0)
-    out = (num / denom[..., None]).reshape(b, 1, -1).to(x.dtype) * gate
-    return x + torch.einsum("bse,ed->bsd", out, p["wdown"]), \
+    return x + proj((num / denom[..., None]).reshape(b, 1, -1)), \
         MLSTMState(c, n)
 
 
@@ -272,24 +382,26 @@ def _recs(rmats, hprev: torch.Tensor, wx_t, num_heads: int):
                  for w, r in zip(wx_t, rmats))
 
 
-def _slstm_step(p: Mapping[str, torch.Tensor], num_heads: int,
-                state: SLSTMState, zi_fi_oi) -> SLSTMState:
-    """One timestep; ``zi_fi_oi``: the precomputed Wx + b (B, D) each."""
-    rmats = (p["rz"], p["ri"], p["rf"], p["ro"])
+def _slstm_step(rmats, num_heads: int, state: SLSTMState,
+                zi_fi_oi) -> SLSTMState:
+    """One timestep; ``rmats``: the recurrent weights (rz, ri, rf, ro)
+    whole; ``zi_fi_oi``: the precomputed Wx + b (B, D) each."""
     return _local_step(_recs(rmats, state.h, zi_fi_oi, num_heads), state)
 
 
 class _SLSTMScan(torch.autograd.Function):
     """The reference's ``_slstm_scan`` custom VJP: ``apply(num_heads, rz,
     ri, rf, ro, wz, wi, wf, wo)`` with each w (S, B, D) time-major ->
-    hs (S, B, D). The forward saves each step's input state; the backward
-    runs the steps in reverse, takes each step's VJP (autograd of
+    (hs (S, B, D), then each step's input state h, c, n, m (S, B, D),
+    not differentiable). The forward keeps each step's input state; the
+    backward runs the steps in reverse, takes each step's VJP (autograd of
     ``_local_step`` from its saved state) and accumulates the recurrent
     weights' gradient with the batch axis kept, (B, N, h, h), summed over
-    the batch once after the loop."""
+    the batch once after the loop. Under ``vmap`` each lane runs on its
+    own."""
 
     @staticmethod
-    def forward(ctx, num_heads, rz, ri, rf, ro, wz, wi, wf, wo):
+    def forward(num_heads, rz, ri, rf, ro, wz, wi, wf, wo):
         rmats, wx = (rz, ri, rf, ro), (wz, wi, wf, wo)
         s, b, d = wz.shape
         state = slstm_zero_state(b, d, wz.dtype, device=wz.device)
@@ -302,13 +414,26 @@ class _SLSTMScan(torch.autograd.Function):
                                       tuple(w[t] for w in wx), num_heads),
                                 state)
             hs.append(state.h)
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(*rmats, *wx,
-                              *(torch.stack(a) for a in prev))
-        return torch.stack(hs)
+        return (torch.stack(hs), *(torch.stack(a) for a in prev))
 
     @staticmethod
-    def backward(ctx, g_hs):
+    def setup_context(ctx, inputs, output):
+        ctx.num_heads = inputs[0]
+        ctx.save_for_backward(*inputs[1:], *output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def vmap(info, in_dims, num_heads, *ts):
+        lanes = []
+        for i in range(info.batch_size):
+            lanes.append(_SLSTMScan.apply(num_heads, *(
+                t if bd is None else t.select(bd, i)
+                for t, bd in zip(ts, in_dims[1:]))))
+        return (tuple(torch.stack(outs) for outs in zip(*lanes)),
+                (0,) * 5)
+
+    @staticmethod
+    def backward(ctx, g_hs, *_):
         saved = ctx.saved_tensors
         rmats, wx, prev = saved[:4], saved[4:8], saved[8:]
         n_h = ctx.num_heads
@@ -368,13 +493,68 @@ def set_slstm_custom_vjp(on: bool) -> None:
     USE_SLSTM_CUSTOM_VJP = bool(on)
 
 
+def _slstm_in(p: Mapping[str, torch.Tensor], xn: torch.Tensor,
+              num_heads: int):
+    """The normed input xn (B, S, d) -> (the four preactivations Wx + b
+    (B, S, d) each, the recurrent weights (N, h, h) each), whole on every
+    rank. Under a model axis the input projections are cut on their
+    contraction dim (``wo``, replicated, alike) and their partial sums
+    reduced in one all-reduce; the biases and recurrent weights are
+    gathered whole."""
+    d = xn.shape[-1]
+    h = d // num_heads
+    mp = sharding.model_parallel_state()
+    if mp is None:
+        return (tuple(torch.einsum("bsd,de->bse", xn, p["w" + g])
+                      + p["b" + g] for g in "zifo"),
+                tuple(p["r" + g] for g in "zifo"))
+    bias = sharding.whole_all([p["b" + g] for g in "zifo"],
+                              ["b" + g for g in "zifo"], (d,))
+    rmats = tuple(sharding.whole_all([p["r" + g] for g in "zifo"],
+                                     ["r" + g for g in "zifo"],
+                                     (num_heads, h, h)))
+    if d % mp.size:
+        wx = tuple(torch.einsum("bsd,de->bse", xn, sharding.whole(
+            p["w" + g], "w" + g, (d, d))) for g in "zifo")
+    else:
+        lo, hi = sharding.block(d)
+        xs = sharding.scatter_to_model(xn, -1)
+        wx = sharding.reduce_from_model(torch.stack([
+            torch.einsum("bsd,de->bse", xs, sharding.part(
+                p["w" + g], "w" + g, (d, d), 0, lo, hi)) for g in "zifo"]))
+    return tuple(w + b for w, b in zip(wx, bias)), rmats
+
+
 def _gated_mlp(p, x, eps):
+    """The sLSTM block's gated MLP (width 4d/3). Under a model axis
+    ``wup``/``wgate`` are cut on their contraction dim, their partial sums
+    reduced in one all-reduce (the odd ff width stays whole), and
+    ``wdown`` runs column-parallel, its output blocks gathered."""
     xn2 = rmsnorm(p["norm2"], x, eps)
-    u = torch.einsum("bsd,df->bsf", xn2, p["wup"])
+    mp = sharding.model_parallel_state()
+    d = x.shape[-1]
+    f = (4 * d) // 3
+    wdown = p["wdown"]
+    if mp is None or d % mp.size:
+        shapes = {"wup": (d, f), "wgate": (d, f)}
+        w = {k: sharding.whole(p[k], k, shapes[k]) for k in shapes}
+        u = torch.einsum("bsd,df->bsf", xn2, w["wup"])
+        g = torch.einsum("bsd,df->bsf", xn2, w["wgate"])
+        if mp is not None:
+            wdown = sharding.whole(wdown, "wdown", (f, d))
+    else:
+        lo, hi = sharding.block(d)
+        xs = sharding.scatter_to_model(xn2, -1)
+        u, g = sharding.reduce_from_model(torch.stack([
+            torch.einsum("bsd,df->bsf", xs, sharding.part(
+                p[k], k, (d, f), 0, lo, hi)) for k in ("wup", "wgate")]))
     # jax.nn.gelu's default is the tanh approximation
-    g = F.gelu(torch.einsum("bsd,df->bsf", xn2, p["wgate"]),
-               approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", u * g, p["wdown"])
+    y = u * F.gelu(g, approximate="tanh")
+    if mp is None or d % mp.size:
+        return torch.einsum("bsf,fd->bsd", y, wdown)
+    return sharding.gather_from_model(torch.einsum(
+        "bsf,fd->bsd", sharding.copy_to_model(y),
+        sharding.part(wdown, "wdown", (f, d), 1, lo, hi)), -1)
 
 
 def slstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -383,17 +563,16 @@ def slstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     gated MLP, each with its residual."""
     b, s, d = x.shape
     xn = rmsnorm(p["norm"], x, eps)
-    wx = tuple(torch.einsum("bsd,de->bse", xn, p["w" + g]) + p["b" + g]
-               for g in "zifo")
+    wx, rmats = _slstm_in(p, xn, num_heads)
     if USE_SLSTM_CUSTOM_VJP:
-        hs = _SLSTMScan.apply(num_heads, p["rz"], p["ri"], p["rf"], p["ro"],
-                              *(w.transpose(0, 1) for w in wx))
+        hs = _SLSTMScan.apply(num_heads, *rmats,
+                              *(w.transpose(0, 1) for w in wx))[0]
         h = hs.transpose(0, 1)
     else:
         state = slstm_zero_state(b, d, x.dtype, device=x.device)
         hs = []
         for t in range(s):
-            state = _slstm_step(p, num_heads, state,
+            state = _slstm_step(rmats, num_heads, state,
                                 tuple(w[:, t] for w in wx))
             hs.append(state.h)
         h = torch.stack(hs, dim=1)
@@ -404,8 +583,7 @@ def slstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 def slstm_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                  state: SLSTMState, num_heads: int, eps: float = 1e-5):
     """x (B, 1, d) -> (y, the new state)."""
-    xn = rmsnorm(p["norm"], x, eps)[:, 0]
-    wx = tuple(xn @ p["w" + g] + p["b" + g] for g in "zifo")
-    state = _slstm_step(p, num_heads, state, wx)
+    wx, rmats = _slstm_in(p, rmsnorm(p["norm"], x, eps), num_heads)
+    state = _slstm_step(rmats, num_heads, state, tuple(w[:, 0] for w in wx))
     x = x + state.h[:, None]
     return x + _gated_mlp(p, x, eps), state

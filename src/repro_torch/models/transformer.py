@@ -35,13 +35,21 @@ recurrent state. The audio family is encoder-only: no cache, no decode.
 
 Parameters are f32, as the reference's ``init_params`` makes them by
 default (the simulator never passes ``ArchConfig.dtype``). Under a model
-axis (``models.sharding.model_parallel``) the dense and moe module
-computes on this rank's slices of its leaves (``layers``): a vocab-split
-``embed`` looks up its local rows and sums over the axis, a vocab-split
-head gives local logits that are gathered whole, and a leaf split any
-other way is gathered before use; the residual stream stays whole on
-every rank. The ssm, hybrid, vlm and audio families under a model axis
-are not ported yet (ROADMAP queue A item 11).
+axis (``models.sharding.model_parallel``) every family computes on this
+rank's slices of its leaves, as ``fed.mesh.model_split`` places them
+(``layers``, ``ssm``, ``rglru``): a vocab-split ``embed`` looks up its
+local rows and sums over the axis, a vocab-split head gives local logits
+that are gathered whole, audio's ``frame_proj`` (split on the frames'
+features) sums its partial products, the vlm's cross block runs its
+local query heads against the local kv heads of the vision keys (its
+scalar gates replicated), and a leaf split any other way is gathered
+before use; the residual stream stays whole on every rank. Decode under
+the axis carries a rank's own share of the cache (``init_cache``):
+attention caches of the kv heads its query heads read, the mLSTM state
+of its heads, the RG-LRU state of its width block, the sLSTM state
+whole. ``shard(mesh)`` cuts a whole module to this rank's slices; its
+``jax_params`` then gathers them to the reference's tree and
+``load_jax_params`` takes this rank's blocks of one.
 """
 from __future__ import annotations
 
@@ -69,24 +77,12 @@ FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 RECURRENT = ("ssm", "hybrid")
 NO_VISION = ("the vlm family's forward needs vision= (B, "
              "num_vision_tokens, d_model)")
-# families without a model-axis split yet (ROADMAP queue A item 11)
-UNSHARDED = RECURRENT + ("vlm", "audio")
 
 
 def refuse_family(cfg: ArchConfig) -> None:
     """Raise for a family the reference does not know either."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
-
-
-def _refuse_model_axis(cfg: ArchConfig) -> None:
-    """The recurrent, vlm and audio families have no model-axis split
-    yet."""
-    if cfg.family in UNSHARDED \
-            and sharding.model_parallel_state() is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) under a model axis is not "
-            "ported yet: ROADMAP queue A item 11")
 
 
 class _Gated(nn.Module):
@@ -157,6 +153,8 @@ class Transformer(nn.Module):
         refuse_family(cfg)
         self.cfg = cfg
         self.kernel_backend = kernel_backend
+        self.mesh = None                  # set by ``shard``
+        self._splits: Dict[int, Optional[int]] = {}
         d = cfg.d_model
         keep = device if home is None else home
         if cfg.family == "audio":
@@ -276,7 +274,7 @@ class Transformer(nn.Module):
         for rec in grp["rec"]:
             x = RG.rglru_forward(rec["rglru"], x, cfg.norm_eps)
             h = L.rmsnorm(rec["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp_forward(rec["mlp"], h)
+            x = x + L.mlp_forward(rec["mlp"], h, cfg.d_ff)
         pa = grp["attn"]
         h = L.rmsnorm(pa["ln1"], x, cfg.norm_eps)
         # the local window whatever cfg.attention says, as the reference
@@ -284,7 +282,7 @@ class Transformer(nn.Module):
                                     causal=True, window=cfg.local_window,
                                     backend=self.kernel_backend)
         h = L.rmsnorm(pa["ln2"], x, cfg.norm_eps)
-        return x + L.mlp_forward(pa["mlp"], h), None
+        return x + L.mlp_forward(pa["mlp"], h, cfg.d_ff), None
 
     def _vlm_group(self, grp, x, positions, window, vision):
         """One vlm group: its causal self blocks, then the gated cross
@@ -304,12 +302,11 @@ class Transformer(nn.Module):
         y = L.mlp_forward(pc["mlp"], h, cfg.d_ff)
         return x + torch.tanh(pc["gate_mlp"]) * y.to(x.dtype), None
 
-    @staticmethod
-    def vision_kv(pc, vision: torch.Tensor):
+    def vision_kv(self, pc, vision: torch.Tensor):
         """A cross block's keys and values from the vision embeddings
-        (B, V, d): (B, V, n_kv, h) each, unexpanded, no bias."""
-        return (torch.einsum("bvd,dnh->bvnh", vision, pc["attn"]["wk"]),
-                torch.einsum("bvd,dnh->bvnh", vision, pc["attn"]["wv"]))
+        (B, V, d): (B, V, n_kv, h) each, unexpanded, no bias (under a
+        model axis the kv heads this rank's query heads read)."""
+        return L.project_kv(pc["attn"], vision, self.cfg)
 
     def forward_aux(self, tokens: Optional[torch.Tensor] = None, *,
                     frames: Optional[torch.Tensor] = None,
@@ -323,12 +320,11 @@ class Transformer(nn.Module):
         width; ``remat``: each block (group) recomputed in the backward
         (``torch.utils.checkpoint``)."""
         cfg = self.cfg
-        _refuse_model_axis(cfg)
         if cfg.family == "audio":
             if frames is None:
                 raise ValueError("the audio family's forward takes frames= "
                                  "(B, S, frontend_stub_dim)")
-            x = torch.einsum("bsf,fd->bsd", frames, self.frame_proj)
+            x = self._frames_in(frames)
         else:
             x = self.lookup(tokens)
         if cfg.family == "vlm" and vision is None:
@@ -356,6 +352,23 @@ class Transformer(nn.Module):
             if a is not None:
                 aux = aux + a
         return self.head(x), aux
+
+    def _frames_in(self, frames: torch.Tensor) -> torch.Tensor:
+        """Audio's input projection (B, S, stub_dim) -> (B, S, d); under a
+        model axis split on the frames' features, each rank's partial
+        product over its feature block summed over the axis."""
+        cfg = self.cfg
+        shape = (cfg.frontend_stub_dim, cfg.d_model)
+        mp = sharding.model_parallel_state()
+        if mp is None:
+            return torch.einsum("bsf,fd->bsd", frames, self.frame_proj)
+        if not sharding.splits(shape[0]):
+            return torch.einsum("bsf,fd->bsd", frames, sharding.whole(
+                self.frame_proj, "frame_proj", shape))
+        lo, hi = sharding.block(shape[0])
+        w = sharding.part(self.frame_proj, "frame_proj", shape, 0, lo, hi)
+        return sharding.reduce_from_model(torch.einsum(
+            "bsf,fd->bsd", sharding.scatter_to_model(frames, -1), w))
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm and the LM head: x (B, S, d) -> (B, S, V)."""
@@ -431,6 +444,43 @@ class Transformer(nn.Module):
         return sharding.reduce_from_model(onehot @ self.embed)
 
     # ------------------------------------------------------------ weights
+    def shard(self, mesh) -> "Transformer":
+        """Cut every leaf, in place, to this rank's block over ``mesh``'s
+        model axis (``fed.mesh.model_split`` by the leaf's name), for
+        compute under ``models.sharding.model_parallel(mesh)``."""
+        from repro_torch.fed.mesh import model_block, model_split
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                s = model_split(name.rsplit(".", 1)[-1], tuple(p.shape),
+                                mesh)
+                self._splits[id(p)] = s
+                if s is not None:
+                    p.data = model_block(p.data, s, mesh).clone()
+        self.mesh = mesh
+        return self
+
+    def whole_values(self, values=None):
+        """``values`` (tensors aligned with ``parameters()``; default the
+        parameters), each gathered whole over the model axis when this
+        module is ``shard``-ed (every rank must call)."""
+        params = list(self.parameters())
+        vals = params if values is None else list(values)
+        if self.mesh is None:
+            return vals
+        from repro_torch.fed.mesh import model_axis_name
+        ax = model_axis_name(self.mesh)
+        return [v if self._splits[id(p)] is None else
+                self.mesh.gather(v.detach(), ax, self._splits[id(p)])
+                for p, v in zip(params, vals)]
+
+    def _local(self, param: torch.Tensor, arr):
+        """This rank's block of the whole array ``arr`` of ``param``."""
+        s = self._splits.get(id(param)) if self.mesh is not None else None
+        if s is None:
+            return arr
+        from repro_torch.fed.mesh import model_block
+        return model_block(np.asarray(arr), s, self.mesh)
+
     def load_jax_params(self, params: Dict[str, Any],
                         into=None) -> "Transformer":
         """Copy the reference's ``init_params`` pytree, as numpy arrays,
@@ -440,12 +490,16 @@ class Transformer(nn.Module):
         split across the per-layer (per-group) modules, and a nested
         stack (hybrid's ``rec``, vlm's ``self``) a second axis, split
         across its list; the vlm's gates are (G,). Audio's ``frame_proj``
-        stands where ``embed`` is."""
+        stands where ``embed`` is. A ``shard``-ed module takes this rank's
+        blocks of the whole tree."""
         dst = targets(self, into)
+
+        def put(param, arr):
+            _copy(dst(param), self._local(param, arr))
 
         def load(node, ref, idx, path):
             if isinstance(node, torch.Tensor):
-                _copy(dst(node), np.asarray(ref)[idx])
+                put(node, np.asarray(ref)[idx])
             elif isinstance(node, nn.ModuleList):
                 for j, child in enumerate(node):
                     load(child, ref, idx + (j,), path)
@@ -459,11 +513,10 @@ class Transformer(nn.Module):
         with torch.no_grad():
             for name in ("embed", "frame_proj"):
                 if getattr(self, name) is not None:
-                    _copy(dst(getattr(self, name)), params[name])
-            _copy(dst(self.final_norm["scale"]),
-                  params["final_norm"]["scale"])
+                    put(getattr(self, name), params[name])
+            put(self.final_norm["scale"], params["final_norm"]["scale"])
             if self.lm_head is not None:
-                _copy(dst(self.lm_head), params["lm_head"])
+                put(self.lm_head, params["lm_head"])
             for i, blk in enumerate(self.blocks):
                 load(blk, params["blocks"], (i,), "blocks")
         return self
@@ -472,8 +525,9 @@ class Transformer(nn.Module):
         """The inverse of ``load_jax_params``: this module's weights, or
         ``values`` (tensors aligned with ``parameters()``), as the
         reference's pytree of numpy arrays (blocks stacked on a leading
-        layer or group axis, a nested list on a second)."""
-        host = host_values(self, values)
+        layer or group axis, a nested list on a second); a ``shard``-ed
+        module's slices gathered whole (every rank must call)."""
+        host = host_values(self, self.whole_values(values))
 
         def tree(node):
             if isinstance(node, torch.Tensor):
@@ -570,7 +624,10 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     ``dtype``, or zeros of V = num_vision_tokens when either is missing.
     audio: encoder-only, no cache (ValueError), as the reference.
     ``device``: where the leaves go (default: ``vision``'s device, else
-    the default device)."""
+    the default device). Under a model axis the leaves are this rank's:
+    n_kv the kv heads its query heads read (``layers.local_kv_heads``), the
+    mLSTM's N its heads (``ssm.mlstm_local_heads``), the RG-LRU's d its
+    width block (``rglru.local_width``); the sLSTM's state is whole."""
     refuse_family(cfg)
     f32 = torch.float32
     if device is None and vision is not None:
@@ -578,10 +635,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
-    h, nkv, d = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model
+    h, d = cfg.resolved_head_dim, cfg.d_model
+    nkv = L.local_kv_heads(cfg)
     if cfg.family == "ssm":
-        g, n = cfg.num_layers // 2, cfg.num_heads
-        hh = 2 * d // n
+        g = cfg.num_layers // 2
+        hh = 2 * d // cfg.num_heads
+        n = SSM.mlstm_local_heads(d, cfg.num_heads)
         return {"mlstm_c": zeros((g, batch, n, hh, hh), f32),
                 "mlstm_n": zeros((g, batch, n, hh), f32),
                 "slstm_h": zeros((g, batch, d)),
@@ -593,8 +652,9 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
         per = cfg.hybrid_period
         g = cfg.num_layers // per
         w = min(cfg.local_window, cache_len)
-        return {"rg_h": zeros((g, per - 1, batch, d), f32),
-                "rg_conv": zeros((g, per - 1, batch, RG.CONV_W - 1, d)),
+        dl = RG.local_width(d)
+        return {"rg_h": zeros((g, per - 1, batch, dl), f32),
+                "rg_conv": zeros((g, per - 1, batch, RG.CONV_W - 1, dl)),
                 "k": zeros((g, batch, w, nkv, h)),
                 "v": zeros((g, batch, w, nkv, h))}
     if cfg.family == "audio":
@@ -634,7 +694,6 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     the plain scores (``layers.attention_scores``, no kernel, as the
     reference's decode). Audio has no decode (ValueError)."""
     cfg = model.cfg
-    _refuse_model_axis(cfg)
     if cfg.family == "audio":
         raise ValueError(f"decode unsupported for family {cfg.family!r} "
                          f"({cfg.name}): encoder-only")
@@ -663,7 +722,9 @@ def _decode_block(cfg, blk, x, ck, cv, pos, ring):
     x = x + att
     h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
     if "moe" in blk:
-        y, _ = MOE.moe_forward(blk["moe"], h, top_k=cfg.moe.top_k)
+        y, _ = MOE.moe_forward(blk["moe"], h, top_k=cfg.moe.top_k,
+                               num_experts=cfg.moe.num_experts,
+                               d_ff=cfg.d_ff)
         return x + y, nk, nv
     return x + L.mlp_forward(blk["mlp"], h, cfg.d_ff), nk, nv
 
@@ -680,7 +741,6 @@ def _decode_attention(model, x, cache, pos, ring):
 
 def _decode_vlm(model, x, cache, pos, ring):
     cfg = model.cfg
-    nrep = cfg.num_heads // cfg.num_kv_heads
     new_k, new_v = [], []
     for i, grp in enumerate(model.blocks):
         ks, vs = [], []
@@ -693,15 +753,9 @@ def _decode_vlm(model, x, cache, pos, ring):
         new_v.append(torch.stack(vs))
         pc = grp["cross"]
         h = L.rmsnorm(pc["ln1"], x, cfg.norm_eps)
-        q = torch.einsum("bsd,dnh->bsnh", h, pc["attn"]["wq"])
-        if "bq" in pc["attn"]:
-            q = q + pc["attn"]["bq"]
-        ck, cv = cache["cross"]["ck"][i], cache["cross"]["cv"][i]
-        mask = torch.ones((1, 1, 1, ck.shape[1]), dtype=torch.bool,
-                          device=x.device)
-        att = L.attention_scores(q, L._expand_kv(ck.to(q.dtype), nrep),
-                                 L._expand_kv(cv.to(q.dtype), nrep), mask)
-        att = torch.einsum("bsnh,nhd->bsd", att, pc["attn"]["wo"])
+        att = L.attention_given_kv(pc["attn"], h, cfg,
+                                   cache["cross"]["ck"][i],
+                                   cache["cross"]["cv"][i])
         x = x + torch.tanh(pc["gate_attn"]) * att
         h = L.rmsnorm(pc["ln2"], x, cfg.norm_eps)
         y = L.mlp_forward(pc["mlp"], h, cfg.d_ff)
@@ -734,7 +788,7 @@ def _decode_hybrid(model, x, cache, pos):
             x, st = RG.rglru_decode(rec["rglru"], x, RG.RGLRUState(
                 cache["rg_h"][i, j], cache["rg_conv"][i, j]), cfg.norm_eps)
             h = L.rmsnorm(rec["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp_forward(rec["mlp"], h)
+            x = x + L.mlp_forward(rec["mlp"], h, cfg.d_ff)
             hs.append(st.h)
             convs.append(st.conv)
         pa = grp["attn"]
@@ -743,7 +797,7 @@ def _decode_hybrid(model, x, cache, pos):
                                          cache["v"][i], pos, window=w)
         x = x + att
         h = L.rmsnorm(pa["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_forward(pa["mlp"], h)
+        x = x + L.mlp_forward(pa["mlp"], h, cfg.d_ff)
         for k, v in zip(new, (torch.stack(hs), torch.stack(convs), nk, nv)):
             new[k].append(v)
     return x, {k: torch.stack(v) for k, v in new.items()}

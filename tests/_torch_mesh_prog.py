@@ -19,6 +19,7 @@ import pickle
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEASURED = ("wall_s", "phase_s")
@@ -76,17 +77,30 @@ def strip(logs) -> list:
              if k not in MEASURED} for lg in logs]
 
 
+def arch_cfg(spec: Optional[dict]):
+    """An ``ArchConfig`` from ``{"arch": registry name, "reduced": the
+    kwargs of configs.reduced, "replace": fields replaced after}`` (None
+    for None)."""
+    if spec is None:
+        return None
+    from repro_torch.configs import get_arch, reduced
+    cfg = reduced(get_arch(spec["arch"]), **spec.get("reduced", {}))
+    return dataclasses.replace(cfg, **spec.get("replace", {}))
+
+
 def port_logs(kw: dict, dataset: str = "mnist_feat", n_train: int = 800,
-              n_test: int = 200, costs=None) -> list:
+              n_test: int = 200, costs=None, arch=None) -> list:
     """An unsharded run of ``kw`` (a ``FedConfig``'s fields) in this
-    process, on the CPU: its round logs."""
+    process, on the CPU (``arch``: an ``arch_cfg`` spec for token
+    clients): its round logs."""
     from repro_torch.common.types import FedConfig
     from repro_torch.core.methods import get_method
     from repro_torch.core.protocol import engine_from_config, make_scheduler
     from repro_torch.fed import simulator
     cfg = FedConfig(**kw)
     clients, server, x_test, y_test = simulator.build_experiment(
-        cfg, dataset, n_train=n_train, n_test=n_test, device="cpu")
+        cfg, dataset, n_train=n_train, n_test=n_test, device="cpu",
+        transformer_cfg=arch_cfg(arch))
     engine = engine_from_config(clients, cfg)
     method = get_method(cfg.method)
     if method.client_filter != "none":
@@ -116,7 +130,7 @@ def _experiment(item: dict):
     cfg = FedConfig(**item["kw"])
     arrays = item.get("arrays")
     kw = dict(n_train=item.get("n_train", 800), n_test=item.get("n_test", 200),
-              device="cpu")
+              device="cpu", transformer_cfg=arch_cfg(item.get("arch")))
     if arrays is not None:
         kw.update(dataset=dataset_from_arrays(*arrays["dataset"]),
                   init_params=arrays["params"],
@@ -334,9 +348,229 @@ def c11(items: list) -> list:
     return out
 
 
+# ------------------------------------------ the families under a model axis
+
+def _family_inputs(cfg, batch: int, seq: int, seed: int):
+    """A batch for ``train_loss`` (numpy draws from ``seed``) and the
+    forward's keyword arguments."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        frames = torch.as_tensor(rng.normal(
+            size=(batch, seq, cfg.frontend_stub_dim)), dtype=torch.float32)
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (batch, seq)))
+        return {"frames": frames, "labels": labels}, {"frames": frames}
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    out = {"tokens": tokens, "labels": labels}
+    kw = {"tokens": tokens}
+    if cfg.family == "vlm":
+        out["vision"] = kw["vision"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.num_vision_tokens, cfg.d_model)),
+            dtype=torch.float32)
+    return out, kw
+
+
+def _decode(model, cfg, prompt, n_new: int, cache_len: int, vision=None):
+    """The prompt replayed through ``decode_step`` into a fresh cache,
+    then ``n_new`` greedy steps: (tokens (B, n_new), every step's logits
+    (B, S0 + n_new - 1, V))."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    b, s0 = prompt.shape
+    cache = T.init_cache(cfg, b, cache_len, torch.float32, vision=vision,
+                         params=model if vision is not None else None)
+    logits, toks = [], []
+    tok = None
+    for t in range(s0 + n_new - 1):
+        inp = prompt[:, t:t + 1] if t < s0 else tok
+        lg, cache = T.decode_step(model, inp, cache, t)
+        logits.append(lg[:, 0])
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        if t >= s0 - 1:
+            toks.append(tok)
+    return torch.cat(toks, 1), torch.stack(logits, 1)
+
+
+def _family_case(case: dict, mesh) -> dict:
+    """One family case (``cfg``: an ``arch_cfg`` spec; its weights drawn
+    from ``seed``, or ``params``, the reference's tree): its forward
+    logits, ``train_loss`` and every leaf's gradient, unsharded and on
+    ``mesh``'s model axis (gathered whole), and with ``decode`` its
+    greedy decode (tokens and every step's logits), both ways. The
+    inputs are ``_family_inputs``'s at ``batch``, ``seq`` and ``seed``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    cfg = arch_cfg(case["cfg"])
+    model = T.Transformer(cfg, generator=torch.Generator().manual_seed(
+        case.get("seed", 0)))
+    if case.get("params") is not None:
+        model.load_jax_params(case["params"])
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for grp in model.blocks:
+                grp["cross"]["gate_attn"].fill_(case.get("gate", 0.5))
+                grp["cross"]["gate_mlp"].fill_(case.get("gate", 0.5))
+    batch, fkw = _family_inputs(cfg, case.get("batch", 2),
+                                case.get("seq", 12), case.get("seed", 0))
+    split = copy.deepcopy(model).shard(mesh)
+    out = {"splits": {n: split._splits[id(p)]
+                      for n, p in split.named_parameters()}}
+    remat = case.get("remat", False)
+    for name, m, mp_mesh in (("ref", model, None), ("mp", split, mesh)):
+        with sharding.model_parallel(mp_mesh):
+            logits = m(**fkw)
+            loss, _ = T.train_loss(m, batch, remat=remat)
+            params = list(m.parameters())
+            grads = torch.autograd.grad(loss, params)
+            grads = m.whole_values(grads)
+            res = {"logits": logits.detach().numpy(), "loss": float(loss),
+                   "grads": [g.numpy() for g in grads],
+                   "names": [n for n, _ in m.named_parameters()]}
+            if case.get("decode"):
+                with torch.no_grad():
+                    rng = np.random.default_rng(1)
+                    prompt = torch.as_tensor(rng.integers(
+                        0, cfg.vocab_size, (2, case.get("prompt", 6))))
+                    toks, lg = _decode(m, cfg, prompt, case.get("new", 6),
+                                       case.get("cache_len", 16),
+                                       batch.get("vision"))
+                res.update(tokens=toks.numpy(), decode_logits=lg.numpy())
+        out[name] = res
+    out["params"] = split.jax_params() if case.get("round_trip") else None
+    out["params_ref"] = model.jax_params() if case.get("round_trip") \
+        else None
+    return out
+
+
+def families(cases: list, model_shards: int = 0) -> list:
+    """Each ``_family_case`` on the ``(world // m, m)`` mesh, m =
+    ``model_shards`` (default the world)."""
+    from repro_torch.fed import mesh as M
+    mesh = M.build_client_mesh(-1, model_shards=model_shards or
+                               M.world_size())
+    return [_family_case(c, mesh) for c in cases]
+
+
+def collective_counts(seqs: list) -> dict:
+    """The model-axis collectives (``all_reduce`` and ``gather`` calls on
+    the mesh) of one forward and one backward of an sLSTM, an RG-LRU and
+    an mLSTM block (chunk 4) on the ``(1, world)`` mesh, at each sequence
+    length of ``seqs``."""
+    import torch
+
+    from repro_torch.fed import mesh as M
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import sharding
+    from repro_torch.models import ssm as SSM
+    mesh = M.build_client_mesh(-1, model_shards=M.world_size())
+    d, n = 32, 4
+    calls = {"n": 0}
+    for meth in ("all_reduce", "gather"):
+        fn = getattr(mesh, meth)
+
+        def counted(*a, _fn=fn, **kw):
+            calls["n"] += 1
+            return _fn(*a, **kw)
+        setattr(mesh, meth, counted)
+    gen = torch.Generator().manual_seed(0)
+    blocks = {"slstm": (SSM.init_slstm(d, n, generator=gen),
+                        lambda p, x: SSM.slstm_forward(p, x, n)),
+              "rglru": (RG.init_rglru(d, generator=gen),
+                        lambda p, x: RG.rglru_forward(p, x)),
+              "mlstm": (SSM.init_mlstm(d, n, generator=gen),
+                        lambda p, x: SSM.mlstm_forward(p, x, n, chunk=4))}
+    out = {}
+    for name, (p, fwd) in blocks.items():
+        local = {}
+        for k, w in p.items():
+            leaves = w.items() if hasattr(w, "items") else [(k, w)]
+            for leaf, t in leaves:
+                s = M.model_split(leaf, tuple(t.shape), mesh)
+                t = t.detach() if s is None else M.model_block(
+                    t.detach(), s, mesh)
+                local.setdefault(k, {})
+                if hasattr(w, "items"):
+                    local[k][leaf] = t.clone().requires_grad_(True)
+                else:
+                    local[k] = t.clone().requires_grad_(True)
+        for s in seqs:
+            x = torch.randn((2, s, d), generator=gen).requires_grad_(True)
+            with sharding.model_parallel(mesh):
+                calls["n"] = 0
+                y = fwd(local, x)
+                n_fwd = calls["n"]
+                calls["n"] = 0
+                torch.autograd.grad(y.square().sum(), x)
+                out[(name, s)] = (n_fwd, calls["n"])
+    return out
+
+
+def bf16_forward(case: dict) -> dict:
+    """The case's forward logits under ``bf16_psum`` on the ``(1,
+    world)`` mesh and unsharded (the weights ``case["params"]``, the
+    reference's tree, loaded)."""
+    import torch
+
+    from repro_torch.fed import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    cfg = arch_cfg(case["cfg"])
+    mesh = M.build_client_mesh(-1, model_shards=M.world_size())
+    whole = T.Transformer(cfg).load_jax_params(case["params"])
+    split = T.Transformer(cfg).shard(mesh).load_jax_params(case["params"])
+    kw = {k: torch.as_tensor(v) for k, v in case["inputs"].items()}
+    out = {}
+    L.set_attention_options(bf16_psum=True)
+    try:
+        with torch.no_grad():
+            out["ref"] = whole(**kw).numpy()
+            with sharding.model_parallel(mesh):
+                out["mp"] = split(**kw).numpy()
+    finally:
+        L.set_attention_options()
+    return out
+
+
+def train_sharded(runs: list) -> list:
+    """``launch.train.train`` on each run's reduced arch, its seed-0
+    weights ``Transformer.shard``-ed over the ``(1, world)`` mesh and
+    trained under ``model_parallel``: the losses of each."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.fed import mesh as M
+    from repro_torch.launch import train as TR
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    mesh = M.build_mesh((1, M.world_size()), ("data", "model"),
+                        device="cpu")
+    out = []
+    for run in runs:
+        cfg = reduced(get_arch(run["arch"]))
+        model = T.Transformer(cfg, generator=torch.Generator().manual_seed(
+            0)).shard(mesh)
+        with sharding.model_parallel(mesh):
+            losses, _, _ = TR.train(cfg, model=model, device="cpu",
+                                    say=lambda _: None, **run["train"])
+        out.append(losses)
+    return out
+
+
 TASKS = {"run": run, "resume": resume, "psum": psum,
          "collectives": collectives, "many": many, "fd_step": fd_step,
-         "c11": c11}
+         "c11": c11, "families": families,
+         "collective_counts": collective_counts,
+         "bf16_forward": bf16_forward, "train_sharded": train_sharded}
 
 
 def main(argv=None) -> None:

@@ -294,6 +294,22 @@ def test_flash_attention_cross_attention_over_ragged_keys(smoke, b, n, nkv,
                                 sk=sk)
 
 
+@pytest.mark.parametrize("name", ["flash_attention_h80_local",
+                                  "flash_attention_vlm_self_local",
+                                  "flash_attention_cross_local",
+                                  "flash_attention_cross_prefill_local"])
+def test_flash_attention_at_the_model_axis_local_heads(smoke, name):
+    """B6 at a rank's heads on the (1, 2) mesh: hubert's 8 of 16 heads of
+    80, full; the vlm's 32 of 64 query heads over 4 of 8 kv heads, causal
+    self-attention and full cross-attention over 1601 vision keys (the
+    training step's and the prefill's), against the plain version; and
+    the gradients through the autograd function at the cross shape."""
+    b, n, nkv, s, h, sk, causal = smoke.LOCAL_ATTN[name]
+    smoke.check_flash(b, n, nkv, s, h, causal=causal, sk=sk)
+    if name == "flash_attention_cross_local":
+        smoke.check_flash_grads(2, n, nkv, s, h, causal=False, sk=sk)
+
+
 def test_flash_attention_folded_batch_past_grid_z_launches_in_chunks(smoke):
     smoke.check_flash_chunked(*smoke.CHUNKED_ATTN)
 

@@ -206,17 +206,25 @@ def _main_and_its_checkpoint(arch, tmp_path, capsys, steps=30):
     assert np.isfinite(np.asarray(logits)).all()
 
 
-def test_main_refuses_what_is_not_ported_and_a_missing_card(monkeypatch):
+def test_train_on_a_model_axis_and_mains_refusals(tmp_path):
+    """``main`` refuses an unknown arch and, by default, a host without a
+    card; on two gloo ranks (``tests/_torch_mesh_prog.py``) the audio and
+    vlm families, their seed-0 weights ``Transformer.shard``-ed and
+    trained by ``train`` under ``model_parallel``, give every rank the 20
+    AdamW losses of ``main``'s one process within rtol 1e-5."""
+    import _torch_mesh_prog as prog
     with pytest.raises(KeyError, match="unknown arch"):
         TR.main(["--device", "cpu", "--arch", "no-such-arch", "--reduced"])
-    from repro_torch.models import sharding
-    with monkeypatch.context() as mp:
-        mp.setattr(sharding, "model_parallel_state", lambda: object())
-        for arch in ("hubert-xlarge", "llama32-vision"):
-            with pytest.raises(NotImplementedError,
-                               match="model axis.*item 11"):
-                TR.main(["--device", "cpu", "--arch", arch, "--reduced",
-                         "--steps", "1", "--batch", "1", "--seq", "4"])
+    train = {"steps": 20, "batch": 4, "seq": 32, "lr": 3e-3}
+    archs = ("hubert-xlarge", "llama32-vision")
+    ranks = prog.spawn(2, "train_sharded", {"runs": [
+        {"arch": arch, "train": train} for arch in archs]}, tmp_path)
+    for i, arch in enumerate(archs):
+        want = TR.main(["--device", "cpu", "--arch", arch, "--reduced"]
+                       + [a for k, v in train.items()
+                          for a in (f"--{k}", str(v))])
+        for rank in ranks:
+            np.testing.assert_allclose(rank[i], want, rtol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TR.main(["--arch", "granite-moe", "--reduced", "--steps", "1"])

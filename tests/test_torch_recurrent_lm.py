@@ -42,7 +42,6 @@ from repro.models import ssm as RS
 from repro.models import transformer as RT
 from repro_torch import configs as C
 from repro_torch.launch import decode_demo as D
-from repro_torch.models import sharding
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
@@ -248,12 +247,48 @@ def test_decode_matches_the_reference(fam, family):
                                atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def on_two_ranks(fam, tmp_path_factory):
+    """Each family's model, the reference's weights loaded, on the
+    ``(1, 2)`` model axis of two gloo ranks and unsharded
+    (``tests/_torch_mesh_prog.py``): forward, loss, gradients and a
+    decode of 6 new tokens after a prompt of 6 (hybrid's ring wrapping at
+    ``cache_len`` 8)."""
+    import _torch_mesh_prog as prog
+    arch = {f: {"arch": ARCHS[f][0], "reduced": dict(
+        d_model=32, vocab=64, **ARCHS[f][1]), "replace": dict(
+        local_window=16) if f == "hybrid" else {}} for f in FAMILIES}
+    cases = [{"cfg": arch[f], "decode": True, "cache_len": 8,
+              "seq": SEQ, "params": jax.tree.map(np.asarray,
+                                                 fam[f]["params"])}
+             for f in FAMILIES]
+    return prog.spawn(2, "families", {"cases": cases},
+                      tmp_path_factory.mktemp("recurrent_mp"))
+
+
 @pytest.mark.parametrize("family", FAMILIES)
-def test_a_model_axis_is_refused_naming_its_item(fam, family, monkeypatch):
-    model, cfg = fam[family]["model"], fam[family]["cfg"]
-    monkeypatch.setattr(sharding, "model_parallel_state", lambda: object())
-    tok = _t(_batch(4)[0])
-    with pytest.raises(NotImplementedError, match="model axis.*item 11"):
-        model(tok)
-    with pytest.raises(NotImplementedError, match="model axis.*item 11"):
-        T.decode_step(model, tok[:, :1], T.init_cache(cfg, 2, 8), 0)
+def test_a_model_axis_matches_the_unsharded_model(fam, family,
+                                                  on_two_ranks):
+    """On the ``(1, 2)`` model axis the reference's weights give the port's
+    unsharded logits, the reference's own forward's and the unsharded
+    greedy decode's (tokens equal, every step's logits), each within the
+    family's logit tolerance of this file (ssm's wider: float32 through
+    the sLSTM's gating), the loss within 1e-5 and the gradients within
+    rtol 1e-4 and the family's atol of the largest, on every rank."""
+    f = fam[family]
+    tok = _batch(0)[0]
+    want = np.asarray(f["forward"](f["params"], jnp.asarray(tok)))
+    tol = dict(rtol=1e-5, atol=LOGIT_ATOL[family])
+    for rank in on_two_ranks:
+        r = rank[FAMILIES.index(family)]
+        mp, ref = r["mp"], r["ref"]
+        np.testing.assert_allclose(mp["logits"], ref["logits"], **tol)
+        np.testing.assert_allclose(mp["logits"], want, **tol)
+        assert abs(mp["loss"] - ref["loss"]) <= 1e-5
+        top = max(np.abs(g).max() for g in ref["grads"])
+        for g, gr in zip(mp["grads"], ref["grads"]):
+            np.testing.assert_allclose(g, gr, rtol=1e-4,
+                                       atol=GRAD_ATOL[family] * top)
+        np.testing.assert_array_equal(mp["tokens"], ref["tokens"])
+        np.testing.assert_allclose(mp["decode_logits"],
+                                   ref["decode_logits"], **tol)

@@ -295,12 +295,29 @@ def test_transformer_init_is_seeded_and_scaled():
     assert float(a.final_norm["scale"].detach().min()) == 1.0
 
 
-@pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "hubert-xlarge"])
-def test_other_families_are_refused_naming_their_item(name, monkeypatch):
+OTHER_FAMILIES = ["llama-3.2-vision-90b", "hubert-xlarge"]
+
+
+@pytest.fixture(scope="module")
+def other_families_on_two_ranks(tmp_path_factory):
+    """The vlm and audio families' forward, loss and gradients on the
+    ``(1, 2)`` model axis and unsharded, on two gloo ranks
+    (``tests/_torch_mesh_prog.py``)."""
+    import _torch_mesh_prog as prog
+    cases = [{"cfg": {"arch": name, "reduced": dict(d_model=32, vocab=16)},
+              "batch": 1, "seq": 4} for name in OTHER_FAMILIES]
+    return prog.spawn(2, "families", {"cases": cases},
+                      tmp_path_factory.mktemp("other_families"))
+
+
+@pytest.mark.parametrize("name", OTHER_FAMILIES)
+def test_other_families_under_a_model_axis_match_unsharded(
+        name, other_families_on_two_ranks):
     """The vlm and audio families build and run unsharded
-    (``tests/test_torch_vlm_audio.py``); under a model axis their
-    forward is refused, naming its item."""
-    from repro_torch.models import sharding
+    (``tests/test_torch_vlm_audio.py``); under a model axis of two ranks
+    their logits (1, 4, 16) and loss are within atol 1e-5 of the
+    unsharded run's and every gradient within rtol 1e-4, atol 1e-5 of the
+    largest (``tests/test_torch_mesh_families.py`` holds more cases)."""
     cfg = configs.reduced(configs.get_arch(name), d_model=32, vocab=16)
     model = Transformer(cfg)
     if cfg.family == "audio":
@@ -309,10 +326,15 @@ def test_other_families_are_refused_naming_their_item(name, monkeypatch):
         kw = {"tokens": torch.zeros((1, 4)).long(),
               "vision": torch.zeros((1, cfg.num_vision_tokens, 32))}
     assert model(**kw).shape == (1, 4, 16)
-    monkeypatch.setattr(sharding, "model_parallel_state", lambda: object())
-    with pytest.raises(NotImplementedError,
-                       match="model axis.*ROADMAP queue A item 11"):
-        model(**kw)
+    for rank in other_families_on_two_ranks:
+        r = rank[OTHER_FAMILIES.index(name)]
+        assert r["mp"]["logits"].shape == (1, 4, 16)
+        np.testing.assert_allclose(r["mp"]["logits"], r["ref"]["logits"],
+                                   rtol=0, atol=1e-5)
+        assert abs(r["mp"]["loss"] - r["ref"]["loss"]) <= 1e-5
+        top = max(np.abs(g).max() for g in r["ref"]["grads"])
+        for g, gr in zip(r["mp"]["grads"], r["ref"]["grads"]):
+            np.testing.assert_allclose(g, gr, rtol=1e-4, atol=1e-5 * top)
 
 
 @pytest.mark.parametrize("vocab", [32, 2048])
