@@ -230,7 +230,19 @@ Phases, in order; any failure raises and exits non-zero:
      1e-2 relative and its greedy choices where the unsharded margin
      clears twice the gap: float32 through its gating parts any two
      orders of summation by more), new tokens a second beside the
-     unsharded run's;
+     unsharded run's; the dry run (launch/dryrun.py) held to the card
+     inside these runs: its meta-device count of (a)'s step (fp32,
+     unsharded, the batch's distinct tokens) equal to the FLOPs
+     FlopCounterMode counts in one real step of (a)'s model on the card
+     on the plain attention, (a)'s seconds a step no faster than the
+     count's roofline bound (the card's fp32 peak and HBM rate, its share
+     printed), the count's peak within 25% of (a)'s allocator peak, and
+     (h)'s all-reduces and gathers and their bytes on each rank equal to
+     the recording mesh's for that rank; then examples_torch/'s five
+     scripts, each a subprocess on the card (quickstart,
+     edgefd_vs_baselines, fd_transformers in a world of one and
+     train_100m at 60 of its 300 steps at once, then fed_shardmap on
+     eight gloo ranks of the card) exiting 0, their seconds printed;
   7. each kernel's time (CUDA events around many calls, the host's
      per-call work included), its plain version's time, a PyTorch library
      call's time where one call computes the same function, its bound
@@ -265,6 +277,7 @@ non-zero and prints no result.
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --trainer
     python3 chip_smoke.py --ssm-witness
+    python3 chip_smoke.py --examples
     python3 chip_smoke.py --mesh-child OUT SPEC
 
 time only B6 at the transformer path's shapes, per call and device only,
@@ -278,7 +291,8 @@ FED_SERVE_ARGS`` in-process with the launch counters and timers of phase 6
 around it (a ``serve-stats {json}`` line after every node). ``--mesh``
 runs phases 1 and 2 and the mesh path alone (with its phase-7 row),
 ``--trainer`` the trainer path alone (with its rows), ``--ssm-witness``
-the xLSTM decode's witness (``run_ssm_witness``); ``--mesh-child``
+the xLSTM decode's witness (``run_ssm_witness``), ``--examples`` the
+build and examples_torch/ alone; ``--mesh-child``
 is one rank of the mesh path, of the trainer path's (c) or of the model
 axis (``mesh_child``).
 """
@@ -4221,6 +4235,150 @@ def profile_train_step(model, cfg, steps=2, top=14, label="(a)"):
     del state
 
 
+# the dry run (launch/dryrun.py) held to the card: its meta count of (a)'s
+# step, fp32, unsharded, on the plain attention, against the FLOPs
+# FlopCounterMode counts in one real step of (a)'s model on the card (the
+# plain attention too), equal; (a)'s measured seconds a step no faster
+# than the count's roofline bound at the card's fp32 peak and HBM rate;
+# its peak within DRYRUN_PEAK_RTOL of (a)'s allocator peak. (h)'s
+# collectives against the recording mesh's, equal.
+DRYRUN_PEAK_RTOL = 0.25
+
+
+def check_dryrun_step(model, cfg, batch, step_s, peak, smi):
+    """(a)'s step counted on the meta device (``dryrun.count_step``, at
+    ``batch``'s distinct tokens) against one real AdamW step of ``model``
+    on ``batch`` under ``FlopCounterMode`` (the plain attention), and
+    against (a)'s seconds a step and allocator peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun, train
+    from repro_torch.optim.optimizers import adamw
+    t = time.perf_counter()
+    distinct = int(torch.unique(batch["tokens"]).numel())
+    meta = dryrun.count_step(cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                             dtype=torch.float32, remat=False,
+                             distinct=distinct)
+    meta_s = time.perf_counter() - t
+    opt = adamw(TRAIN_LR)
+    params = list(model.parameters())
+    step = train.make_train_step(model, opt)
+    model.kernel_backend = "torch"
+    try:
+        counter = FlopCounterMode(display=False)
+        with counter:
+            step(opt.init(params), batch)
+        torch.cuda.synchronize()
+    finally:
+        model.kernel_backend = None
+    flops = int(counter.get_total_flops())
+    t_compute = meta["flops"] / dryrun.PEAK_FLOPS_F32
+    t_memory = meta["traffic_bytes"] / dryrun.HBM_BW
+    bound = max(t_compute, t_memory)
+    gap = (meta["peak_bytes"] - peak) / peak
+    log(f"  (a) the dry run ({smi}): launch.dryrun.count_step on the meta "
+        f"device ({meta_s:.1f} s on the host, {distinct} distinct tokens) "
+        f"counts {meta['flops']} FLOPs a step, one real step on the card "
+        f"(plain attention, FlopCounterMode) {flops}: equal "
+        f"{flops == meta['flops']}; its roofline at the fp32 peak "
+        f"{dryrun.PEAK_FLOPS_F32:.3g} FLOP/s and {dryrun.HBM_BW:.3g} B/s: "
+        f"compute {t_compute:.4f} s, memory {t_memory:.4f} s "
+        f"({meta['traffic_bytes']} B moved), bound {bound:.4f} s against "
+        f"(a)'s {step_s:.4f} s a step: {bound / step_s:.1%} of it; peak "
+        f"{meta['peak_bytes'] / 2**30:.3f} GiB against (a)'s "
+        f"{peak / 2**30:.3f} GiB ({gap:+.1%}, within "
+        f"{DRYRUN_PEAK_RTOL:.0%})")
+    if flops != meta["flops"]:
+        raise AssertionError(f"(a) the dry run counts {meta['flops']} "
+                             f"FLOPs, the card's step {flops}")
+    if not step_s >= bound:
+        raise AssertionError(f"(a) {step_s} s a step beats the dry run's "
+                             f"bound {bound} s")
+    if not abs(gap) <= DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"(a) the dry run's peak {meta['peak_bytes']} "
+                             f"B is {gap:+.1%} off the card's {peak} B")
+
+
+def check_dryrun_collectives(ranks_h, smi):
+    """(h)'s model-axis calls and bytes on each rank against the dry run's
+    recording mesh at that rank (meta device), equal."""
+    import torch
+    from repro_torch.launch import dryrun, hlo_analysis
+    cfg = axis_cfg("h")
+    for r, got in enumerate(ranks_h):
+        rec = dryrun.RecordingMesh((1, 2), ("data", "model"), rank=r)
+        meta = dryrun.count_step(cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                                 dtype=torch.float32, remat=False, mesh=rec)
+        want = hlo_analysis.mesh_calls(meta["record"])
+        log(f"  (h) the dry run's recording mesh, rank {r} ({smi}): "
+            f"{json.dumps(want)}; the card's step {json.dumps(got)}: equal "
+            f"{want == got}")
+        if want != got:
+            raise AssertionError(f"(h) rank {r}: the dry run records "
+                                 f"{want}, the card's step made {got}")
+
+
+# examples_torch/ on the card, each a subprocess: (script, arguments).
+# The first four run at once (one process each, most of their time the
+# host's start-up), then fed_shardmap alone (eight ranks of its own);
+# train_100m's steps cut from its 300 for time
+EXAMPLE_STEPS = 60
+EXAMPLES_TOGETHER = (("quickstart.py", ()), ("edgefd_vs_baselines.py", ()),
+                     ("fd_transformers.py", ()),
+                     ("train_100m.py", ("--steps", str(EXAMPLE_STEPS))))
+EXAMPLES_ALONE = (("fed_shardmap.py", ()),)
+
+
+def run_examples(smi):
+    """``EXAMPLES_TOGETHER`` at once, then ``EXAMPLES_ALONE``, each on the
+    card in a process group of its own, each of which must exit 0; its
+    seconds (from the start of its group to its exit) and last line."""
+    import signal
+    import tempfile
+    log(f"[6] examples_torch/ on the card, each a subprocess, the first "
+        f"{len(EXAMPLES_TOGETHER)} at once ({smi})")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for group in (EXAMPLES_TOGETHER, EXAMPLES_ALONE):
+            t = time.perf_counter()
+            procs = {}
+            for name, args in group:
+                if name == "train_100m.py":
+                    args = (*args, "--ckpt-dir", os.path.join(tmp, "ckpt"))
+                path = os.path.join(tmp, f"{name}.log")
+                with open(path, "w") as f:
+                    procs[name] = (args, path, subprocess.Popen(
+                        [sys.executable, str(ROOT / "examples_torch" / name),
+                         *args], env=dict(os.environ, PYTHONPATH=str(SRC)),
+                        stdout=f, stderr=subprocess.STDOUT,
+                        start_new_session=True))
+            try:
+                while any(n not in out for n in procs):
+                    if time.perf_counter() - t > 600:
+                        raise AssertionError(f"examples {sorted(procs)} ran "
+                                             "past 600 s")
+                    for name, (args, path, p) in procs.items():
+                        if name in out or p.poll() is None:
+                            continue
+                        out[name] = time.perf_counter() - t
+                        with open(path) as f:
+                            text = f.read()
+                        if p.returncode:
+                            raise AssertionError(
+                                f"examples_torch/{name} exited "
+                                f"{p.returncode}:\n{text[-4000:]}")
+                        lines = [ln for ln in text.splitlines() if ln.strip()]
+                        log(f"  examples_torch/{' '.join((name, *args[:2]))}"
+                            f": exit 0 in {out[name]:.1f} s ({smi}); "
+                            f"{lines[-1][:160] if lines else ''}")
+                    time.sleep(0.2)
+            finally:
+                for _, _, p in procs.values():
+                    if p.poll() is None:
+                        os.killpg(p.pid, signal.SIGKILL)
+                        p.wait()
+
+
 def run_trainer_path(smi):
     """Phase 6's trainer path, (a)-(c) (module docstring). Returns B6's
     and the fused loss's launches on it and the timings of (a) and (b)."""
@@ -4297,6 +4455,7 @@ def run_trainer_path(smi):
     profile_train_step(model, cfg)
     out["a"] = dict(step_s=step_s, tok_s=tok_s, peak=peak, losses=losses,
                     launches=launches)
+    check_dryrun_step(model, cfg, first, step_s, peak, smi)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5648,6 +5807,7 @@ def run_model_axis_path(smi, families):
         f"{json.dumps(h[0]['collectives'])}; then under bf16_psum loss "
         f"{h[0]['bf16_loss']:.6f} (unsharded {want['h']['bf16_loss']:.6f}, "
         f"rtol 1e-2); B6 a rank {h[0]['launches']}")
+    check_dryrun_collectives([r["collectives"] for r in h], smi)
     # (i)
     ig = [r[1] for r in ranks]
     for r in ig:
@@ -6585,12 +6745,14 @@ def main(argv) -> int:
     mesh_only = argv == ["--mesh"]
     trainer_only = argv == ["--trainer"]
     witness_only = argv == ["--ssm-witness"]
+    examples_only = argv == ["--examples"]
     if timer and argv[1:2] == ["--src"] and len(argv) == 3:
         src = Path(argv[2]).resolve()
     elif argv and not (timer and len(argv) == 1) and not mesh_only \
-            and not trainer_only and not witness_only:
+            and not trainer_only and not witness_only and not examples_only:
         print("usage: chip_smoke.py [--mesh | --trainer | --ssm-witness | "
-              "--time-flash | --time-kernels [--src DIR]]", file=sys.stderr)
+              "--examples | --time-flash | --time-kernels [--src DIR]]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -6637,6 +6799,10 @@ def main(argv) -> int:
 
     if witness_only:
         run_ssm_witness(smi)
+        log(smi)
+        return 0
+    if examples_only:
+        run_examples(smi)
         log(smi)
         return 0
     if mesh_only:
@@ -6696,6 +6862,8 @@ def main(argv) -> int:
     lap("phase 6, the trainer path")
     axis_launches = run_model_axis_path(smi, families)
     lap("phase 6, the model axis")
+    run_examples(smi)
+    lap("phase 6, the examples")
     rows = measure(counts, lloyd_err, kl_err, dist_err, rbf_err, attn_err,
                    attn_batches, by_k, by_shape, by_class)
     rows += measure_cohort(cohort_counts, lloyd_c, cohort_err)

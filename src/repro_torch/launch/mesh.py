@@ -35,14 +35,19 @@ class Placement(NamedTuple):
     spec: P
 
 
+def production_layout(*, multi_pod: bool = False):
+    """The reference's pod layouts as (shape, axis names): ``(16, 16)``
+    ``("data", "model")``, or ``(2, 16, 16)`` with ``"pod"``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's pod layouts, ``(16, 16)`` ``("data", "model")`` or
-    ``(2, 16, 16)`` with ``"pod"``, over the ranks of the world; a world
+    """``production_layout``'s mesh over the ranks of the world; a world
     too small raises the launcher-naming error of ``fed.mesh``."""
     from repro_torch.fed.mesh import build_mesh
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return build_mesh(shape, axes)
+    return build_mesh(*production_layout(multi_pod=multi_pod))
 
 
 def make_debug_mesh(data: int = 1, model: int = 1):

@@ -53,7 +53,9 @@ whole. ``shard(mesh)`` cuts a whole module to this rank's slices; its
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -129,13 +131,43 @@ class _EmbedRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         flat, = ctx.saved_tensors
-        uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+        if flat.device.type == "meta":
+            uniq, inv = _meta_unique(flat, ctx.shape[0])
+        else:
+            uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
         onehot = (inv[:, None] == torch.arange(
             len(uniq), device=flat.device)).to(g.dtype)
         rows = onehot.T @ g.reshape(-1, ctx.shape[1])
         out = g.new_zeros(ctx.shape)
         out.index_copy_(0, uniq, rows)
         return out, None
+
+
+_meta = threading.local()
+
+
+@contextlib.contextmanager
+def meta_distinct_tokens(count: Optional[int]):
+    """The number of distinct tokens ``_EmbedRows``' backward takes on the
+    meta device (``launch.dryrun``), where ``torch.unique`` has no kernel
+    and no data to count: ``count``, or None for the most a batch can hold,
+    min(vocab, tokens)."""
+    prev = getattr(_meta, "distinct", None)
+    _meta.distinct = count
+    try:
+        yield
+    finally:
+        _meta.distinct = prev
+
+
+def _meta_unique(flat: torch.Tensor, vocab: int):
+    """``torch.unique(flat, sorted=True, return_inverse=True)``'s outputs
+    on the meta device, at ``meta_distinct_tokens``' count: written by ops
+    that move the bytes the real op does (``flat`` read, both written)."""
+    u = getattr(_meta, "distinct", None)
+    u = min(vocab, flat.numel()) if u is None else u
+    return (torch.zeros(u, dtype=flat.dtype, device=flat.device),
+            flat.clone())
 
 
 class Transformer(nn.Module):

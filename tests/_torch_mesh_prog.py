@@ -514,6 +514,35 @@ def collective_counts(seqs: list) -> dict:
     return out
 
 
+def dryrun_counts(cases: list) -> list:
+    """For each ``(arch spec, mode)`` of ``cases``, one step of batch 2 x
+    16 on the ``(1, world)`` mesh over gloo and the dry run's
+    ``RecordingMesh`` of this rank on the meta device: the model-axis
+    calls each made and the bytes each call handed its backend
+    (``launch.hlo_analysis.mesh_calls``), and each run's record in the
+    reference's kinds."""
+    import torch
+
+    from repro_torch.fed import mesh as M
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hlo_analysis as H
+    mesh = M.build_client_mesh(-1, model_shards=M.world_size())
+    out = []
+    for spec, mode in cases:
+        cfg = arch_cfg(spec)
+        kw = dict(dtype=torch.float32, remat=False)
+        with D.recorded(mesh):
+            live = D.count_step(cfg, mode, 2, 16, device="cpu", mesh=mesh,
+                                **kw)
+        rec = D.RecordingMesh(tuple(mesh.shape.values()), ("data", "model"),
+                              rank=mesh.rank)
+        meta = D.count_step(cfg, mode, 2, 16, mesh=rec, **kw)
+        out.append({name: (H.mesh_calls(r["record"]),
+                           H.collective_bytes_corrected(r["record"]))
+                    for name, r in (("gloo", live), ("meta", meta))})
+    return out
+
+
 def bf16_forward(case: dict) -> dict:
     """The case's forward logits under ``bf16_psum`` on the ``(1,
     world)`` mesh and unsharded (the weights ``case["params"]``, the
@@ -570,6 +599,7 @@ TASKS = {"run": run, "resume": resume, "psum": psum,
          "collectives": collectives, "many": many, "fd_step": fd_step,
          "c11": c11, "families": families,
          "collective_counts": collective_counts,
+         "dryrun_counts": dryrun_counts,
          "bf16_forward": bf16_forward, "train_sharded": train_sharded}
 
 

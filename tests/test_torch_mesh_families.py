@@ -34,7 +34,10 @@ rank's slices as ``fed.mesh.model_split`` places them, cut by
   ``test_torch_mesh_model.py`` holds granite's (the xLSTM's second round
   more widely: see its test);
 * ``bf16_psum`` on ``(1, 2)`` against the reference's GSPMD forward on a
-  2-device CPU mesh (``tests/_torch_gspmd_prog.py``, a subprocess).
+  2-device CPU mesh (``tests/_torch_gspmd_prog.py``, a subprocess);
+* the dry run's recording mesh (``launch.dryrun``) on the meta device
+  against the gloo run's model-axis calls and bytes, a step of audio,
+  ssm and moe training and of vlm decode.
 
 The unsharded runs are the port's own, each held to the live reference
 in ``tests/test_torch_{recurrent_lm,vlm_audio,lm_train,moe}.py``.
@@ -107,6 +110,10 @@ def _token_kw(devices=0, shards=0):
                 num_devices=devices, model_shards=shards)
 
 
+# the dry run's recording mesh against the gloo run: (config, mode)
+DRYRUN_CASES = [(AUDIO, "train"), (SSM, "train"), (MOE, "train"),
+                (VLM_KV2, "decode")]
+
 # bf16_psum against GSPMD: (id, config, the reference's init seed)
 BF16_CASES = [("dense", DENSE, 3), ("vlm", VLM_KV2, 4)]
 GATE = 0.5
@@ -176,6 +183,7 @@ def worlds(tmp_path_factory):
                                "arch": a, **LM}
                               for a in TOKEN_ARCHS.values()]})]
                 tasks += [("bf16_forward", {"case": s}) for s in specs]
+                tasks += [("dryrun_counts", {"cases": DRYRUN_CASES})]
             out[world] = prog.spawn(world, "many", {"tasks": tasks},
                                     tmp, timeout=400)
         _, err = gspmd.communicate(timeout=400)
@@ -355,6 +363,21 @@ def test_bf16_partial_sums_match_the_reference_gspmd_run(worlds, k):
     assert np.abs(ref["gspmd"] - ref["one_device"]).max() > ulp
     for rank in worlds[2][1:]:
         np.testing.assert_array_equal(rank[3 + k]["mp"], got["mp"])
+
+
+@pytest.mark.parametrize("k", range(len(DRYRUN_CASES)),
+                         ids=["audio-train", "ssm-train", "moe-train",
+                              "vlm-decode"])
+def test_the_dry_runs_recording_mesh_counts_the_gloo_runs_calls(worlds, k):
+    """``launch.dryrun``'s ``RecordingMesh`` on the meta device makes the
+    model-axis calls a step makes on the ``(1, 2)`` gloo mesh, each
+    handing its backend the same bytes, with the same result bytes in
+    the reference's kinds, on both ranks."""
+    for rank in worlds[2]:
+        got = rank[-1][k]
+        assert got["meta"] == got["gloo"]
+        assert got["gloo"][1]["count"] > 0
+    assert worlds[2][0][-1][k] == worlds[2][1][-1][k]
 
 
 def _placements(cfg, model_shards):
