@@ -45,9 +45,8 @@
 // thread: 124 at h = 128, no spills.
 //
 // Head widths: 16, 32, 64, 128 and (hubert-xlarge, d 1280 over 16 heads)
-// 80. At 80 a row is 20 chunks, so the short route's lanes hold chunks
-// kx, kx + 8 and, lanes 0-3 only, kx + 16 (owns_chunk); the long route's
-// 16 threads a row take 5 columns each.
+// 80. At 80 a row is 20 chunks, so on both routes the lanes hold chunks
+// kx, kx + 8 and, lanes 0-3 only, kx + 16 (owns_chunk).
 //
 // Full attention with Sk != Sq (the vlm's cross-attention: 128 or 16
 // queries over 1601 vision keys) runs on both routes as any other: the
@@ -55,17 +54,34 @@
 // in place (the reference's wrapper pads Sk to 256-key blocks and masks
 // keys at or past kv_len; no padding copy is made here).
 //
-// Long route (Sq > 32, off the transformer path): one block of 256
-// threads per (64-row query tile, head, batch) loops over 32-key tiles in
-// shared memory (padded rows, 4-byte loads), each thread 4 rows x 2 keys
-// and 4 rows x h/16 columns; causal KV tiles wholly above a query tile are
-// skipped and query tiles run heaviest first.
+// Long route (Sq > 32: the trainers' 128-token steps, the encoder, the
+// vlm's cross-attention over 1601 keys, the model axis's local heads).
+// There the operations bound it (0.81 ms of fp32 FMAs for the vlm's cross
+// block, (8, 64, 128, 128) over 1601 keys), and what holds a fp32 FMA
+// kernel back on an SM is feeding the FMA units from shared memory. A
+// block takes one (64-row tile, kv head, batch), its rows the (query head
+// of the group, position) pairs position-major as on the short route, so
+// each K, V tile is read once for the whole GQA group, not once a query
+// head. The query tile and the K, V tiles of 32 keys come by 16-byte
+// cp.async copies (keys past Sk zero-filled by the copy itself) into two
+// stages: while one tile is computed the next is in flight. A warp holds
+// 16 rows x 32 keys, each thread 4 rows x 4 keys of the scores (per
+// 16-byte chunk, 8 float4 reads from padded, conflict-free rows feed 64
+// FMAs) and 4 rows x 16 columns of the output, the probabilities reaching
+// the P.V product by shuffles among a row's 8 lanes (no shared-memory
+// round trip). Products are plain fp32 FMAs (not 3xTF32 on the tensor
+// cores). Too few items to give every SM two blocks (hubert's 128 or 256
+// at 128 tokens) would leave each SM four warps, so then a block has two
+// key groups of four warps, each taking every other KV tile of the item,
+// and their softmax states are merged in group order at the end. Causal
+// KV tiles wholly above a query tile are skipped, a warp stops at the last
+// key its rows see, and query tiles run heaviest first.
 //
 // Both routes read the kv head in place (no repeat copy) and any layout
 // whose last axis is contiguous through its strides, so the model's
-// (B, S, N, h) tensors need no transpose copy; the short route needs
-// 16-byte aligned pointers and strides that are multiples of 4 elements
-// (the wrapper checks). Rows with every key masked give 0 and the
+// (B, S, N, h) tensors need no transpose copy; both routes' 16-byte copies
+// need 16-byte aligned pointers and strides that are multiples of 4
+// elements (the wrapper checks). Rows with every key masked give 0 and the
 // denominator is floored at 1e-30, as kernel.py:61-63,72 do. Every product
 // is an IEEE fp32 FMA (no TF32) and every sum has a fixed order, so two
 // runs give the same bits, and so do a strided and a contiguous copy.
@@ -541,179 +557,380 @@ cudaError_t short_occupancy(int* blocks) {
 
 // ------------------------------------------------------------- long route
 
-constexpr int TX = 16;                    // threads across keys / columns
-constexpr int TY = 16;                    // threads across query rows
-constexpr int LTHREADS = TX * TY;
-constexpr int LBQ = 64;                   // query rows a block
-constexpr int LBK = 32;                   // keys a KV tile
+constexpr int LRR = 4;                    // rows a thread: ra + 4i, i < LRR
+constexpr int LWROWS = 4 * LRR;           // rows a warp (x 32 keys)
+constexpr int LGWARPS = 4;                // warps a key group
+constexpr int LGTHREADS = 32 * LGWARPS;
+constexpr int LBM = LGWARPS * LWROWS;     // rows a work item
+constexpr int LBK = 32;                   // keys a KV tile: 4 a lane
+constexpr int LNK = LBK / 8;              // a lane's keys: kx + 8jj, jj < 4
 
-template <int HD>
-constexpr int long_smem_floats() {
-  return LBQ * (HD + 1) + LBK * (HD + 1) + LBK * HD + LBQ * (LBK + 1);
+// the query tile and two stages of one K and one V tile a key group,
+// padded rows
+template <int HD, int SPLIT>
+__host__ __device__ constexpr int long_smem_bytes() {
+  return (LBM + 2 * SPLIT * 2 * LBK) * row_floats<HD>() * 4;
 }
 
-// One block per (query tile, head, batch); thread (ty, tx) owns rows
-// ty + 16i (RM of them) and, for those rows, score columns tx + 16j and
-// output columns tx + 16c; a row's 16 threads are one half-warp, so row
-// max and row sum reduce with shuffles.
-template <int HD>
-__global__ void __launch_bounds__(LTHREADS)
-attention_long_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      int sq, int sk, int group, Strides qs, Strides ks,
-                      Strides vs, Strides os, float scale, int causal) {
-  constexpr int BQ = LBQ;
-  constexpr int BK = LBK;
-  constexpr int RM = BQ / TY;             // query rows per thread
-  constexpr int RN = BK / TX;             // score columns per thread
-  constexpr int RC = HD / TX;             // output columns per thread
-  static_assert(HD % TX == 0, "a row's columns split evenly over TX");
-  constexpr int QLD = HD + 1;             // padded rows: no bank conflicts
-  constexpr int KLD = HD + 1;
-  constexpr int PLD = BK + 1;
-  extern __shared__ float smem[];
-  float* s_q = smem;                      // (BQ, QLD) this tile's queries
-  float* s_k = s_q + BQ * QLD;            // (BK, KLD) keys of a KV tile
-  float* s_v = s_k + BK * KLD;            // (BK, HD) values of a KV tile
-  float* s_p = s_v + BK * HD;             // (BQ, PLD) probabilities
+struct LongArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int sq, sk, group, tiles;
+  Strides qs, ks, vs, os;
+  float scale;
+  int causal;
+};
+
+// one 16-byte asynchronous copy into shared memory; zeros where !valid
+// (src-size 0: nothing is read from src)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Key and value rows k0 .. k0 + LBK - 1 of (batch, kv head) into a stage,
+// by 16-byte copies, consecutive threads on consecutive chunks; rows at or
+// past sk are zeros (a key past sk has p = 0, and 0 times a stale value
+// could be NaN).
+template <int HD, int THREADS>
+__device__ __forceinline__ void copy_kv(float* s_k, const float* kb,
+                                        const float* vb, const LongArgs& a,
+                                        int k0, int tid) {
+  constexpr int LD = row_floats<HD>();
+  constexpr int C = HD / 4;
+  float* const s_v = s_k + LBK * LD;
+  for (int idx = tid; idx < LBK * C; idx += THREADS) {
+    const int r = idx / C;
+    const int c = idx - r * C;
+    const bool in = k0 + r < a.sk;
+    const long long kr = in ? k0 + r : 0;
+    cp_async16(s_k + r * LD + 4 * c, kb + kr * a.ks.s + 4 * c, in);
+    cp_async16(s_v + r * LD + 4 * c, vb + kr * a.vs.s + 4 * c, in);
+  }
+}
+
+// Scores of rows ra + 4i (i < LRR) against keys kx + 8jj (jj < NK; the
+// tile's keys a warp's rows see, rounded up to 8), each summed over h in
+// order: per 16-byte chunk 2 + NK float4 reads feed 8 NK FMAs.
+template <int HD, int NK>
+__device__ __forceinline__ void long_scores(const float* s_q,
+                                            const float* s_k, int ra, int kx,
+                                            float (&s)[LRR][LNK]) {
+  constexpr int LD = row_floats<HD>();
+#pragma unroll 4
+  for (int c = 0; c < HD / 4; ++c) {
+    float4 kk[NK];
+#pragma unroll
+    for (int jj = 0; jj < NK; ++jj)
+      kk[jj] = ld4(s_k + (kx + 8 * jj) * LD + 4 * c);
+#pragma unroll
+    for (int i = 0; i < LRR; ++i) {
+      const float4 qq = ld4(s_q + (ra + 4 * i) * LD + 4 * c);
+#pragma unroll
+      for (int jj = 0; jj < NK; ++jj) s[i][jj] = dot4(qq, kk[jj], s[i][jj]);
+    }
+  }
+}
+
+// One block per (64-row query tile, kv head, batch): rows as on the short
+// route, the (query head of the group, position) pairs position-major, so
+// each K, V tile is read once for every query head of the group. The
+// block's warps form SPLIT key groups of LGWARPS warps, each group all 64
+// rows: group g computes the item's KV tiles g, g + SPLIT, ..., and the
+// groups' softmax states are merged in group order at the end (SPLIT = 2
+// when the items are too few to give every SM two blocks). The query tile
+// and a round of KV tiles (one a group) come by 16-byte cp.async copies;
+// while a round is computed, the next one's copies are in flight into the
+// other stage. A warp holds 16 rows x 32 keys: each thread 4 rows x 4 keys
+// of the scores and 4 rows x 16 columns of the output. Blocks an SM: two,
+// but one for the split kernel at h = 128 (its 169 KB of shared memory and
+// 4 x 16 accumulators a thread).
+template <int HD, int SPLIT>
+__global__ void __launch_bounds__(32 * LGWARPS * SPLIT,
+                                  SPLIT == 1 || HD <= 80 ? 2 : 1)
+attention_long_kernel(const LongArgs a) {
+  constexpr int LD = row_floats<HD>();
+  constexpr int C = HD / 4;               // 16-byte chunks a row
+  constexpr int RC = (C + 7) / 8;         // output chunks a lane (ragged)
+  constexpr int TILE = 2 * LBK * LD;      // one K and one V tile
+  constexpr int THREADS = SPLIT * LGTHREADS;
+  extern __shared__ float4 smem4[];
+  float* const s_q = reinterpret_cast<float*>(smem4);
+  float* const s_kv = s_q + LBM * LD;     // stage st, group g: K, V
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int n = blockIdx.y;
+  const int lane = tid & 31;
+  const int kx = lane & 7;                // keys kx + 8jj; chunks kx + 8cc
+  const int g = (tid >> 5) / LGWARPS;     // this warp's key group
+  const int gtid = tid - g * LGTHREADS;   // thread within the group
+  const int wr = (gtid >> 5) * LWROWS;    // the warp's first row
+  const int ra = wr + (lane >> 3);        // rows ra + 4i, i < LRR
+  const int rows = a.group * a.sq;
+  const int sk = a.sk, group = a.group, causal = a.causal;
+  const int r0 = (a.tiles - 1 - static_cast<int>(blockIdx.x)) * LBM;
+  const int kvh = blockIdx.y;
   const long long b = blockIdx.z;
+  const float* const kb = a.k + b * a.ks.b + kvh * a.ks.n;
+  const float* const vb = a.v + b * a.vs.b + kvh * a.vs.n;
 
-  const float* qb = q + b * qs.b + n * qs.n;
-  const float* kb = k + b * ks.b + (n / group) * ks.n;
-  const float* vb = v + b * vs.b + (n / group) * vs.n;
-  float* ob = o + b * os.b + n * os.n;
-
-  for (int idx = tid; idx < BQ * HD; idx += LTHREADS) {
-    const int r = idx / HD;
-    const int d = idx - r * HD;
-    s_q[r * QLD + d] = (q0 + r < sq) ? qb[(q0 + r) * qs.s + d] : 0.f;
-  }
-
-  float m[RM];
-  float l[RM];                            // this thread's columns' share
-  float acc[RM][RC];
+  // causal: keys past the tile's last position are masked for every row,
+  // and past the warp's last position for every row of the warp
+  const int last = min(rows, r0 + LBM) - 1;
+  const int kend = causal ? min(sk, last / group + 1) : sk;
+  const int wlast = min(rows, r0 + wr + LWROWS) - 1;
+  const int wend = r0 + wr >= rows ? 0
+                   : causal        ? min(kend, wlast / group + 1)
+                                   : kend;
+  int lim[LRR];                           // a row's keys: kpos < lim
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+  for (int i = 0; i < LRR; ++i)
+    lim[i] = causal ? min(sk, (r0 + ra + 4 * i) / group + 1) : sk;
+
+  // the query rows (rows past the last are zeros, computed, never stored)
+  for (int idx = tid; idx < LBM * C; idx += THREADS) {
+    const int r = idx / C;
+    const int c = idx - r * C;
+    const int rr = r0 + r;
+    const bool in = rr < rows;
+    const int pos = in ? rr / group : 0;
+    const int j = in ? kvh * group + rr - pos * group : 0;
+    cp_async16(s_q + r * LD + 4 * c,
+               a.q + b * a.qs.b + j * a.qs.n + pos * a.qs.s + 4 * c, in);
+  }
+  const int ntiles = (kend + LBK - 1) / LBK;
+  const int rounds = (ntiles + SPLIT - 1) / SPLIT;
+  // round r's tiles r SPLIT + h into stage r & 1, slot h
+  auto copy_round = [&](int r) {
+    for (int h = 0; h < SPLIT && r * SPLIT + h < ntiles; ++h)
+      copy_kv<HD, THREADS>(s_kv + ((r & 1) * SPLIT + h) * TILE, kb, vb, a,
+                           (r * SPLIT + h) * LBK, tid);
+  };
+  copy_round(0);
+  cp_async_commit();
+
+  float m[LRR], l[LRR];                   // l: this lane's share of the sum
+  float4 acc[LRR][RC];
+#pragma unroll
+  for (int i = 0; i < LRR; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < RC; ++c) acc[i][c] = 0.f;
+    for (int cc = 0; cc < RC; ++cc)
+      acc[i][cc] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  // causal: keys past the tile's last query are masked for every row
-  const int kend = causal ? min(sk, q0 + BQ) : sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // s_q is stored; the last tile's reads are done
-    for (int idx = tid; idx < BK * HD; idx += LTHREADS) {
-      const int r = idx / HD;
-      const int d = idx - r * HD;
-      const bool in = k0 + r < sk;
-      s_k[r * KLD + d] = in ? kb[(k0 + r) * ks.s + d] : 0.f;
-      s_v[r * HD + d] = in ? vb[(k0 + r) * vs.s + d] : 0.f;
+  for (int r = 0; r < rounds; ++r) {
+    if (r + 1 < rounds) {                 // the next round into the other stage
+      copy_round(r + 1);
+      cp_async_commit();
+      cp_async_wait<1>();                 // all but the newest group landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                      // and every thread's copies
+    const int t = r * SPLIT + g;
+    const float* const s_k = s_kv + ((r & 1) * SPLIT + g) * TILE;
+    const float* const s_v = s_k + LBK * LD;
+    const int k0 = t * LBK;
+    // keys of this tile that a row of this warp may see (warp-uniform;
+    // none when the group has no tile this round)
+    const int kw = t < ntiles ? min(LBK, wend - k0) : 0;
+    if (kw > 0) {
+      float s[LRR][LNK] = {};
+      switch ((kw + 7) >> 3) {
+        case 1: long_scores<HD, 1>(s_q, s_k, ra, kx, s); break;
+        case 2: long_scores<HD, 2>(s_q, s_k, ra, kx, s); break;
+        case 3: long_scores<HD, 3>(s_q, s_k, ra, kx, s); break;
+        default: long_scores<HD, 4>(s_q, s_k, ra, kx, s); break;
+      }
+
+      // online softmax; a row's 32 keys lie in the 8 lanes kx = 0..7
+#pragma unroll
+      for (int i = 0; i < LRR; ++i) {
+        float mc = NEG_INF;
+#pragma unroll
+        for (int jj = 0; jj < LNK; ++jj) {
+          const int kpos = k0 + kx + 8 * jj;
+          s[i][jj] = kpos < lim[i] ? s[i][jj] * a.scale : NEG_INF;
+          mc = fmaxf(mc, s[i][jj]);
+        }
+        const float m_new = fmaxf(m[i], row_max8(mc));
+        // a row with every key masked so far keeps p = 0 (exp(0) is 1)
+        const float alpha = (m[i] == NEG_INF) ? 0.f : expf(m[i] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < LNK; ++jj) {
+          s[i][jj] = (m_new == NEG_INF) ? 0.f : expf(s[i][jj] - m_new);
+          ps += s[i][jj];
+        }
+        l[i] = alpha * l[i] + ps;
+#pragma unroll
+        for (int cc = 0; cc < RC; ++cc) {
+          acc[i][cc].x *= alpha;
+          acc[i][cc].y *= alpha;
+          acc[i][cc].z *= alpha;
+          acc[i][cc].w *= alpha;
+        }
+        m[i] = m_new;
+      }
+
+      // o += p . v over the keys the warp may see (p = 0 past a row's);
+      // key 8jj + jl's probability of a row is in lane jl of its 8 lanes
+#pragma unroll
+      for (int jj = 0; jj < LNK; ++jj) {
+#pragma unroll 2
+        for (int jl = 0; jl < 8; ++jl) {
+          const int j = 8 * jj + jl;
+          if (j < kw) {
+            float p[LRR];
+#pragma unroll
+            for (int i = 0; i < LRR; ++i)
+              p[i] = __shfl_sync(FULL, s[i][jj], jl, 8);
+#pragma unroll
+            for (int cc = 0; cc < RC; ++cc) {
+              if (owns_chunk<C>(kx, cc)) {
+                const float4 vv = ld4(s_v + j * LD + 4 * (kx + 8 * cc));
+#pragma unroll
+                for (int i = 0; i < LRR; ++i) fma4(acc[i][cc], p[i], vv);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                      // this stage is free to refill
+  }
+
+  // the key groups' states into group 0's, in group order: each group's
+  // m, l and acc through shared memory (the stages are free), rescaled to
+  // the larger max
+  if constexpr (SPLIT > 1) {
+    float* const s_m = s_kv;                // (SPLIT - 1, LRR, group threads)
+    float* const s_l = s_m + (SPLIT - 1) * LRR * LGTHREADS;
+    float4* const s_acc = reinterpret_cast<float4*>(
+        s_l + (SPLIT - 1) * LRR * LGTHREADS);
+    if (g > 0) {
+#pragma unroll
+      for (int i = 0; i < LRR; ++i) {
+        const int slot = ((g - 1) * LRR + i) * LGTHREADS + gtid;
+        s_m[slot] = m[i];
+        s_l[slot] = l[i];
+#pragma unroll
+        for (int cc = 0; cc < RC; ++cc)
+          s_acc[slot * RC + cc] = acc[i][cc];
+      }
     }
     __syncthreads();
-
-    float s[RM][RN];
+    if (g > 0) return;
+#pragma unroll 1
+    for (int h = 1; h < SPLIT; ++h) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < LRR; ++i) {
+        const int slot = ((h - 1) * LRR + i) * LGTHREADS + gtid;
+        const float mh = s_m[slot];
+        const float m_new = fmaxf(m[i], mh);
+        const float a0 = (m[i] == NEG_INF) ? 0.f : expf(m[i] - m_new);
+        const float a1 = (mh == NEG_INF) ? 0.f : expf(mh - m_new);
+        l[i] = a0 * l[i] + a1 * s_l[slot];
 #pragma unroll
-      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[RM];
-      float kk[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = s_q[(ty + TY * i) * QLD + d];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) kk[j] = s_k[(tx + TX * j) * KLD + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qpos = q0 + ty + TY * i;
-      float mc = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int kpos = k0 + tx + TX * j;
-        const bool valid = kpos < sk && (!causal || kpos <= qpos);
-        s[i][j] = valid ? s[i][j] * scale : NEG_INF;
-        mc = fmaxf(mc, s[i][j]);
+        for (int cc = 0; cc < RC; ++cc) {
+          const float4 o = s_acc[slot * RC + cc];
+          acc[i][cc].x = a0 * acc[i][cc].x + a1 * o.x;
+          acc[i][cc].y = a0 * acc[i][cc].y + a1 * o.y;
+          acc[i][cc].z = a0 * acc[i][cc].z + a1 * o.z;
+          acc[i][cc].w = a0 * acc[i][cc].w + a1 * o.w;
+        }
+        m[i] = m_new;
       }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, off, TX));
-      const float m_new = fmaxf(m[i], mc);
-      // a row with every key masked so far keeps p = 0 (exp(0) would be 1)
-      const float alpha = (m[i] == NEG_INF) ? 0.f : expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float p = (m_new == NEG_INF) ? 0.f : expf(s[i][j] - m_new);
-        s_p[(ty + TY * i) * PLD + tx + TX * j] = p;
-        ps += p;
-      }
-      l[i] = alpha * l[i] + ps;
-#pragma unroll
-      for (int c = 0; c < RC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[RM];
-      float vv[RC];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) p[i] = s_p[(ty + TY * i) * PLD + j];
-#pragma unroll
-      for (int c = 0; c < RC; ++c) vv[c] = s_v[j * HD + tx + TX * c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < RC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
     }
   }
 
+  // o = acc / max(l, 1e-30) (0 for a row with every key masked), float4
+  // stores through o's strides
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    float lt = l[i];
+  for (int i = 0; i < LRR; ++i) {
+    const float den = fmaxf(row_sum8(l[i]), 1e-30f);
+    const int rr = r0 + ra + 4 * i;
+    if (rr >= rows) continue;
+    const int pos = rr / group;
+    float* orow = a.o + b * a.os.b + (kvh * group + rr - pos * group) * a.os.n +
+                  pos * a.os.s;
 #pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1)
-      lt += __shfl_xor_sync(FULL, lt, off, TX);
-    const int qpos = q0 + ty + TY * i;
-    if (qpos >= sq) continue;
-    const float den = fmaxf(lt, 1e-30f);  // 0 / 1e-30 = 0 for masked rows
-    float* orow = ob + qpos * os.s;
-#pragma unroll
-    for (int c = 0; c < RC; ++c) orow[tx + TX * c] = acc[i][c] / den;
+    for (int cc = 0; cc < RC; ++cc) {
+      if (owns_chunk<C>(kx, cc)) {
+        const float4 t = acc[i][cc];
+        *reinterpret_cast<float4*>(orow + 4 * (kx + 8 * cc)) =
+            make_float4(t.x / den, t.y / den, t.z / den, t.w / den);
+      }
+    }
   }
 }
 
+// Set once a device: the stages' dynamic shared memory (169 KB for the
+// split kernel at h = 128) and the largest carveout.
+template <int HD, int SPLIT>
+cudaError_t long_attributes(int dev) {
+  static bool done[MAX_DEVICES] = {};
+  if (dev >= 0 && dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_long_kernel<HD, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      long_smem_bytes<HD, SPLIT>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_long_kernel<HD, SPLIT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev >= 0 && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+template <int HD, int SPLIT>
+cudaError_t launch_long_split(const LongArgs& a, dim3 grid, int dev,
+                              cudaStream_t stream) {
+  const cudaError_t err = long_attributes<HD, SPLIT>(dev);
+  if (err != cudaSuccess) return err;
+  attention_long_kernel<HD, SPLIT>
+      <<<grid, SPLIT * LGTHREADS, long_smem_bytes<HD, SPLIT>(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Items (64-row tiles x kv heads x batch) that fill two blocks on every SM
+// take one key group a block; fewer take two, so each SM still runs eight
+// warps (on an H100, hubert's 128 items at h = 80: 0.0265 ms split, 0.0342
+// not; the vlm's 1024 cross items over 1601 keys: 2.18 ms not split, 2.44
+// split).
 template <int HD>
 cudaError_t launch_long(const float* q, const float* k, const float* v,
-                        float* o, int batch, int heads, int sq, int sk,
+                        float* o, int batch, int kv_heads, int sq, int sk,
                         int group, const Strides* st, float scale, int causal,
                         cudaStream_t stream) {
-  constexpr int smem = long_smem_floats<HD>() * sizeof(float);
-  auto kern = attention_long_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + LBQ - 1) / LBQ, heads, batch);
-  kern<<<grid, LTHREADS, smem, stream>>>(q, k, v, o, sq, sk, group, st[0],
-                                         st[1], st[2], st[3], scale, causal);
-  return cudaGetLastError();
+  const long long tiles = (static_cast<long long>(group) * sq + LBM - 1) / LBM;
+  if (tiles > (1LL << 30)) return cudaErrorInvalidValue;
+  const LongArgs a{q, k, v, o, sq, sk, group, static_cast<int>(tiles),
+                   st[0], st[1], st[2], st[3], scale, causal};
+  const dim3 grid(a.tiles, kv_heads, batch);
+  const long long items = tiles * kv_heads * batch;
+  return items >= 2LL * sms ? launch_long_split<HD, 1>(a, grid, dev, stream)
+                            : launch_long_split<HD, 2>(a, grid, dev, stream);
 }
 
 template <int HD>
@@ -725,8 +942,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (sq <= SHORT_SQ)
     return launch_short<HD>(q, k, v, o, batch, kv_heads, sq, sk, group, st,
                             scale, causal, stream);
-  return launch_long<HD>(q, k, v, o, batch, heads, sq, sk, group, st, scale,
-                         causal, stream);
+  return launch_long<HD>(q, k, v, o, batch, kv_heads, sq, sk, group, st,
+                         scale, causal, stream);
 }
 
 }  // namespace
@@ -736,8 +953,8 @@ extern "C" {
 // q (B, N, Sq, h), k and v (B, Nkv, Sk, h), o (B, N, Sq, h), all f32 with
 // the h axis contiguous; strides holds 12 element strides, (batch, head,
 // sequence) of q, k, v and o in that order. h is one of 16, 32, 64, 80
-// and 128; the caller checks shapes, that Nkv divides N, and (for Sq <= 32) that
-// every pointer is 16-byte aligned and every stride a multiple of 4.
+// and 128; the caller checks shapes, that Nkv divides N, that every
+// pointer is 16-byte aligned and every stride a multiple of 4.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // any other h).
 int repro_flash_attention(const void* q, const void* k, const void* v,

@@ -42,9 +42,12 @@ def _lib() -> ctypes.CDLL:
                                              f32, i32, ptr, ptr, ptr, ptr,
                                              ptr, ptr]
     lib.repro_kd_kl_noop.argtypes = [ptr]
+    lib.repro_kd_kl_loss_wide_route.argtypes = [
+        i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.repro_kd_kl_fwd, lib.repro_kd_kl_bwd_ds,
                lib.repro_kd_kl_bwd_dt, lib.repro_kd_kl_loss,
-               lib.repro_kd_kl_loss_clients, lib.repro_kd_kl_noop):
+               lib.repro_kd_kl_loss_clients, lib.repro_kd_kl_noop,
+               lib.repro_kd_kl_loss_wide_route):
         fn.restype = ctypes.c_int
     return lib
 
@@ -139,9 +142,18 @@ class KdKlFunction(torch.autograd.Function):
         return ds, dt, None
 
 
-# rows per block of the fused loss (LOSS_ROWS in csrc/kd_kl.cu): one
-# partial sum per block
-LOSS_ROWS = 16
+def wide_route(k: int) -> tuple[int, int]:
+    """The fused loss's wide-row route at ``k`` > 1024 columns on the
+    current CUDA device: (blocks a row, clusters resident at once), from
+    csrc/kd_kl.cu (``chip_smoke.py`` reports them)."""
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib()
+    build.check(lib, lib.repro_kd_kl_loss_wide_route(
+        k, ctypes.byref(blocks), ctypes.byref(clusters)),
+        "kd_kl_loss wide-route occupancy")
+    return blocks.value, clusters.value
+
+
 # (device index, stream handle) -> the fused loss's tickets, one int32 a
 # client, zero between launches; one set per stream, so launches on two
 # streams of a card never share them
@@ -183,11 +195,9 @@ def kd_kl_loss_cuda(student: torch.Tensor, teacher: torch.Tensor,
                          f"device is cuda:{torch.cuda.current_device()}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     # one allocation: ds (n·K, first, so it is aligned), kl (n), the loss,
-    # one partial sum per block
+    # n partial sums (one a block of 16 rows, or a row when K > 1024)
     n_ds = n * k if want_ds else 0
-    blocks = -(-n // LOSS_ROWS)
-    buf = torch.empty((n_ds + n + 1 + blocks,), dtype=torch.float32,
-                      device=dev)
+    buf = torch.empty((n_ds + 2 * n + 1,), dtype=torch.float32, device=dev)
     base = buf.data_ptr()
     lib = _lib()
     code = lib.repro_kd_kl_loss(
@@ -232,10 +242,9 @@ def kd_kl_loss_clients_cuda(student: torch.Tensor, teacher: torch.Tensor,
                          f"device is cuda:{torch.cuda.current_device()}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     # one allocation: ds (C·n·K), kl (C·n), the losses (C), each client's
-    # partial sums (C·blocks)
+    # n partial sums (C·n)
     n_ds = c * n * k if want_ds else 0
-    blocks = -(-n // LOSS_ROWS)
-    buf = torch.empty((n_ds + c * n + c + c * blocks,), dtype=torch.float32,
+    buf = torch.empty((n_ds + 2 * c * n + c,), dtype=torch.float32,
                       device=dev)
     base = buf.data_ptr()
     lib = _lib()

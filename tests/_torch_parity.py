@@ -51,8 +51,11 @@ within the loss tolerance.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import shutil
+import tempfile
 from typing import Any, List, Optional
 
 import jax
@@ -72,6 +75,18 @@ from repro_torch.core import protocol
 from repro_torch.core.methods import get_method
 from repro_torch.data.synthetic import dataset_from_arrays
 from repro_torch.fed import simulator
+
+# The reference rebuilds its jitted functions for every experiment, so a
+# test process compiles the same XLA programs again and again: a
+# persistent compilation cache of this process's own (a temporary
+# directory, removed at exit) compiles each once. The programs, and so
+# every number the reference gives, are the same.
+if not jax.config.jax_compilation_cache_dir:
+    _COMPILE_CACHE = tempfile.mkdtemp(prefix="jax-compile-cache-")
+    atexit.register(shutil.rmtree, _COMPILE_CACHE, True)
+    jax.config.update("jax_compilation_cache_dir", _COMPILE_CACHE)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 # The suite runs on several test workers that share the host's cores;
 # torch's default of one intra-op thread a core has their parallel

@@ -261,9 +261,8 @@ def test_flash_attention_under_vmap_launches_once_for_the_clients(
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_at_head_width_80_matches_plain(smoke, b, n, nkv, s,
                                                         h, causal):
-    """hubert-xlarge's heads of 80: 20 16-byte chunks a row, the short
-    route's lanes 0-3 holding a third chunk each (16-19), the long
-    route's threads 5 columns each."""
+    """hubert-xlarge's heads of 80: 20 16-byte chunks a row, on both
+    routes lanes 0-3 of each eight holding a third chunk each (16-19)."""
     smoke.check_flash(b, n, nkv, s, h, causal=causal)
 
 
@@ -308,6 +307,32 @@ def test_flash_attention_at_the_model_axis_local_heads(smoke, name):
     smoke.check_flash(b, n, nkv, s, h, causal=causal, sk=sk)
     if name == "flash_attention_cross_local":
         smoke.check_flash_grads(2, n, nkv, s, h, causal=False, sk=sk)
+
+
+@pytest.mark.parametrize("b,n,nkv,s,h,sk,causal,grads", [
+    (2, 32, 2, 33, 80, None, True, True),
+    (2, 32, 2, 33, 80, None, False, True),
+    (2, 16, 1, 33, 128, None, True, False),
+    (2, 16, 1, 33, 128, None, False, False),
+    (2, 16, 2, 33, 80, 1601, False, False),
+    (2, 8, 8, 300, 64, None, True, False),
+    (2, 8, 8, 300, 64, None, False, False),
+    (8, 12, 4, 256, 64, None, True, True),
+    (2, 12, 4, 300, 80, None, False, False),
+    (16, 16, 16, 128, 80, None, False, False),
+    (16, 16, 16, 128, 80, None, True, False)])
+def test_flash_attention_long_route_over_a_gqa_group(smoke, b, n, nkv, s, h,
+                                                     sk, causal, grads):
+    """B6's long route (Sq > 32), whose work item is a 64-row tile of
+    (query head of the group, position) pairs: Sq 33 at GQA 16 and h 80
+    and 128, over 1601 keys at GQA 8, GQA 1 at a ragged 300, and GQA 3,
+    whose tiles straddle positions, at train_100m's shape (one key group a
+    block at h 64) and a ragged 300 (two), and hubert's heads at batch 16
+    (one key group a block at h 80), on a poisoned output (a column left
+    unwritten fails); the gradients at GQA 16 and 3."""
+    smoke.check_flash(b, n, nkv, s, h, causal=causal, sk=sk, poison=True)
+    if grads:
+        smoke.check_flash_grads(b, n, nkv, s, h, causal=causal)
 
 
 def test_flash_attention_folded_batch_past_grid_z_launches_in_chunks(smoke):
@@ -495,6 +520,27 @@ def test_rbf_kernel_over_clients(smoke, n, c, m, d, sentinel):
 @pytest.mark.parametrize("c,n,k", [(10, 64, 10), (34, 64, 10), (1, 64, 10),
                                    (3, 300, 10)])
 def test_kd_kl_loss_kernel_over_clients(smoke, c, n, k):
+    smoke.check_kl_loss_clients(c, n, k)
+
+
+@pytest.mark.parametrize("weights", ["masked", "none", "zero"])
+@pytest.mark.parametrize("n,k", [(16, 1024), (16, 1025), (16, 8193),
+                                 (16, 65536), (16, 65537), (3, 500000)])
+def test_fused_loss_wide_route_at_its_boundaries(smoke, n, k, weights):
+    """The fused loss on both sides of the register route's last width
+    (1024 / 1025), at the wide route's first two-block row, at the
+    portable clusters' last size and the first non-portable one (8 / 9
+    blocks a row), and on a row too wide for shared memory (re-read at
+    each pass): kernel against plain, two launches bitwise, a launch
+    without ds."""
+    smoke.check_kl_loss(n, k, weights)
+
+
+@pytest.mark.parametrize("c,n,k", [(3, 16, 1025), (2, 16, 65537),
+                                   (3, 5, 8193)])
+def test_fused_loss_wide_route_over_clients(smoke, c, n, k):
+    """The wide route with the client on grid y: each client bitwise its
+    own launch, against the plain version, an all-zero lane 0."""
     smoke.check_kl_loss_clients(c, n, k)
 
 

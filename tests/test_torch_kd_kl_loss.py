@@ -62,11 +62,7 @@ def _port(fn, s, t, temp, w):
     return loss.detach().numpy(), (ds.numpy(), dt.numpy())
 
 
-@pytest.mark.parametrize("backend", ["jnp", "pallas"])
-@pytest.mark.parametrize("weights", WEIGHTS)
-@pytest.mark.parametrize("temp", [1.0, 3.0])
-@pytest.mark.parametrize("n,k", SHAPES)
-def test_plain_fused_loss_matches_reference(n, k, temp, weights, backend):
+def _check_against_reference(n, k, temp, weights, backend):
     s, t, w = _inputs(n, k, temp, weights, seed=n * 7 + k)
     want_loss, (want_ds, want_dt) = _reference(s, t, temp, w, backend)
     routes = (kl_ref.kd_kl_loss,
@@ -80,6 +76,27 @@ def test_plain_fused_loss_matches_reference(n, k, temp, weights, backend):
     if weights == "all_zero":
         # max(sum w, 1) keeps the mean finite: a zero loss and gradients
         assert float(loss) == 0.0 and not ds.any() and not dt.any()
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("weights", WEIGHTS)
+@pytest.mark.parametrize("temp", [1.0, 3.0])
+@pytest.mark.parametrize("n,k", SHAPES)
+def test_plain_fused_loss_matches_reference(n, k, temp, weights, backend):
+    _check_against_reference(n, k, temp, weights, backend)
+
+
+@pytest.mark.parametrize("weights", ["with_zeros", "none"])
+@pytest.mark.parametrize("n,k,temp", [(4, 1025, 1.0), (4, 1025, 3.0),
+                                      (4, 8193, 1.0), (4, 8193, 3.0),
+                                      (2, 50304, 3.0)])
+def test_plain_fused_loss_matches_reference_on_wide_rows(n, k, temp,
+                                                         weights):
+    """Rows past the register route's 1024 columns, which the card runs on
+    the wide-row route: the first width past it, a row of two blocks and
+    xlstm-350m's vocabulary at the FD trainers' temperature (the reference
+    under jnp; its Pallas kernel in interpret mode costs seconds a case)."""
+    _check_against_reference(n, k, temp, weights, "jnp")
 
 
 @pytest.mark.parametrize("weights", ["random", "none"])
